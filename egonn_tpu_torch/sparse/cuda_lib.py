@@ -1,0 +1,107 @@
+"""Builds the port's CUDA kernels (`egonn_tpu_torch/csrc/*.cu`) with `nvcc`
+at first use and loads them with `ctypes`.
+
+Each `.cu` file becomes its own shared library with a plain C interface,
+compiled for Hopper (`sm_90a`) into `build/egonn_tpu_torch/` beside the
+package, under a name that carries a hash of the sources and flags, so a
+changed source is rebuilt and an unchanged one is reused.  All sources are
+compiled in parallel, one `nvcc` each.  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "egonn_tpu_torch"
+SOURCES = ("zrun.cu", "gather_conv.cu", "tdown.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures: every pointer and the stream as void*, every size as int
+SIGNATURES = {
+    "zrun.cu": {
+        "egonn_zrun_presence": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "egonn_zrun_rank": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "gather_conv.cu": {
+        "egonn_gather_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "tdown.cu": {
+        "egonn_tdown": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+build_seconds: float | None = None  # wall time of the last build_all()
+ptxas_log: Dict[str, str] = {}      # nvcc's -Xptxas -v report per source
+
+
+def nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def _library_path(source: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, ctypes.CDLL]:
+    """Compile (in parallel) whatever is not built yet, load every library
+    and bind its C signatures.  Raises with nvcc's output on a failed build."""
+    global build_seconds
+    if len(_LIBS) == len(SOURCES):
+        return _LIBS
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for src in SOURCES:
+        lib = _library_path(src)
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / src)]
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True), tmp, lib)
+    failed = []
+    for src, (proc, tmp, lib) in procs.items():
+        log, _ = proc.communicate()
+        ptxas_log[src] = log
+        if proc.returncode != 0:
+            failed.append(f"{src} (exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    for src in SOURCES:
+        lib = ctypes.CDLL(str(_library_path(src)))
+        for name, argtypes in SIGNATURES[src].items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIBS[src] = lib
+    build_seconds = time.perf_counter() - t0
+    return _LIBS
+
+
+def function(source: str, name: str):
+    """The bound C entry point `name` of `source`, building on first use."""
+    return getattr(build_all()[source], name)
