@@ -6,7 +6,8 @@ Parameter names and shapes follow the flax modules, so a flax variable tree
 maps one to one onto `state_dict()` keys (`utils/weights.py`): conv kernels
 (K, F_in, F_out), 1x1 kernels and Linear weights (in, out).  Every module
 takes a `torch.Generator` and draws its initial weights from it with the JAX
-package's initialisers.  Inference (eval mode) only.
+package's initialisers.  Train and eval follow `module.train()` /
+`module.eval()`, as the flax modules follow their `train` flag.
 """
 from __future__ import annotations
 
@@ -53,8 +54,12 @@ def kaiming_me(shape: Sequence[int], kernel_volume: int, out_channels: int,
 
 class SparseConv(nn.Module):
     """Stride-1 k^3 sparse conv over a self map, the constant-ones stem, or
-    (given the finer level's up map and an epilogue) the k=2 s=2 down conv
-    in transposed form.  No bias."""
+    (given the finer level's up map) the k=2 s=2 down conv.  No bias.
+
+    Dispatch as `egonn_tpu/models/layers.py:70-93`: with an eval epilogue
+    the fused kernels (the down conv in transposed form, from the up map);
+    without one the differentiable forms: the down conv over kmap_down,
+    `sparse_conv_sym` for the odd self kernels."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_volume: int,
                  gen: torch.Generator, kaiming: bool = False):
@@ -71,15 +76,21 @@ class SparseConv(nn.Module):
         self map, C_in == C_out) records neighbour presence only."""
         if feats is None:
             return sconv.sparse_conv_ones(kmap, self.kernel, kmap.shape[-1])
-        if up_parent is not None and self.kernel.shape[0] == 8:
-            if epi is None:
-                raise NotImplementedError(
-                    "the down conv without a fused epilogue (the kmap_down form that "
-                    "training uses) is not ported")
-            mask = epi[3]
-            return sconv.sparse_tdown(feats, up_parent, up_koffset, self.kernel,
-                                      mask.shape[-1], epi=epi)
-        return sconv.sparse_conv(feats, kmap, self.kernel, epi=epi)
+        k_vol = self.kernel.shape[0]
+        if epi is not None:
+            if up_parent is not None and k_vol == 8:
+                mask = epi[3]
+                return sconv.sparse_tdown(feats, up_parent, up_koffset, self.kernel,
+                                          mask.shape[-1], epi=epi)
+            return sconv.sparse_conv(feats, kmap, self.kernel, epi=epi)
+        if up_parent is not None:
+            if kmap is None:
+                raise ValueError("the down conv without an epilogue needs kmap_down: build "
+                                 "the pyramid with with_kmap_down=True")
+            return sconv.sparse_conv_down(feats, kmap, up_parent, up_koffset, self.kernel)
+        if k_vol in (27, 125, 343):
+            return sconv.sparse_conv_sym(feats, kmap, self.kernel)
+        return sconv.sparse_conv(feats, kmap, self.kernel)
 
 
 class SparseConv1x1(nn.Module):
@@ -98,7 +109,9 @@ class SparseConv1x1(nn.Module):
 
 
 class SparseConvTranspose2x2(nn.Module):
-    """Transposed k=2 s=2 conv onto the recorded finer level (FPN top-down)."""
+    """Transposed k=2 s=2 conv onto the recorded finer level (FPN top-down);
+    with a coarse level that carries kmap_down, through the gather-only
+    backward (`sparse_tconv2x2_vjp`)."""
 
     def __init__(self, in_channels: int, out_channels: int, gen: torch.Generator):
         super().__init__()
@@ -106,7 +119,12 @@ class SparseConvTranspose2x2(nn.Module):
         self.kernel = _uniform((8, in_channels, out_channels),
                                1.0 / math.sqrt(max(1, out_channels * 8)), gen)
 
-    def forward(self, feats: torch.Tensor, fine_level: Level) -> torch.Tensor:
+    def forward(self, feats: torch.Tensor, fine_level: Level,
+                coarse_level: Optional[Level] = None) -> torch.Tensor:
+        if coarse_level is not None and coarse_level.kmap_down is not None:
+            return sconv.sparse_tconv2x2_vjp(feats, fine_level.up_parent,
+                                             fine_level.up_koffset, coarse_level.kmap_down,
+                                             self.kernel)
         return sconv.sparse_tconv2x2(feats, fine_level.up_parent, fine_level.up_koffset,
                                      self.kernel)
 
@@ -144,8 +162,9 @@ class ECALayer(nn.Module):
 
 
 class BasicBlock(nn.Module):
-    """ME BasicBlock, eval form: conv3 (+BN+ReLU fused) -> conv3 (+BN fused)
-    (+ECA) -> + residual (1x1 + BN when the width changes) -> ReLU -> mask."""
+    """ME BasicBlock: conv3 -> BN -> ReLU -> conv3 -> BN (+ECA) -> + residual
+    (1x1 + BN when the width changes) -> ReLU -> mask.  In eval mode each BN
+    (and the first ReLU) is fused into its conv's epilogue."""
 
     def __init__(self, inplanes: int, planes: int, gen: torch.Generator,
                  use_eca: bool = False):
@@ -163,10 +182,14 @@ class BasicBlock(nn.Module):
             self.downsample_conv = self.downsample_norm = None
 
     def forward(self, feats: torch.Tensor, level: Level) -> torch.Tensor:
-        s1, b1 = self.norm1.affine()
-        out = self.conv1(feats, level.kmap_self, epi=(s1, b1, True, level.mask))
-        s2, b2 = self.norm2.affine()
-        out = self.conv2(out, level.kmap_self, epi=(s2, b2, False, level.mask))
+        if self.training:
+            out = torch.relu(self.norm1(self.conv1(feats, level.kmap_self), level.mask))
+            out = self.norm2(self.conv2(out, level.kmap_self), level.mask)
+        else:
+            s1, b1 = self.norm1.affine()
+            out = self.conv1(feats, level.kmap_self, epi=(s1, b1, True, level.mask))
+            s2, b2 = self.norm2.affine()
+            out = self.conv2(out, level.kmap_self, epi=(s2, b2, False, level.mask))
         if self.eca is not None:
             out = self.eca(out, level.mask)
         if self.downsample_conv is not None:

@@ -1,9 +1,11 @@
 """MinkGL, the unified global + local EgoNN network (port of
-`egonn_tpu/models/minkgl.py`), eval mode.
+`egonn_tpu/models/minkgl.py`); train or eval mode from `module.train()`.
 
 * MinkTrunk: stem conv k=5 s=1 over constant-ones features -> per level i in
-  1..L a k=2 s=2 down conv (+BN+ReLU fused) and residual blocks; returns
-  {level: feats} for levels >= min_out_level.
+  1..L a k=2 s=2 down conv + BN + ReLU and residual blocks; returns
+  {level: feats} for levels >= min_out_level.  Eval mode fuses BN + ReLU
+  into the down conv, run in transposed form from the up map; train mode
+  runs the down conv over kmap_down (the pyramid must carry it).
 * MinkHead: 1x1 conv on the top input level, then per level downwards a
   transposed k=2 s=2 conv onto the trunk's coordinates plus a 1x1 lateral.
 * MinkGL: global head -> DescriptorDecoder -> GeM = `global` (B, 256);
@@ -64,10 +66,15 @@ class MinkTrunk(nn.Module):
         out: Dict[int, torch.Tensor] = {}
         for i, n_blocks in enumerate(self.layers, start=1):
             lvl, prev = pyramid[i], pyramid[i - 1]
-            s, shift = getattr(self, f"bn{i}").affine()
-            # BN affine + ReLU + mask fused into the transposed down conv
-            x = getattr(self, f"conv{i}")(x, None, prev.up_parent, prev.up_koffset,
-                                          epi=(s, shift, True, lvl.mask))
+            conv, bn = getattr(self, f"conv{i}"), getattr(self, f"bn{i}")
+            if self.training:
+                x = conv(x, lvl.kmap_down, prev.up_parent, prev.up_koffset)
+                x = torch.relu(bn(x, lvl.mask))
+            else:
+                s, shift = bn.affine()
+                # BN affine + ReLU + mask fused into the transposed down conv
+                x = conv(x, None, prev.up_parent, prev.up_koffset,
+                         epi=(s, shift, True, lvl.mask))
             for j in range(n_blocks):
                 x = getattr(self, f"block{i}_{j}")(x, lvl)
             if i >= self.min_out_level:
@@ -95,7 +102,7 @@ class MinkHead(nn.Module):
     def forward(self, pyramid: Pyramid, trunk_out: Dict[int, torch.Tensor]) -> torch.Tensor:
         y = getattr(self, f"conv1x1_{self.max_level}")(trunk_out[self.max_level])
         for level in range(self.max_level - 1, self.min_level - 1, -1):
-            y = getattr(self, f"tconv_{level + 1}")(y, pyramid[level])
+            y = getattr(self, f"tconv_{level + 1}")(y, pyramid[level], pyramid[level + 1])
             if level in self.in_d:
                 y = y + getattr(self, f"conv1x1_{level}")(trunk_out[level])
         return masked(y, pyramid[self.min_level].mask)

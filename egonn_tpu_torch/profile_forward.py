@@ -1,14 +1,17 @@
-"""Where the time of one EgoNN inference forward goes on the card.
+"""Where the time of one EgoNN inference forward, or one training step, goes
+on the card.
 
-    python -m egonn_tpu_torch.profile_forward
+    python -m egonn_tpu_torch.profile_forward            # inference forward
+    python -m egonn_tpu_torch.profile_forward --train    # training step
 
 Runs the forward at full EgoNN width on 8 `lidar_sim` clouds (65,536 points
-each, cap0 16384, seeded random weights), 3 times under `torch.profiler`,
-and prints
+each, cap0 16384, seeded random weights), or the training step of
+config/config_egonn.txt on a full-width synthetic batch (32 global clouds +
+8 pairs, `data/train_batch.py`), 3 times under `torch.profiler`, and prints
 the device kernels with the most time, the summed kernel time (the port's own
-kernels apart), the wall time per forward and the card's busy share over the
-profiled window.  The Chrome trace goes to build/forward_trace.json.
-Needs a CUDA card.
+kernels apart), the wall time per iteration and the card's busy share over
+the profiled window.  The Chrome trace goes to build/forward_trace.json (or
+build/train_trace.json).  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -37,25 +40,49 @@ def _device_us(event) -> float:
 BATCH, ITERS, TOP = 8, 3, 30
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("profile_forward: CUDA is not available", file=sys.stderr)
-        return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def _forward_fn():
     mp = types.SimpleNamespace(model="egonn", quantizer=PolarQuantizer([1.0, 0.3, 0.2]),
                                cap0=16384)
     built = create_egonn_model(mp, device="cuda", seed=0)
     clouds = torch.from_numpy(lidar_scan_clouds(BATCH, 65536, seed=0)).to(built.device)
     mask = torch.ones(clouds.shape[:2], dtype=torch.bool, device=built.device)
+    return lambda: inference.forward(built, clouds, mask), f"forward of {BATCH} x 65536 points"
+
+
+def _train_fn():
+    from egonn_tpu_torch.config import TrainingParams
+    from egonn_tpu_torch.data.train_batch import make_train_batch
+    from egonn_tpu_torch.train.state import make_lr_schedule
+    from egonn_tpu_torch.train.trainer import make_train_step
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    tp = TrainingParams(str(root / "config" / "config_egonn.txt"),
+                        str(root / "model_configs" / "egonn.txt"), require_dataset=False)
+    built = create_egonn_model(tp.model_params, device="cuda", seed=1)
+    step = make_train_step(built, tp)
+    g, l = make_train_batch(tp, built.quantizer, built.device, n_places=tp.batch_size // 2)
+    lr = make_lr_schedule(tp)(0)
+    gen = torch.Generator(device=built.device).manual_seed(0)
+    n = g["clouds"].shape[0] + 2 * l["anc_clouds"].shape[0]
+    return lambda: step(g, l, gen, lr, True), f"train step of {n} clouds x 65536 points"
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_forward: CUDA is not available", file=sys.stderr)
+        return 1
+    train = "--train" in sys.argv[1:]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run, what = _train_fn() if train else _forward_fn()
     for _ in range(2):  # build the kernels, warm the allocator
-        inference.forward(built, clouds, mask)
+        run()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ITERS):
-            inference.forward(built, clouds, mask)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
     # device-side kernel events only: an aten op's own row repeats its kernels' time
@@ -65,17 +92,17 @@ def main() -> int:
     events.sort(key=_device_us, reverse=True)
     total_ms = sum(_device_us(e) for e in events) / 1e3 / ITERS
     own_ms = sum(_device_us(e) for e in events if "egonn::" in e.key) / 1e3 / ITERS
-    print(f"forward of {BATCH} x 65536 points: wall {wall_ms:.3f} ms, kernels "
-          f"{total_ms:.3f} ms per forward ({own_ms:.3f} ms in the port's CUDA kernels, "
+    print(f"{what}: wall {wall_ms:.3f} ms, kernels "
+          f"{total_ms:.3f} ms per iteration ({own_ms:.3f} ms in the port's CUDA kernels, "
           f"{sum(e.count for e in events) / ITERS:.0f} launches), busy share "
           f"{total_ms / wall_ms:.3f} (kernel time / wall, profiler on)")
-    print(f"{'kernel':60s} {'ms/forward':>11s} {'share':>7s} {'calls/forward':>14s}")
+    print(f"{'kernel':100s} {'ms/iter':>11s} {'share':>7s} {'calls/iter':>14s}")
     for e in events[:TOP]:
         ms = _device_us(e) / 1e3 / ITERS
-        print(f"{e.key[:60]:60s} {ms:11.4f} {ms / total_ms:7.3f} {e.count / ITERS:14.1f}")
+        print(f"{e.key[:100]:100s} {ms:11.4f} {ms / total_ms:7.3f} {e.count / ITERS:14.1f}")
     out = pathlib.Path("build")
     out.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out / "forward_trace.json"))
+    prof.export_chrome_trace(str(out / ("train_trace.json" if train else "forward_trace.json")))
     return 0
 
 

@@ -1,15 +1,23 @@
-"""Sparse convolution compute (port of the inference half of
-`egonn_tpu/sparse/conv.py`).
+"""Sparse convolution compute (port of `egonn_tpu/sparse/conv.py`).
 
 * `sparse_conv`: out[o] = sum_k feats[kmap[k, o]] @ W[k], with the optional
-  fused eval epilogue; the gather conv kernel (`kernels.gather_conv`).
+  fused eval epilogue; the gather conv kernel (`kernels.gather_conv`).  It
+  has no gradient: training goes through the three functions below.
 * `sparse_tdown`: the k=2 s=2 down conv in transposed form, driven by the
   fine level's up map (`kernels.tdown`), so inference never builds kmap_down.
 * `sparse_conv_ones`, `sparse_conv1x1`, `sparse_tconv2x2`: plain products
   (the JAX package leaves them to XLA), written with torch matmuls.
 
-Inference only: the custom-gradient forms that training uses are not
-ported.
+The custom gradients of the JAX package (`conv.py:124-217`), as
+`torch.autograd.Function`s.  Each saves its inputs, never the gathered
+activations, and its backward is a gather program again:
+
+* `sparse_conv_sym` (odd self kernels): dX = gather_conv(g, kmap reversed
+  along K, W^T) (offset -d is offset d reversed in C order), dW = gather_dw.
+* `sparse_conv_down` (k=2 s=2 over kmap_down): dX = sparse_tconv2x2(g, up map,
+  W^T), dW = gather_dw.
+* `sparse_tconv2x2_vjp`: dX = gather_conv(g, the coarse level's kmap_down,
+  W^T), dW = the slot-masked products of the gathered coarse features.
 """
 from __future__ import annotations
 
@@ -18,6 +26,19 @@ from typing import Optional
 import torch
 
 from egonn_tpu_torch.sparse import kernels
+
+
+def _transposed(kernel: torch.Tensor) -> torch.Tensor:
+    """W^T per offset, contiguous as the kernels require."""
+    return kernel.transpose(1, 2).contiguous()
+
+
+def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """The inference-only convs have no backward: raise rather than let a
+    CUDA kernel's output silently cut the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{name} has no gradient: use sparse_conv_sym or "
+                                  "sparse_conv_down")
 
 
 def sparse_conv(feats: torch.Tensor, kmap: torch.Tensor, kernel: torch.Tensor,
@@ -29,8 +50,95 @@ def sparse_conv(feats: torch.Tensor, kmap: torch.Tensor, kernel: torch.Tensor,
     (K, F_in, F_out).  Returns (B, C_out, F_out).
 
     epi = (scale (F_out,), bias (F_out,), relu: bool, mask (B, C_out)) fuses
-    the eval-mode BN affine + ReLU + row mask into the output store."""
+    the eval-mode BN affine + ReLU + row mask into the output store.  Raises
+    where a gradient is asked for."""
+    _refuse_grad("sparse_conv", feats, kernel)
     return kernels.gather_conv(feats, kmap, kernel, epi=epi)
+
+
+class _ConvSym(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats, kmap, kernel):
+        ctx.save_for_backward(feats, kmap, kernel)
+        return kernels.gather_conv(feats, kmap, kernel)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, kmap, kernel = ctx.saved_tensors
+        g = g.contiguous()
+        d_feats = d_kernel = None
+        if ctx.needs_input_grad[0]:
+            # the reversed self map is itself a self map (centre stays centre)
+            d_feats = kernels.gather_conv(g, kmap.flip(1).contiguous(), _transposed(kernel))
+        if ctx.needs_input_grad[2]:
+            d_kernel = kernels.gather_dw(feats, kmap, g)
+        return d_feats, None, d_kernel
+
+
+def sparse_conv_sym(feats: torch.Tensor, kmap: torch.Tensor, kernel: torch.Tensor
+                    ) -> torch.Tensor:
+    """Stride-1 self-convolution over a symmetric (odd k^3) offset set, with
+    the gather-only backward."""
+    return _ConvSym.apply(feats, kmap, kernel)
+
+
+class _ConvDown(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats, kmap_down, up_parent, up_koffset, kernel):
+        ctx.save_for_backward(feats, kmap_down, up_parent, up_koffset, kernel)
+        return kernels.gather_conv(feats, kmap_down, kernel)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, kmap_down, up_parent, up_koffset, kernel = ctx.saved_tensors
+        g = g.contiguous()
+        d_feats = d_kernel = None
+        if ctx.needs_input_grad[0]:
+            # the transpose of the down conv is the transposed conv
+            d_feats = sparse_tconv2x2(g, up_parent, up_koffset, kernel.transpose(1, 2))
+        if ctx.needs_input_grad[4]:
+            d_kernel = kernels.gather_dw(feats, kmap_down, g)
+        return d_feats, None, None, None, d_kernel
+
+
+def sparse_conv_down(feats: torch.Tensor, kmap_down: torch.Tensor, up_parent: torch.Tensor,
+                     up_koffset: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """k=2 s=2 down conv over the coarse level's kmap_down (B, 8, C_coarse),
+    with the gather-only backward through the fine level's up map."""
+    return _ConvDown.apply(feats, kmap_down, up_parent, up_koffset, kernel)
+
+
+class _Tconv2x2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats_coarse, up_parent, up_koffset, kmap_down, kernel):
+        ctx.save_for_backward(feats_coarse, up_parent, up_koffset, kmap_down, kernel)
+        return sparse_tconv2x2(feats_coarse, up_parent, up_koffset, kernel)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats_coarse, up_parent, up_koffset, kmap_down, kernel = ctx.saved_tensors
+        g = g.contiguous()
+        d_feats = d_kernel = None
+        if ctx.needs_input_grad[0]:
+            d_feats = kernels.gather_conv(g, kmap_down, _transposed(kernel))
+        if ctx.needs_input_grad[4]:
+            # dW[k] = sum over fine voxels in slot k of feats[parent]^T g
+            b, _, f_in = feats_coarse.shape
+            feats_p = torch.cat([feats_coarse, feats_coarse.new_zeros(b, 1, f_in)], dim=1)
+            gathered = torch.gather(feats_p, 1,
+                                    up_parent.long()[..., None].expand(-1, -1, f_in))
+            d_kernel = torch.stack([
+                torch.einsum("bcf,bco->fo", gathered * (up_koffset == k)[..., None], g)
+                for k in range(kernel.shape[0])])
+        return d_feats, None, None, None, d_kernel
+
+
+def sparse_tconv2x2_vjp(feats_coarse: torch.Tensor, up_parent: torch.Tensor,
+                        up_koffset: torch.Tensor, kmap_down: torch.Tensor,
+                        kernel: torch.Tensor) -> torch.Tensor:
+    """sparse_tconv2x2 with the gather-only backward: dX is the down conv of
+    g with W^T over the coarse level's kmap_down."""
+    return _Tconv2x2.apply(feats_coarse, up_parent, up_koffset, kmap_down, kernel)
 
 
 def sparse_tdown(feats: torch.Tensor, up_parent: torch.Tensor, up_koffset: torch.Tensor,
@@ -38,7 +146,9 @@ def sparse_tdown(feats: torch.Tensor, up_parent: torch.Tensor, up_koffset: torch
                  ) -> torch.Tensor:
     """k=2 s=2 down conv from the fine level's up map (up_parent/up_koffset,
     both (B, C_fine)); the same sum as sparse_conv over kmap_down, since each
-    (parent, slot) pair has at most one child.  Returns (B, c_coarse, F_out)."""
+    (parent, slot) pair has at most one child.  Returns (B, c_coarse, F_out).
+    Inference only: raises where a gradient is asked for."""
+    _refuse_grad("sparse_tdown", feats, kernel)
     return kernels.tdown(feats, up_parent, up_koffset, kernel, c_coarse, epi=epi)
 
 

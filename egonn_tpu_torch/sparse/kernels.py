@@ -1,4 +1,4 @@
-"""The port's four hand-written CUDA kernels, each with its plain PyTorch
+"""The port's five hand-written CUDA kernels, each with its plain PyTorch
 version and a launch counter.
 
 | here            | CUDA source             | replaces (egonn_tpu/sparse/banded.py)          |
@@ -7,6 +7,11 @@ version and a launch counter.
 | `zrun_rank`     | `csrc/zrun.cu`          | `_pallas_zrun_rank` / `zrun_rank`              |
 | `gather_conv`   | `csrc/gather_conv.cu`   | `_pallas_banded_conv` / `banded_conv_pallas`   |
 | `tdown`         | `csrc/tdown.cu`         | `_pallas_banded_tdown` / `banded_tdown_pallas` |
+| `gather_dw`     | `csrc/gather_dw.cu`     | `_pallas_banded_dw` / `banded_conv_dw`         |
+
+`gather_conv` runs every sparse conv: the eval forward, and in training the
+self and down convs' forwards and the dX backwards (`sparse/conv.py`);
+`gather_dw` is the weight gradient of the self and down convs.
 
 The TPU kernels work on band windows of the key-sorted tables and drop what
 falls outside a window; these kernels index directly, so they are exact on
@@ -33,8 +38,10 @@ from egonn_tpu_torch.sparse.packing import MAXKEY
 
 _SMEM_LIMIT = 232448 - 256  # opt-in dynamic shared memory minus the static index tile
 _CONV_F_OUT = (32, 64, 128)
+_DW_WIDTHS = (32, 64, 128)
+_DW_BLOCKS = 2 * 132  # gather_dw's partial-pass blocks: two per SM of an H100
 # kernel launches per wrapper (CUDA tensors only; the plain versions do not count)
-LAUNCHES = {"zrun_presence": 0, "zrun_rank": 0, "gather_conv": 0, "tdown": 0}
+LAUNCHES = {"zrun_presence": 0, "zrun_rank": 0, "gather_conv": 0, "tdown": 0, "gather_dw": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +244,7 @@ def invert_up(up_parent: torch.Tensor, up_koffset: torch.Tensor, c_coarse: int
                        device=up_parent.device)
     fine_idx = torch.arange(c_fine, dtype=torch.int32, device=up_parent.device)
     child.scatter_(1, tgt, fine_idx.expand(b, c_fine))
-    return child[:, :8 * c_coarse].reshape(b, 8, c_coarse)
+    return child[:, :8 * c_coarse].reshape(b, 8, c_coarse).contiguous()
 
 
 def tdown_plain(feats: torch.Tensor, up_parent: torch.Tensor, up_koffset: torch.Tensor,
@@ -276,7 +283,55 @@ def tdown(feats: torch.Tensor, up_parent: torch.Tensor, up_koffset: torch.Tensor
     return out
 
 
-KERNELS = (zrun_presence, zrun_rank, gather_conv, tdown)
+# ---------------------------------------------------------------------------
+# conv weight gradient
+# ---------------------------------------------------------------------------
+
+def gather_dw_plain(feats: torch.Tensor, kmap: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dW[k] = sum_b sum_o feats[b, kmap[b, k, o]]^T g[b, o]: a gather per
+    offset, then one contraction over the batch and the rows (the JAX
+    package's `_conv_dkernel_gather`); an index outside [0, C_in) gathers a
+    zero row."""
+    b, c_in, f_in = feats.shape
+    feats_p = torch.cat([feats, feats.new_zeros(b, 1, f_in)], dim=1)
+    idx = torch.where((kmap >= 0) & (kmap < c_in), kmap, c_in).long()
+    out = feats.new_empty(kmap.shape[1], f_in, g.shape[2])
+    for k in range(kmap.shape[1]):
+        gth = torch.gather(feats_p, 1, idx[:, k, :, None].expand(-1, -1, f_in))
+        out[k] = torch.einsum("bcf,bco->fo", gth, g)
+    return out
+
+
+def gather_dw(feats: torch.Tensor, kmap: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Weight gradient of `gather_conv(feats, kmap, W)` for the cotangent g.
+
+    feats (B, C_in, F_in) f32; kmap (B, K, C_out) int32 (sentinel C_in);
+    g (B, C_out, F_out) f32.  Returns (K, F_in, F_out) f32."""
+    if not _on_cuda(feats, kmap, g):
+        return gather_dw_plain(feats, kmap, g)
+    b, c_in, f_in = feats.shape
+    k_vol, c_out = kmap.shape[1], kmap.shape[2]
+    f_out = g.shape[2]
+    if f_in not in _DW_WIDTHS or f_out not in _DW_WIDTHS:
+        raise ValueError(f"gather_dw: F_in={f_in}, F_out={f_out}; the kernel takes "
+                         f"widths in {_DW_WIDTHS}")
+    _check(feats, "feats", torch.float32, (b, c_in, f_in), align16=True)
+    _check(kmap, "kmap", torch.int32, (b, k_vol, c_out))
+    _check(g, "g", torch.float32, (b, c_out, f_out), align16=True)
+    n_tiles = b * -(-c_out // 64)
+    n_chunks = max(1, min(n_tiles, -(-_DW_BLOCKS // k_vol)))
+    partial = torch.empty((n_chunks, k_vol, f_in, f_out), dtype=torch.float32,
+                          device=feats.device)
+    out = torch.empty((k_vol, f_in, f_out), dtype=torch.float32, device=feats.device)
+    fn = cuda_lib.function("gather_dw.cu", "egonn_gather_dw")
+    err = fn(feats.data_ptr(), kmap.data_ptr(), g.data_ptr(), partial.data_ptr(),
+             out.data_ptr(), b, c_in, f_in, k_vol, c_out, f_out, n_chunks, _stream(feats))
+    _raise_on(err, "gather_dw")
+    LAUNCHES["gather_dw"] += 1
+    return out
+
+
+KERNELS = (zrun_presence, zrun_rank, gather_conv, tdown, gather_dw)
 
 
 def reset_launches() -> None:

@@ -1,10 +1,14 @@
-"""Masked batch norm (eval mode) and global pooling over padded voxel buffers
-(port of `egonn_tpu/sparse/norm.py`).
+"""Masked batch norm and global pooling over padded voxel buffers (port of
+`egonn_tpu/sparse/norm.py`).
 
-Eval-mode BatchNorm uses the running statistics: y = (x - mean) *
-rsqrt(var + eps) * scale + bias, with padding rows zeroed.  `affine()`
-exposes the same map as a per-channel (s, b) for fusion into a conv's
-epilogue.  Train-mode statistics are not ported.
+BatchNorm normalises y = (x - mean) * rsqrt(var + eps) * scale + bias, with
+padding rows zeroed.  In eval mode mean and var are the running statistics,
+and `affine()` exposes the same map as a per-channel (s, b) for fusion into a
+conv's epilogue.  In train mode (`module.train()`) they are the statistics of
+the valid voxels of the whole batch (the biased variance), and the running
+statistics move by momentum 0.1 towards the batch mean and the unbiased
+variance var * cnt / max(cnt - 1, 1), in place.  `nn.BatchNorm1d` over the
+padded buffers would count the padding.
 """
 from __future__ import annotations
 
@@ -34,7 +38,19 @@ class SparseBatchNorm(nn.Module):
         return s, self.bias - self.mean * s
 
     def forward(self, feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        y = (feats - self.mean) * torch.rsqrt(self.var + self.eps)
+        if self.training:
+            m = mask[..., None].to(torch.float32)
+            cnt = torch.clamp_min(m.sum(), 1.0)
+            x = feats.to(torch.float32) * m
+            mean = x.sum((0, 1)) / cnt
+            var = ((x - mean) ** 2 * m).sum((0, 1)) / cnt  # biased
+            with torch.no_grad():
+                unbiased = var * cnt / torch.clamp_min(cnt - 1.0, 1.0)
+                self.mean.copy_((1 - self.momentum) * self.mean + self.momentum * mean)
+                self.var.copy_((1 - self.momentum) * self.var + self.momentum * unbiased)
+        else:
+            mean, var = self.mean, self.var
+        y = (feats - mean) * torch.rsqrt(var + self.eps)
         y = y * self.scale + self.bias
         return y * mask[..., None].to(y.dtype)
 

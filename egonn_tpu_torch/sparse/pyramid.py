@@ -14,8 +14,11 @@ For each level l (tensor stride 2^l) `build_pyramid` computes:
   only and stores 0 where the neighbour exists, the sentinel where not;
   levels >= 1 store positions rank + popcount(bits below the slot).
 
-The inference path never builds `kmap_down`: its down convs run in
-transposed form from the up maps (`sparse/kernels.py::tdown`).
+* `kmap_down` (only with `with_kmap_down=True`, which the training forward
+  asks for): the k=2 s=2 down conv's (B, 8, C_l) gather map into level l-1,
+  the finer level's up map inverted (`sparse/kernels.py::invert_up`).  The
+  inference path never builds it: its down convs run in transposed form from
+  the up maps (`sparse/kernels.py::tdown`).
 
 Kernel offsets are enumerated in C order over (dx, dy, dz), dz fastest; this
 fixes the kernel-weight layout (K, F_in, F_out).
@@ -182,12 +185,15 @@ def _dedup_chain(keys0: torch.Tensor, spec: PyramidSpec):
 
 def build_pyramid(coords0_t: torch.Tensor, mask0: torch.Tensor, spec: PyramidSpec,
                   n_unique0: Optional[torch.Tensor] = None,
-                  keys0: Optional[torch.Tensor] = None) -> Pyramid:
+                  keys0: Optional[torch.Tensor] = None,
+                  with_kmap_down: bool = False) -> Pyramid:
     """Build the batched coordinate pyramid.
 
     coords0_t (B, 3, C0) int32 level-0 voxel coords, mask0 (B, C0).  Inputs
     need not be sorted or unique unless keys0 (B, C0) is given (a
     Quantizer.quantize output), in which case level 0 is taken as canonical.
+    with_kmap_down: also build each level's `kmap_down` (training); every
+    level >= 1 then needs its finer level in `spec.up_levels`.
     """
     if n_unique0 is None:
         n_unique0 = mask0.sum(1).to(torch.int32)
@@ -216,9 +222,16 @@ def build_pyramid(coords0_t: torch.Tensor, mask0: torch.Tensor, spec: PyramidSpe
             kbits = coords[l] - 2 * (coords[l] // 2)  # (B, 3, C) in {0, 1}
             up_koffset = (4 * kbits[:, 0] + 2 * kbits[:, 1] + kbits[:, 2]).to(torch.int32)
             up_parent = up_parents[l]
+        kmap_down = None
+        if with_kmap_down and l >= 1:
+            if l - 1 not in spec.up_levels:
+                raise ValueError(f"kmap_down of level {l} needs level {l - 1}'s up map")
+            kmap_down = kernels.invert_up(levels[l - 1].up_parent, levels[l - 1].up_koffset,
+                                          spec.capacities[l])
         levels.append(Level(
             coords=coords[l], mask=masks[l], n_unique=n_uniques[l],
-            kmap_self=kmap_self, up_parent=up_parent, up_koffset=up_koffset,
+            kmap_self=kmap_self, kmap_down=kmap_down, up_parent=up_parent,
+            up_koffset=up_koffset,
             source_index=source_index if l == 0 else None,
         ))
     return Pyramid(levels=tuple(levels))

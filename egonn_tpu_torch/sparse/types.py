@@ -22,6 +22,7 @@ class Level:
     mask: torch.Tensor                          # (B, C) bool
     n_unique: torch.Tensor                      # (B,) int32 pre-truncation count
     kmap_self: Optional[torch.Tensor] = None    # (B, K, C) gather into THIS level
+    kmap_down: Optional[torch.Tensor] = None    # (B, 8, C) gather into level l-1
     up_parent: Optional[torch.Tensor] = None    # (B, C) gather into level l+1
     up_koffset: Optional[torch.Tensor] = None   # (B, C) int32 in [0, 8) kernel slot
     source_index: Optional[torch.Tensor] = None  # (B, C) level 0 only: input row

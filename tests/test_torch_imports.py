@@ -34,7 +34,9 @@ def test_no_jax_imports(path):
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, egonn_tpu_torch, egonn_tpu_torch.inference, "
-            "egonn_tpu_torch.utils.weights, egonn_tpu_torch.data.lidar_sim; "
+            "egonn_tpu_torch.utils.weights, egonn_tpu_torch.data.lidar_sim, "
+            "egonn_tpu_torch.train.trainer, egonn_tpu_torch.config, "
+            "egonn_tpu_torch.data.train_batch, egonn_tpu_torch.profile_forward; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -16,6 +16,10 @@ from egonn_tpu_torch.sparse import kernels
 from egonn_tpu_torch.sparse.packing import MAXKEY
 
 REL_TOL = 1e-5  # f32 FMA kernels against f32 torch matmuls: summation order only
+# gather_dw sums up to B x C_out rows per weight in another order (per-chunk
+# partials, then the chunks) than the plain einsum: max abs error <= 1e-4 x
+# max |plain|
+DW_REL_TOL = 1e-4
 
 
 @pytest.fixture
@@ -85,11 +89,28 @@ def test_invert_up_matches_brute_force():
     np.testing.assert_array_equal(child.numpy(), want)
 
 
+def test_gather_dw_plain_matches_brute_force():
+    gen = np.random.default_rng(3)
+    b, c_in, k_vol, c_out, f_in, f_out = 2, 40, 5, 30, 4, 3
+    feats = gen.standard_normal((b, c_in, f_in)).astype(np.float32)
+    kmap = gen.integers(0, c_in + 1, size=(b, k_vol, c_out)).astype(np.int32)
+    kmap[0, 1, 3] = -1        # out of range on both sides: zero rows
+    kmap[1, 2, 4] = c_in + 7
+    g = gen.standard_normal((b, c_out, f_out)).astype(np.float32)
+    want = np.zeros((k_vol, f_in, f_out))
+    for i, k, o in np.ndindex(b, k_vol, c_out):
+        if 0 <= kmap[i, k, o] < c_in:
+            want[k] += np.outer(feats[i, kmap[i, k, o]], g[i, o])
+    got = kernels.gather_dw(torch.from_numpy(feats), torch.from_numpy(kmap), torch.from_numpy(g))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 def test_cpu_calls_count_no_launches():
     kernels.reset_launches()
     feats = torch.randn(1, 10, 4)
     kmap = torch.randint(0, 11, (1, 27, 10), dtype=torch.int32)
     kernels.gather_conv(feats, kmap, torch.randn(27, 4, 32))
+    kernels.gather_dw(feats, kmap, torch.randn(1, 10, 32))
     assert kernels.launch_counts() == {k: 0 for k in kernels.LAUNCHES}
 
 
@@ -158,6 +179,30 @@ def test_tdown_cuda_matches_plain(cuda, f_in, f_out):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k_vol", [8, 27])
+@pytest.mark.parametrize("f_in,f_out", [(32, 32), (32, 64), (64, 128), (128, 128), (128, 32)])
+def test_gather_dw_cuda_matches_plain(cuda, k_vol, f_in, f_out):
+    gen = np.random.default_rng(f_in + f_out + k_vol)
+    b, c_in, c_out = 3, 1000, 777  # a ragged last tile
+    feats = torch.from_numpy(gen.standard_normal((b, c_in, f_in)).astype(np.float32)).to(cuda)
+    kmap = gen.integers(0, c_in, size=(b, k_vol, c_out))
+    kmap = np.where(gen.random((b, k_vol, c_out)) < 0.6, c_in, kmap).astype(np.int32)
+    kmap[:, :, 500:] = c_in  # whole tiles of sentinels
+    kmap[1, 3, 10] = -5      # out of range: a zero row
+    kmap = torch.from_numpy(kmap).to(cuda)
+    g = torch.from_numpy(gen.standard_normal((b, c_out, f_out)).astype(np.float32)).to(cuda)
+    before = kernels.launch_counts()["gather_dw"]
+    got = kernels.gather_dw(feats, kmap, g)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["gather_dw"] == before + 1
+    want = kernels.gather_dw_plain(feats, kmap, g)
+    assert got.shape == (k_vol, f_in, f_out)
+    assert _rel_err(got, want) <= DW_REL_TOL
+    # deterministic: no atomics, a fixed summation order
+    assert torch.equal(kernels.gather_dw(feats, kmap, g), got)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kz", [3, 5])
 def test_zrun_cuda_matches_plain(cuda, kz):
     gen = np.random.default_rng(kz)
@@ -183,6 +228,9 @@ def test_cuda_wrappers_raise_on_bad_inputs(cuda):
         kernels.gather_conv(feats, kmap, torch.zeros(27, 32, 48, device=cuda))
     with pytest.raises(ValueError, match="expected all on CUDA or all on the CPU"):
         kernels.gather_conv(feats, kmap.cpu(), kernel)
+    with pytest.raises(ValueError, match="gather_dw"):
+        kernels.gather_dw(torch.zeros(1, 64, 16, device=cuda), kmap,
+                          torch.zeros(1, 64, 32, device=cuda))
     with pytest.raises(ValueError, match="kz"):
         kernels.zrun_rank(torch.zeros(1, 8, dtype=torch.int32, device=cuda),
                           torch.zeros(1, 1, 8, dtype=torch.int32, device=cuda), 9)
