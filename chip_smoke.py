@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Runs the PyTorch / CUDA port of EgoNN, inference and training, on one
-NVIDIA GPU.
+"""Runs the PyTorch / CUDA port of EgoNN (inference and training) and of
+MinkLoc (inference) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
 
@@ -46,11 +46,30 @@ Phases, each printing its lines:
    norm (ReLU branches and argmin matches flip on near-ties), the BN
    statistics within rel 1e-4, and on each side the first Adam update equal
    to its closed form within 1e-6.
+6. MinkLoc and lookup.  (a) Phase 2's 8 clouds and EgoNN spec with no up
+   maps recorded: the lookup kernel builds kmap_down at L1-L7 (launches
+   LOOKUP_MAPS_LAUNCHES); every map equals the inverted up map of the
+   standard pyramid, and every kernel call of that pyramid is held against
+   its plain version and timed (library: `torch.searchsorted` on the same
+   table and queries, which gives the rank only).  (b) The MinkFPN model of
+   model_configs/minkloc3d_mulran.txt through `model_factory` at its
+   published widths (cartesian 0.3 m, planes 32/64/64, one top-down step,
+   ECA blocks, GeM, 256-d), seeded weights, cap0 40960 (every level fits),
+   on 8 x 65,536 points, twice: on the factory pyramid (MINKLOC_LAUNCHES)
+   and on one that records only level 2's up map, so the L1 and L2 down
+   convs gather over lookup-built maps (MINKLOC_LOOKUP_LAUNCHES).  Both give
+   `global` (8, 256), finite and equal (rel <= 1e-6); every kernel call of
+   both is held against its plain version and timed (median of 10).  Then 2
+   clouds on the card and on the CPU from one shared quantization, each
+   pyramid: maps bit-equal, `global` within rel 1e-5.  Last, clouds/s of
+   each pyramid (host clock): the median of 20 turns of 10 forwards on
+   varied inputs, the two pyramids in alternation.
 
 The last three lines are the card's name and power limit, one JSON object
-with every kernel's numbers (summed over the calls of one inference forward
-and one training step; `launches` is the two paths' launch counts added)
-and `{"ok": true, "device": {...}}`.  Details (every call shape's times, each
+with every kernel's numbers (summed over the calls of all the paths: the
+inference forward, the training step, the pyramid without up maps and the
+two MinkLoc forwards; `launches` is the paths' launch counts added) and
+`{"ok": true, "device": {...}}`.  Details (every call shape's times, each
 path apart) go to build/chip_smoke.json.  Any failure exits non-zero before
 the last line; without CUDA the script exits non-zero at once.
 """
@@ -75,7 +94,7 @@ F32_OPS_PER_S = 67e12       # f32 FMA pipes, outside the tensor cores (data shee
 INT32_OPS_PER_S = 33.5e12   # 64 INT32 lanes per SM against 128 FP32 lanes
 B, N_POINTS, CAP0, SEED = 8, 65536, 16384, 0
 EXPECTED_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 14, "tdown": 7,
-                     "gather_dw": 0}
+                     "gather_dw": 0, "lookup": 0}
 # Kernel launches of one training step: three train-mode forwards (global,
 # anchor, positive), each 1 zrun_presence + 7 zrun_rank (the pyramid), 7 down
 # convs + 14 self convs through gather_conv; then one backward, which reaches
@@ -88,16 +107,30 @@ EXPECTED_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 14, "tdo
 # conv.  gather_conv 3 x 21 + 14 + 2 + 2 x (8 + 1) = 97; gather_dw
 # 21 + 2 x 12 = 45.  The down convs' dX is the transposed conv in torch.
 TRAIN_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 97, "tdown": 0,
-                       "gather_dw": 45}
+                       "gather_dw": 45, "lookup": 0}
 # The validation step: three eval forwards (7 tdown, 14 gather_conv each).
 VAL_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 42, "tdown": 21,
-                     "gather_dw": 0}
+                     "gather_dw": 0, "lookup": 0}
+# Phase 6a: the EgoNN pyramid without up maps, kmap_down looked up at L1-L7.
+LOOKUP_MAPS_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 0, "tdown": 0,
+                        "gather_dw": 0, "lookup": 7}
+# Phase 6b: one MinkLoc forward: the stem map, 3 self maps, 2 convs in each
+# of 3 blocks; the factory pyramid runs the 3 down convs from the up maps,
+# the one with level 2's up map alone looks up L1 and L2's down maps and
+# runs those down convs as gathers.
+MINKLOC_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 3, "gather_conv": 6, "tdown": 3,
+                    "gather_dw": 0, "lookup": 0}
+MINKLOC_LOOKUP_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 3, "gather_conv": 8, "tdown": 1,
+                           "gather_dw": 0, "lookup": 2}
+MINKLOC_CAP0 = 40960
+MINKLOC_ROUNDS = 20  # throughput turns of each MinkLoc pyramid
 REPLACES = {
     "zrun_presence": ("egonn_tpu_torch/csrc/zrun.cu", "egonn_tpu/sparse/banded.py:970"),
     "zrun_rank": ("egonn_tpu_torch/csrc/zrun.cu", "egonn_tpu/sparse/banded.py:1095"),
     "gather_conv": ("egonn_tpu_torch/csrc/gather_conv.cu", "egonn_tpu/sparse/banded.py:207"),
     "tdown": ("egonn_tpu_torch/csrc/tdown.cu", "egonn_tpu/sparse/banded.py:506"),
     "gather_dw": ("egonn_tpu_torch/csrc/gather_dw.cu", "egonn_tpu/sparse/banded.py:688"),
+    "lookup": ("egonn_tpu_torch/csrc/lookup.cu", "egonn_tpu/sparse/banded.py:808"),
 }
 FLOAT_REL_TOL = 1e-5
 # gather_dw sums up to 32 x 16,384 rows per weight, in per-chunk partials
@@ -174,6 +207,12 @@ def work(name: str, args: tuple, kwargs: dict, out) -> tuple:
         # binary search steps + kz compares per valid query
         ops = n_valid * (math.ceil(math.log2(keys.shape[1] + 1)) + kz)
         return _nbytes(keys, q_lo, *outs), ops, INT32_OPS_PER_S
+    if name == "lookup":
+        keys, queries = args
+        n_valid = int((queries != 2**31 - 1).sum())
+        # binary search steps + one equality test per valid query
+        ops = n_valid * (math.ceil(math.log2(keys.shape[1] + 1)) + 1)
+        return _nbytes(keys, queries, out), ops, INT32_OPS_PER_S
     if name == "gather_dw":
         feats, kmap, g = args
         nnz = int(((kmap >= 0) & (kmap < feats.shape[1])).sum())
@@ -198,14 +237,15 @@ def plain_call(name: str, kernels):
         "gather_conv": kernels.gather_conv_plain,
         "tdown": kernels.tdown_plain,
         "gather_dw": kernels.gather_dw_plain,
+        "lookup": kernels.lookup_plain,
     }[name]
 
 
 def library_call(name: str, args: tuple):
     """One PyTorch call computing the same function, where there is one."""
-    if name == "zrun_rank":
-        keys, q_lo, _ = args
-        q = q_lo.reshape(keys.shape[0], -1)
+    if name in ("zrun_rank", "lookup"):
+        keys, q = args[:2]
+        q = q.reshape(keys.shape[0], -1)
         return lambda: torch.searchsorted(keys, q, out_int32=True)
     return None
 
@@ -607,6 +647,159 @@ def phase_train_card_vs_cpu(tp, g, l, lr):
                 cpu_s=host["seconds"])
 
 
+# ---------------------------------------------------------------------------
+# MinkLoc and lookup
+# ---------------------------------------------------------------------------
+
+def _path_launches(kernels, run, expected: dict, what: str):
+    """run() with every launch counter zeroed just before and read just
+    after; fails unless the counts are `expected`."""
+    kernels.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    log(f"[minkloc] launches per {what}: {launches}")
+    if launches != expected:
+        raise AssertionError(f"{what}: launches {launches}, expected {expected}")
+    return out, launches
+
+
+def _measured_path(kernels, run, launches: dict, cycles_per_ms, reps, tag) -> dict:
+    """Every kernel call of run() held against its plain version and timed;
+    rows with this path's launch counts."""
+    rows = new_rows(kernels)
+    measure_calls(rows, record_calls(kernels, run), kernels, cycles_per_ms, reps=reps, tag=tag)
+    for name, row in rows.items():
+        row["launches"] = launches[name]
+    return rows
+
+
+def phase_lookup_maps(built, kernels, pyramid_mod, cycles_per_ms):
+    """Phase 2's clouds and EgoNN spec, the pyramid built again without up
+    maps: kmap_down at L1-L7 from the lookup kernel."""
+    clouds, mask = make_inputs(built.device)
+    spec = built.pyramid_spec
+    res = built.quantizer.quantize(clouds, mask, spec.capacities[0], need_index=False)
+    no_up = dataclasses.replace(spec, up_levels=())
+
+    def build():
+        return pyramid_mod.build_pyramid(res.coords_t, res.mask, no_up, keys0=res.keys)
+
+    looked_up, launches = _path_launches(kernels, build, LOOKUP_MAPS_LAUNCHES,
+                                         "pyramid without up maps")
+    inverted = pyramid_mod.build_pyramid(res.coords_t, res.mask, spec, keys0=res.keys,
+                                         with_kmap_down=True)
+    valid = []
+    for l in range(1, spec.num_levels + 1):
+        if not torch.equal(looked_up[l].kmap_down, inverted[l].kmap_down):
+            raise AssertionError(f"L{l}: looked-up kmap_down differs from the inverted up map")
+        valid.append(int((looked_up[l].kmap_down < spec.capacities[l - 1]).sum()))
+    log(f"[minkloc] EgoNN kmap_down L1-L7 by lookup equal the inverted up maps; valid "
+        f"entries per level {valid}")
+    rows = _measured_path(kernels, build, launches, cycles_per_ms, reps=20, tag="lookup-maps")
+    return rows, dict(launches=launches, kmap_down_valid=valid)
+
+
+def _minkloc_params():
+    from egonn_tpu_torch.config import ModelParams
+
+    mp = ModelParams(str(ROOT / "model_configs" / "minkloc3d_mulran.txt"))
+    got = (mp.model, mp.coordinates, mp.quantization_step, mp.planes, mp.layers,
+           mp.num_top_down, mp.conv0_kernel_size, mp.block, mp.pooling, mp.feature_size,
+           mp.output_dim)
+    if got != ("MinkFPN", "cartesian", 0.3, [32, 64, 64], [1, 1, 1], 1, 5, "ECABasicBlock",
+               "GeM", 256, 256):
+        raise AssertionError(f"unexpected MinkLoc model parameters {got}")
+    return mp
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.cpu() - want.cpu()).abs().max() / want.abs().max())
+
+
+def phase_minkloc(kernels, inference, pyramid_mod, cycles_per_ms, device):
+    from egonn_tpu_torch.models.factory import model_factory
+
+    built = model_factory(_minkloc_params(), cap0=MINKLOC_CAP0, device=device, seed=SEED + 3)
+    spec = built.pyramid_spec
+    if spec.capacities != (40960, 20480, 10240, 5120) or spec.up_levels != (0, 1, 2):
+        raise AssertionError(f"unexpected MinkLoc pyramid spec {spec}")
+    lookup_built = dataclasses.replace(
+        built, pyramid_spec=dataclasses.replace(spec, up_levels=(2,)))
+    clouds, mask = make_inputs(device)
+    res = built.quantizer.quantize(clouds, mask, spec.capacities[0], need_index=False)
+    report = pyramid_mod.capacity_report(
+        pyramid_mod.build_pyramid(res.coords_t, res.mask, spec, keys0=res.keys), spec)
+    log(f"[minkloc] capacity report: {report}")
+    if not all(ok for _, _, ok in report.values()):
+        raise AssertionError(f"capacity overflow: {report}")
+
+    outs, launches = {}, {}
+    for name, b, expected in (("minkloc", built, MINKLOC_LAUNCHES),
+                              ("minkloc_lookup", lookup_built, MINKLOC_LOOKUP_LAUNCHES)):
+        y, launches[name] = _path_launches(
+            kernels, lambda: inference.forward(b, clouds, mask), expected, f"{name} forward")
+        g = y["global"]
+        if set(y) != {"global"} or tuple(g.shape) != (B, 256) or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name}: outputs { {k: tuple(v.shape) for k, v in y.items()} }")
+        outs[name] = g
+    spec_rel = _rel_err(outs["minkloc_lookup"], outs["minkloc"])
+    spec_equal = torch.equal(outs["minkloc_lookup"], outs["minkloc"])
+    log(f"[minkloc] global ({B}, 256) finite; lookup-built vs up-map pyramid: rel {spec_rel:.3g}, "
+        f"bit-equal {spec_equal}")
+    if not spec_rel <= 1e-6:
+        raise AssertionError("the two pyramids give different MinkLoc outputs")
+
+    rows = {name: _measured_path(kernels, lambda: inference.forward(b, clouds, mask),
+                                 launches[name], cycles_per_ms, reps=10, tag=f"{name}-kernels")
+            for name, b in (("minkloc", built), ("minkloc_lookup", lookup_built))}
+
+    # the same weights on the CPU, 2 clouds, one shared quantization
+    cpu = torch.device("cpu")
+    model_cpu = copy.deepcopy(built.model).to(cpu)
+    c2, m2 = make_inputs(cpu, b=2, seed=SEED + 1)
+    res2 = built.quantizer.quantize(c2.to(device), m2.to(device), spec.capacities[0],
+                                    need_index=False)
+    cpu_rel = {}
+    for name, b in (("minkloc", built), ("minkloc_lookup", lookup_built)):
+        pg = pyramid_mod.build_pyramid(res2.coords_t, res2.mask, b.pyramid_spec, keys0=res2.keys)
+        pc = pyramid_mod.build_pyramid(res2.coords_t.cpu(), res2.mask.cpu(), b.pyramid_spec,
+                                       keys0=res2.keys.cpu())
+        for l in range(spec.num_levels + 1):
+            for field in ("coords", "mask", "kmap_self", "kmap_down", "up_parent", "up_koffset"):
+                a, c = getattr(pg[l], field), getattr(pc[l], field)
+                if (a is None) != (c is None) or (a is not None and not torch.equal(a.cpu(), c)):
+                    raise AssertionError(f"{name} L{l} {field}: card and CPU pyramids differ")
+        with torch.no_grad():
+            cpu_rel[name] = _rel_err(built.model(pg)["global"], model_cpu(pc)["global"])
+    log(f"[minkloc] card vs CPU, 2 clouds, shared quantization: pyramids bit-equal; global rel "
+        f"{cpu_rel}")
+    if not max(cpu_rel.values()) <= 1e-5:
+        raise AssertionError("card and CPU MinkLoc forwards disagree beyond tolerance")
+
+    # throughput on varied inputs: the two pyramids in turns, 10 forwards a
+    # turn, the order swapped every round; the median turn of each
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    iters = 10
+    variants = [clouds + 0.01 * torch.randn(clouds.shape, generator=gen, device=device)
+                for _ in range(iters)]
+    paths = [("minkloc", built), ("minkloc_lookup", lookup_built)]
+    turns = {name: [] for name, _ in paths}
+    for rnd in range(MINKLOC_ROUNDS):
+        for name, b in paths[::1 if rnd % 2 == 0 else -1]:
+            inference.forward(b, variants[0], mask)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for v in variants:
+                inference.forward(b, v, mask)
+            torch.cuda.synchronize()
+            turns[name].append(B * iters / (time.perf_counter() - t0))
+    rates = {name: statistics.median(r) for name, r in turns.items()}
+    return rows, dict(launches=launches, capacity=report, spec_rel=spec_rel,
+                      spec_bit_equal=spec_equal, card_vs_cpu_rel=cpu_rel, clouds_per_s=rates,
+                      clouds_per_s_turns=turns)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -671,13 +864,26 @@ def main() -> int:
         f"(host clock), peak memory {tr['peak_memory_gb']:.2f} GiB on {smi}")
     for name, row in train_rows.items():
         row["launches"] = tr["train_launches"][name]
-    all_rows = merged_rows(rows, train_rows)
+
+    t0 = time.perf_counter()
+    maps_rows, maps = phase_lookup_maps(built, kernels, pyramid_mod, cycles_per_ms)
+    mink_rows, mink = phase_minkloc(kernels, inference, pyramid_mod, cycles_per_ms, device)
+    log(f"[minkloc] phase done in {time.perf_counter() - t0:.1f} s")
+    turns = mink["clouds_per_s_turns"]
+    quartiles = {k: [round(q, 1) for q in statistics.quantiles(v, n=4)] for k, v in turns.items()}
+    wins = sum(a > b for a, b in zip(turns["minkloc"], turns["minkloc_lookup"]))
+    log(f"[minkloc] {mink['clouds_per_s']['minkloc']:.1f} clouds/s (factory pyramid), "
+        f"{mink['clouds_per_s']['minkloc_lookup']:.1f} (lookup-built down maps): medians of "
+        f"{MINKLOC_ROUNDS} turns of 10 forwards of {B} x {N_POINTS} points in alternation, "
+        f"quartiles {quartiles}, the factory pyramid faster in {wins} of {MINKLOC_ROUNDS} "
+        f"pairs (host clock) on {smi}")
+    paths = {"forward": rows, "train_step": train_rows, "lookup_maps": maps_rows, **mink_rows}
+    all_rows = merged_rows(*paths.values())
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        dict(card=smi, slice=sl, train=tr, kernels=all_rows,
-             paths={"forward": rows, "train_step": train_rows},
-             seconds=time.perf_counter() - t_start), indent=1))
+        dict(card=smi, slice=sl, train=tr, lookup_maps=maps, minkloc=mink, kernels=all_rows,
+             paths=paths, seconds=time.perf_counter() - t_start), indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

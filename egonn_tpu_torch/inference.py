@@ -1,6 +1,6 @@
-"""The port's entry point: the EgoNN inference forward of a batch of clouds,
-quantize -> build_pyramid -> model (the counterpart of `bench.py`'s jitted
-forward)."""
+"""The port's entry point: the inference forward of a batch of clouds through
+a model of `models/factory.py` (EgoNN or MinkLoc), quantize -> build_pyramid
+-> model (the counterpart of `bench.py`'s jitted forward)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -15,8 +15,9 @@ from egonn_tpu_torch.sparse.pyramid import build_pyramid
 def forward(built: BuiltModel, clouds: torch.Tensor, mask: torch.Tensor
             ) -> Dict[str, torch.Tensor]:
     """clouds (B, N, 3) float32 cartesian points, mask (B, N) bool, both on
-    `built.device`.  Returns the model's outputs: `global` (B, 256) and, at
-    the local head's level, `descriptors`, `keypoints`, `sigma`, `kp_mask`."""
+    `built.device`.  Returns the model's outputs: `global` (B, output_dim)
+    and, for EgoNN at the local head's level, `descriptors`, `keypoints`,
+    `sigma`, `kp_mask`."""
     spec = built.pyramid_spec
     for name, t in (("clouds", clouds), ("mask", mask)):
         if t.device != built.device:

@@ -1,6 +1,6 @@
 """Building-block modules (port of `egonn_tpu/models/layers.py`): sparse conv
-wrappers, ECA attention, GeM / MAC / SPoC pooling, descriptor and regressor
-MLPs.
+wrappers, the down conv step, ECA attention, GeM / MAC / SPoC / NetVLAD
+pooling, descriptor and regressor MLPs.
 
 Parameter names and shapes follow the flax modules, so a flax variable tree
 maps one to one onto `state_dict()` keys (`utils/weights.py`): conv kernels
@@ -93,6 +93,21 @@ class SparseConv(nn.Module):
         return sconv.sparse_conv(feats, kmap, self.kernel)
 
 
+def down_conv(conv: SparseConv, bn: SparseBatchNorm, feats: torch.Tensor, level: Level,
+              finer: Level, training: bool) -> torch.Tensor:
+    """The k=2 s=2 down conv from level `finer` onto `level`, with BN and
+    ReLU.  Eval fuses BN + ReLU + mask into the conv: transposed from the
+    finer level's up map where it is recorded, else a gather over
+    `level.kmap_down`.  Train runs the conv over `level.kmap_down`, then BN
+    and ReLU."""
+    if training:
+        x = conv(feats, level.kmap_down, finer.up_parent, finer.up_koffset)
+        return torch.relu(bn(x, level.mask))
+    s, shift = bn.affine()
+    return conv(feats, level.kmap_down, finer.up_parent, finer.up_koffset,
+                epi=(s, shift, True, level.mask))
+
+
 class SparseConv1x1(nn.Module):
     """1x1 conv, kernel (in, out); kaiming fan_out on a 2-D tensor uses
     fan_out = in_channels."""
@@ -164,22 +179,27 @@ class ECALayer(nn.Module):
 class BasicBlock(nn.Module):
     """ME BasicBlock: conv3 -> BN -> ReLU -> conv3 -> BN (+ECA) -> + residual
     (1x1 + BN when the width changes) -> ReLU -> mask.  In eval mode each BN
-    (and the first ReLU) is fused into its conv's epilogue."""
+    (and the first ReLU) is fused into its conv's epilogue.  kaiming: the
+    EgoNN trunk re-initialises its convs kaiming fan_out; MinkFPN does not."""
 
     def __init__(self, inplanes: int, planes: int, gen: torch.Generator,
-                 use_eca: bool = False):
+                 use_eca: bool = False, kaiming: bool = True):
         super().__init__()
-        # the trunk re-initialises all its convs kaiming fan_out
-        self.conv1 = SparseConv(inplanes, planes, 27, gen, kaiming=True)
+        self.conv1 = SparseConv(inplanes, planes, 27, gen, kaiming=kaiming)
         self.norm1 = SparseBatchNorm(planes)
-        self.conv2 = SparseConv(planes, planes, 27, gen, kaiming=True)
+        self.conv2 = SparseConv(planes, planes, 27, gen, kaiming=kaiming)
         self.norm2 = SparseBatchNorm(planes)
         self.eca = ECALayer(planes, gen) if use_eca else None
         if inplanes != planes:
-            self.downsample_conv = SparseConv1x1(inplanes, planes, gen, kaiming=True)
+            self.downsample_conv = SparseConv1x1(inplanes, planes, gen, kaiming=kaiming)
             self.downsample_norm = SparseBatchNorm(planes)
         else:
             self.downsample_conv = self.downsample_norm = None
+
+    def attend(self, out: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Channel attention after the second conv: ECA where asked for (SE
+        in `senet.SEBasicBlock`)."""
+        return out if self.eca is None else self.eca(out, mask)
 
     def forward(self, feats: torch.Tensor, level: Level) -> torch.Tensor:
         if self.training:
@@ -190,8 +210,7 @@ class BasicBlock(nn.Module):
             out = self.conv1(feats, level.kmap_self, epi=(s1, b1, True, level.mask))
             s2, b2 = self.norm2.affine()
             out = self.conv2(out, level.kmap_self, epi=(s2, b2, False, level.mask))
-        if self.eca is not None:
-            out = self.eca(out, level.mask)
+        out = self.attend(out, level.mask)
         if self.downsample_conv is not None:
             residual = self.downsample_norm(self.downsample_conv(feats), level.mask)
         else:
@@ -216,15 +235,23 @@ class GeM(nn.Module):
 
 
 class PoolingWrapper(nn.Module):
-    """Pooling by name: MAC, SPoC or GeM."""
+    """Pooling by name: MAC, SPoC, GeM, or NetVLAD over 64 clusters
+    (`netvlad`; `netvladgc` adds context gating)."""
 
-    def __init__(self, pool_method: str, in_dim: int, output_dim: int):
+    def __init__(self, pool_method: str, in_dim: int, output_dim: int, gen: torch.Generator):
         super().__init__()
+        self.pool_method = pool_method
+        self.gem = self.netvlad = None
+        if pool_method in ("netvlad", "netvladgc"):
+            from egonn_tpu_torch.models.netvlad import NetVLADLoupe
+
+            self.netvlad = NetVLADLoupe(in_dim, 64, output_dim, gen,
+                                        gating=pool_method == "netvladgc")
+            return
         if pool_method not in ("MAC", "SPoC", "GeM"):
-            raise NotImplementedError(f"pooling {pool_method!r} is not ported")
+            raise NotImplementedError(f"Unknown pooling method: {pool_method}")
         if in_dim != output_dim:
             raise ValueError(f"{pool_method} keeps the width: {in_dim} != {output_dim}")
-        self.pool_method = pool_method
         self.gem = GeM() if pool_method == "GeM" else None
 
     def forward(self, feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -232,6 +259,8 @@ class PoolingWrapper(nn.Module):
             return global_max_pool(masked(feats, mask), mask)
         if self.pool_method == "SPoC":
             return global_avg_pool(masked(feats, mask), mask)
+        if self.netvlad is not None:
+            return self.netvlad(feats, mask)
         return self.gem(feats, mask)
 
 

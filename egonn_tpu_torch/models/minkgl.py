@@ -2,10 +2,8 @@
 `egonn_tpu/models/minkgl.py`); train or eval mode from `module.train()`.
 
 * MinkTrunk: stem conv k=5 s=1 over constant-ones features -> per level i in
-  1..L a k=2 s=2 down conv + BN + ReLU and residual blocks; returns
-  {level: feats} for levels >= min_out_level.  Eval mode fuses BN + ReLU
-  into the down conv, run in transposed form from the up map; train mode
-  runs the down conv over kmap_down (the pyramid must carry it).
+  1..L a k=2 s=2 down conv + BN + ReLU (`layers.down_conv`) and residual
+  blocks; returns {level: feats} for levels >= min_out_level.
 * MinkHead: 1x1 conv on the top input level, then per level downwards a
   transposed k=2 s=2 conv onto the trunk's coordinates plus a 1x1 lateral.
 * MinkGL: global head -> DescriptorDecoder -> GeM = `global` (B, 256);
@@ -27,6 +25,7 @@ from egonn_tpu_torch.models.layers import (
     SparseConv,
     SparseConv1x1,
     SparseConvTranspose2x2,
+    down_conv,
     l2_normalize,
 )
 from egonn_tpu_torch.sparse.norm import SparseBatchNorm
@@ -65,16 +64,9 @@ class MinkTrunk(nn.Module):
         x = masked(torch.relu(self.bn0(x, lvl0.mask)), lvl0.mask)
         out: Dict[int, torch.Tensor] = {}
         for i, n_blocks in enumerate(self.layers, start=1):
-            lvl, prev = pyramid[i], pyramid[i - 1]
-            conv, bn = getattr(self, f"conv{i}"), getattr(self, f"bn{i}")
-            if self.training:
-                x = conv(x, lvl.kmap_down, prev.up_parent, prev.up_koffset)
-                x = torch.relu(bn(x, lvl.mask))
-            else:
-                s, shift = bn.affine()
-                # BN affine + ReLU + mask fused into the transposed down conv
-                x = conv(x, None, prev.up_parent, prev.up_koffset,
-                         epi=(s, shift, True, lvl.mask))
+            lvl = pyramid[i]
+            x = down_conv(getattr(self, f"conv{i}"), getattr(self, f"bn{i}"), x, lvl,
+                          pyramid[i - 1], self.training)
             for j in range(n_blocks):
                 x = getattr(self, f"block{i}_{j}")(x, lvl)
             if i >= self.min_out_level:
@@ -133,7 +125,7 @@ class MinkGL(nn.Module):
             self.global_descriptor_decoder = DescriptorDecoder(
                 global_map_channels, global_descriptor_size, gen, normalize=False)
             self.global_pooling = PoolingWrapper(global_pool_method, global_descriptor_size,
-                                                 global_descriptor_size)
+                                                 global_descriptor_size, gen)
         if self.local_in_levels:
             l_ch = tuple(trunk_planes[i - 1] for i in self.local_in_levels)
             self.local_head = MinkHead(self.local_in_levels, l_ch, local_map_channels, gen)

@@ -20,7 +20,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "egonn_tpu_torch"
-SOURCES = ("zrun.cu", "gather_conv.cu", "tdown.cu", "gather_dw.cu")
+SOURCES = ("zrun.cu", "gather_conv.cu", "tdown.cu", "gather_dw.cu", "lookup.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +40,9 @@ SIGNATURES = {
     },
     "gather_dw.cu": {
         "egonn_gather_dw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "lookup.cu": {
+        "egonn_lookup": [_P, _P, _P, _I, _I, _I, _P],
     },
 }
 

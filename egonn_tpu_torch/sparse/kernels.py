@@ -1,4 +1,4 @@
-"""The port's five hand-written CUDA kernels, each with its plain PyTorch
+"""The port's six hand-written CUDA kernels, each with its plain PyTorch
 version and a launch counter.
 
 | here            | CUDA source             | replaces (egonn_tpu/sparse/banded.py)          |
@@ -8,10 +8,13 @@ version and a launch counter.
 | `gather_conv`   | `csrc/gather_conv.cu`   | `_pallas_banded_conv` / `banded_conv_pallas`   |
 | `tdown`         | `csrc/tdown.cu`         | `_pallas_banded_tdown` / `banded_tdown_pallas` |
 | `gather_dw`     | `csrc/gather_dw.cu`     | `_pallas_banded_dw` / `banded_conv_dw`         |
+| `lookup`        | `csrc/lookup.cu`        | `_pallas_banded_lookup` / `banded_lookup`      |
 
 `gather_conv` runs every sparse conv: the eval forward, and in training the
 self and down convs' forwards and the dX backwards (`sparse/conv.py`);
-`gather_dw` is the weight gradient of the self and down convs.
+`gather_dw` is the weight gradient of the self and down convs; `lookup`
+builds the down maps of levels whose finer level records no up map
+(`sparse/pyramid.py`).
 
 The TPU kernels work on band windows of the key-sorted tables and drop what
 falls outside a window; these kernels index directly, so they are exact on
@@ -34,14 +37,15 @@ from typing import Optional, Sequence
 import torch
 
 from egonn_tpu_torch.sparse import cuda_lib
-from egonn_tpu_torch.sparse.packing import MAXKEY
+from egonn_tpu_torch.sparse.packing import MAXKEY, lookup_sorted
 
 _SMEM_LIMIT = 232448 - 256  # opt-in dynamic shared memory minus the static index tile
 _CONV_F_OUT = (32, 64, 128)
 _DW_WIDTHS = (32, 64, 128)
 _DW_BLOCKS = 2 * 132  # gather_dw's partial-pass blocks: two per SM of an H100
 # kernel launches per wrapper (CUDA tensors only; the plain versions do not count)
-LAUNCHES = {"zrun_presence": 0, "zrun_rank": 0, "gather_conv": 0, "tdown": 0, "gather_dw": 0}
+LAUNCHES = {"zrun_presence": 0, "zrun_rank": 0, "gather_conv": 0, "tdown": 0, "gather_dw": 0,
+            "lookup": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -331,7 +335,39 @@ def gather_dw(feats: torch.Tensor, kmap: torch.Tensor, g: torch.Tensor) -> torch
     return out
 
 
-KERNELS = (zrun_presence, zrun_rank, gather_conv, tdown, gather_dw)
+# ---------------------------------------------------------------------------
+# sorted-key lookup
+# ---------------------------------------------------------------------------
+
+def lookup_plain(sorted_keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """Plain version of the lookup kernel: `packing.lookup_sorted` per cloud
+    with the sentinel C_in."""
+    return lookup_sorted(sorted_keys, queries, sentinel=sorted_keys.shape[1])
+
+
+def lookup(sorted_keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """Position of each query key in its cloud's sorted key table.
+
+    sorted_keys (B, C_in) int32 (unique keys, MAXKEY padded); queries
+    (B, K, C_out) int32 (MAXKEY invalid).  Returns (B, K, C_out) int32
+    positions, C_in where the key is absent or the query invalid."""
+    if not _on_cuda(sorted_keys, queries):
+        return lookup_plain(sorted_keys, queries)
+    b, c_in = sorted_keys.shape
+    _check(sorted_keys, "sorted_keys", torch.int32, (b, c_in))
+    if queries.dim() != 3 or queries.shape[0] != b:
+        raise ValueError(f"queries: shape {tuple(queries.shape)}, expected (B={b}, K, C_out)")
+    _check(queries, "queries", torch.int32, queries.shape)
+    pos = torch.empty_like(queries)
+    fn = cuda_lib.function("lookup.cu", "egonn_lookup")
+    err = fn(sorted_keys.data_ptr(), queries.data_ptr(), pos.data_ptr(), b, c_in,
+             queries.shape[1] * queries.shape[2], _stream(queries))
+    _raise_on(err, "lookup")
+    LAUNCHES["lookup"] += 1
+    return pos
+
+
+KERNELS = (zrun_presence, zrun_rank, gather_conv, tdown, gather_dw, lookup)
 
 
 def reset_launches() -> None:

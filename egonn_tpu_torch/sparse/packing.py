@@ -110,6 +110,25 @@ def compact_first(sorted_keys: torch.Tensor, is_first: torch.Tensor,
     return out_keys, rank, out_payload
 
 
+def lookup_sorted(sorted_keys: torch.Tensor, query_keys: torch.Tensor,
+                  sentinel: int) -> torch.Tensor:
+    """Positions of query keys in MAXKEY-padded sorted tables of unique keys;
+    `sentinel` where a query is absent or MAXKEY.
+
+    sorted_keys (..., C); query_keys (..., *q) with the same leading
+    dimensions (any shape for a 1-D table).  Returns int32 like query_keys.
+    A lower-bound search (`torch.searchsorted`) and one equality test: the
+    JAX package's bucketed compare-all is a TPU device and is not carried
+    over."""
+    lead = sorted_keys.shape[:-1]
+    c = sorted_keys.shape[-1]
+    q = query_keys.reshape(*lead, -1)
+    pos = torch.searchsorted(sorted_keys, q)
+    hit = torch.gather(sorted_keys, -1, pos.clamp(max=c - 1)) == q
+    found = hit & (pos < c) & (q != MAXKEY)
+    return torch.where(found, pos, sentinel).to(torch.int32).reshape(query_keys.shape)
+
+
 class SortedUnique(NamedTuple):
     keys: torch.Tensor      # (..., capacity) int32 sorted unique keys, MAXKEY padded
     coords_t: torch.Tensor  # (..., 3, capacity) int32 coords of unique voxels

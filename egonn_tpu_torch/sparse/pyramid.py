@@ -14,11 +14,16 @@ For each level l (tensor stride 2^l) `build_pyramid` computes:
   only and stores 0 where the neighbour exists, the sentinel where not;
   levels >= 1 store positions rank + popcount(bits below the slot).
 
-* `kmap_down` (only with `with_kmap_down=True`, which the training forward
-  asks for): the k=2 s=2 down conv's (B, 8, C_l) gather map into level l-1,
-  the finer level's up map inverted (`sparse/kernels.py::invert_up`).  The
-  inference path never builds it: its down convs run in transposed form from
-  the up maps (`sparse/kernels.py::tdown`).
+* `kmap_down`: the k=2 s=2 down conv's (B, 8, C_l) gather map into level
+  l-1, for l >= 1.  Where level l-1 records no up map it is always built, by
+  the lookup kernel (`sparse/kernels.py::lookup`) of the 8 child keys
+  2 * coord + d of every voxel in level l-1's sorted keys: the only way to
+  run that level's down conv.  Where the up map exists it is built only with
+  `with_kmap_down=True` (the training forward), as the up map inverted
+  (`sparse/kernels.py::invert_up`); the eval down convs run in transposed
+  form from the up map instead (`sparse/kernels.py::tdown`).  Both give the
+  same map: a child key is in the fine table or not, and a fine voxel
+  dropped by capacity is absent from both.
 
 Kernel offsets are enumerated in C order over (dx, dy, dz), dz fastest; this
 fixes the kernel-weight layout (K, F_in, F_out).
@@ -135,6 +140,30 @@ def _zrun_queries(coords_t: torch.Tensor, mask: torch.Tensor, k: int, pack: Pack
             top_mask.to(torch.int32))
 
 
+def _kmap_queries(coords_t: torch.Tensor, mask: torch.Tensor, kernel_size: int, scale: int,
+                  pack: PackSpec) -> torch.Tensor:
+    """Query keys of a kernel map: for every output voxel o and offset d of
+    `kernel_offsets(kernel_size)` (C order), the packed key of scale * o + d
+    under `pack`; MAXKEY where it is out of range or o is padding.
+
+    coords_t (B, 3, C), mask (B, C).  Returns (B, k^3, C) int32."""
+    bx, by, bz = pack.bits
+    ox, oy, oz = pack.offsets
+    k = kernel_size
+    lo = _offset_range(k)[0]
+    rng = torch.arange(lo, lo + k, dtype=torch.int32, device=coords_t.device)
+    dxs = rng.repeat_interleave(k * k)[None, :, None]
+    dys = rng.repeat_interleave(k).repeat(k)[None, :, None]
+    dzs = rng.repeat(k * k)[None, :, None]
+    x = scale * coords_t[:, None, 0] + dxs + ox             # (B, k^3, C)
+    y = scale * coords_t[:, None, 1] + dys + oy
+    z = scale * coords_t[:, None, 2] + dzs + oz
+    ok = ((x >= 0) & (x < (1 << bx)) & (y >= 0) & (y < (1 << by)) & (z >= 0)
+          & (z < (1 << bz)) & mask[:, None, :])
+    key = (x << (by + bz)) | (y << bz) | z
+    return torch.where(ok, key, MAXKEY).to(torch.int32).contiguous()
+
+
 def _self_kmap(keys: torch.Tensor, coords_t: torch.Tensor, mask: torch.Tensor, k: int,
                pack: PackSpec, presence_only: bool) -> torch.Tensor:
     """(B, k^3, C) self kernel map from the z-run kernels' bits (and rank)."""
@@ -192,8 +221,8 @@ def build_pyramid(coords0_t: torch.Tensor, mask0: torch.Tensor, spec: PyramidSpe
     coords0_t (B, 3, C0) int32 level-0 voxel coords, mask0 (B, C0).  Inputs
     need not be sorted or unique unless keys0 (B, C0) is given (a
     Quantizer.quantize output), in which case level 0 is taken as canonical.
-    with_kmap_down: also build each level's `kmap_down` (training); every
-    level >= 1 then needs its finer level in `spec.up_levels`.
+    with_kmap_down: also build `kmap_down` where the finer level records an
+    up map (training); where it records none, `kmap_down` is always built.
     """
     if n_unique0 is None:
         n_unique0 = mask0.sum(1).to(torch.int32)
@@ -223,9 +252,10 @@ def build_pyramid(coords0_t: torch.Tensor, mask0: torch.Tensor, spec: PyramidSpe
             up_koffset = (4 * kbits[:, 0] + 2 * kbits[:, 1] + kbits[:, 2]).to(torch.int32)
             up_parent = up_parents[l]
         kmap_down = None
-        if with_kmap_down and l >= 1:
-            if l - 1 not in spec.up_levels:
-                raise ValueError(f"kmap_down of level {l} needs level {l - 1}'s up map")
+        if l >= 1 and l - 1 not in spec.up_levels:
+            q = _kmap_queries(coords[l], masks[l], 2, 2, spec.pack_at(l - 1))
+            kmap_down = kernels.lookup(keys[l - 1], q)
+        elif l >= 1 and with_kmap_down:
             kmap_down = kernels.invert_up(levels[l - 1].up_parent, levels[l - 1].up_koffset,
                                           spec.capacities[l])
         levels.append(Level(

@@ -1,4 +1,5 @@
-"""Moves a flax EgoNN variable tree into the port's modules."""
+"""Moves a flax variable tree (EgoNN, MinkLoc, ResNetBase, or a converted
+reference checkpoint) into the port's modules."""
 from __future__ import annotations
 
 from typing import Dict, Mapping

@@ -36,14 +36,17 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, egonn_tpu_torch, egonn_tpu_torch.inference, "
             "egonn_tpu_torch.utils.weights, egonn_tpu_torch.data.lidar_sim, "
             "egonn_tpu_torch.train.trainer, egonn_tpu_torch.config, "
-            "egonn_tpu_torch.data.train_batch, egonn_tpu_torch.profile_forward; "
+            "egonn_tpu_torch.data.train_batch, egonn_tpu_torch.profile_forward, "
+            "egonn_tpu_torch.models.factory, egonn_tpu_torch.models.resnet, "
+            "egonn_tpu_torch.utils.checkpoint_convert; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
 def test_entry_points_default_to_cuda():
-    from egonn_tpu_torch.models.factory import create_egonn_model
+    from egonn_tpu_torch.models import factory
 
-    default = inspect.signature(create_egonn_model).parameters["device"].default
-    assert torch.device(default) == torch.device("cuda")
+    for fn in (factory.create_egonn_model, factory.create_minkloc_model, factory.model_factory):
+        default = inspect.signature(fn).parameters["device"].default
+        assert torch.device(default) == torch.device("cuda"), fn.__name__

@@ -111,6 +111,9 @@ def test_cpu_calls_count_no_launches():
     kmap = torch.randint(0, 11, (1, 27, 10), dtype=torch.int32)
     kernels.gather_conv(feats, kmap, torch.randn(27, 4, 32))
     kernels.gather_dw(feats, kmap, torch.randn(1, 10, 32))
+    keys = torch.arange(0, 40, 2, dtype=torch.int32)[None]
+    assert kernels.lookup(keys, torch.tensor([[[4, 5, MAXKEY]]], dtype=torch.int32)).tolist() \
+        == [[[2, 20, 20]]]
     assert kernels.launch_counts() == {k: 0 for k in kernels.LAUNCHES}
 
 
@@ -216,6 +219,25 @@ def test_zrun_cuda_matches_plain(cuda, kz):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c_in,n_valid", [(1000, (700, 0, 1000)), (40960, (29000, 40960, 3))])
+def test_lookup_cuda_matches_plain(cuda, c_in, n_valid):
+    """Partly filled, empty and full tables; a third of the queries absent or
+    invalid."""
+    gen = np.random.default_rng(c_in)
+    keys = np.full((3, c_in), MAXKEY, np.int32)
+    for i, n in enumerate(n_valid):
+        keys[i, :n] = np.sort(gen.choice(4 * c_in, n, replace=False))
+    q = _queries(gen, keys, (3, 8, 777), 4 * c_in)
+    keys, q = torch.from_numpy(keys).to(cuda), torch.from_numpy(q).to(cuda)
+    before = kernels.launch_counts()["lookup"]
+    got = kernels.lookup(keys, q)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["lookup"] == before + 1
+    assert torch.equal(got, kernels.lookup_plain(keys, q))
+    assert int((got < c_in).sum()) > 0 and int((got == c_in).sum()) > 0
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_raise_on_bad_inputs(cuda):
     feats = torch.zeros(1, 64, 32, device=cuda)
     kmap = torch.zeros(1, 27, 64, dtype=torch.int32, device=cuda)
@@ -234,3 +256,8 @@ def test_cuda_wrappers_raise_on_bad_inputs(cuda):
     with pytest.raises(ValueError, match="kz"):
         kernels.zrun_rank(torch.zeros(1, 8, dtype=torch.int32, device=cuda),
                           torch.zeros(1, 1, 8, dtype=torch.int32, device=cuda), 9)
+    keys = torch.zeros(1, 8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="queries"):
+        kernels.lookup(keys, torch.zeros(1, 8, dtype=torch.int32, device=cuda))
+    with pytest.raises(TypeError):
+        kernels.lookup(keys.long(), torch.zeros(1, 2, 8, dtype=torch.int64, device=cuda))
