@@ -7,16 +7,23 @@ MinkLoc (inference) on one NVIDIA GPU.
 Phases, each printing its lines:
 
 1. environment: the card (nvidia-smi name and power limit) and the build of
-   the CUDA kernels from `egonn_tpu_torch/csrc`.
+   the CUDA kernels from `egonn_tpu_torch/csrc`, with ptxas's registers and
+   spills per kernel (its report is kept beside each library, so a cached
+   build reports them too); a spill in gather_conv, tdown or gather_dw fails.
 2. kernels: one EgoNN forward at full width (8 LiDAR clouds x 65,536 points,
    cap0 16384, weights from a seeded generator) records every kernel call's
    inputs; each call is then held against the kernel's plain PyTorch version
-   on the card (integers bit-equal, floats within rel 1e-5: the kernels
-   multiply in f32 FMA) and each distinct call shape is timed with CUDA events
-   (median of 20 runs, each queued behind a sleep kernel so host overhead is
-   not counted), beside its bound (bytes over 3.35 TB/s or operations over
-   the type's peak rate, whichever is larger) and one PyTorch library call
-   where one computes the same function.
+   on the card (integers bit-equal, floats within rel 1e-5: the conv kernels
+   multiply in split TF32, f32 accuracy) and each distinct call shape is
+   timed with CUDA events (median of 20 runs, each queued behind a sleep
+   kernel so host overhead is not counted), beside its bound (bytes over 3.35
+   TB/s or operations over the type's peak rate, whichever is larger; f32
+   67 TFLOP/s for the float kernels), for gather_conv, tdown and gather_dw
+   also `tc_bound_ms` (bytes, or three TF32 MMAs per product at 495 TFLOP/s),
+   and one PyTorch library call where one computes the same function.  Each
+   conv / dW call shape prints a line with its levels (L<in>->L<out>), rows,
+   offsets and widths.  The largest gather_conv call is re-run twice and
+   must be bit-equal.
 3. slice: the same forward with every launch counter zeroed just before and
    read just after (zrun_presence 1, zrun_rank 7, gather_conv 14, tdown 7
    expected); output shapes, finiteness, capacity report.  Then 2 clouds on
@@ -33,7 +40,8 @@ Phases, each printing its lines:
    cloud one point per voxel) and one training step with every kernel call
    recorded; each call held against its plain version (gather_dw within
    1e-4 x max |plain|: it sums up to 32 x 16,384 rows per weight in another
-   order) and each distinct shape timed as in phase 2 (median of 10).
+   order) and each distinct shape timed as in phase 2 (median of 10); the
+   largest gather_dw call re-run twice, bit-equal.
 5. train slice: 1 warm-up step, then 5 train steps, each with the launch
    counters zeroed before and read after (TRAIN_STEP_LAUNCHES), and 1
    validation step (VAL_STEP_LAUNCHES) that must leave the model and the
@@ -64,14 +72,21 @@ Phases, each printing its lines:
    pyramid: maps bit-equal, `global` within rel 1e-5.  Last, clouds/s of
    each pyramid (host clock): the median of 20 turns of 10 forwards on
    varied inputs, the two pyramids in alternation.
+7. wide: gather_conv at (256, 256) and (512, 512) with K = 27 and at
+   (256, 512) with K = 8, gather_dw at (256, 256) and (512, 512) with K = 27,
+   on seeded ResNet-like inputs (4 clouds of capacity 4,096, 3,000 voxels,
+   40% of the neighbours present): held against the plain versions, re-run
+   bit-equal, timed (median of 10).  Not in the kernels line's sums: they go
+   to build/chip_smoke.json under "wide".
 
 The last three lines are the card's name and power limit, one JSON object
 with every kernel's numbers (summed over the calls of all the paths: the
 inference forward, the training step, the pyramid without up maps and the
 two MinkLoc forwards; `launches` is the paths' launch counts added) and
-`{"ok": true, "device": {...}}`.  Details (every call shape's times, each
-path apart) go to build/chip_smoke.json.  Any failure exits non-zero before
-the last line; without CUDA the script exits non-zero at once.
+`{"ok": true, "device": {...}}`.  Details (every call shape's times and
+`tc_bound_ms`, each path apart and summed) go to build/chip_smoke.json.
+Any failure exits non-zero before the last line; without CUDA the script
+exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -81,6 +96,7 @@ import inspect
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -91,6 +107,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # f32 FMA pipes, outside the tensor cores (data sheet)
+TF32_OPS_PER_S = 495e12     # dense TF32 tensor cores (data sheet)
+TC_KERNELS = ("gather_conv", "tdown", "gather_dw")  # split TF32: 3 TF32 MMAs per product
+SPILL_FREE = ("gather_conv.cu", "tdown.cu", "gather_dw.cu")  # ptxas must report no spills
 INT32_OPS_PER_S = 33.5e12   # 64 INT32 lanes per SM against 128 FP32 lanes
 B, N_POINTS, CAP0, SEED = 8, 65536, 16384, 0
 EXPECTED_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 14, "tdown": 7,
@@ -132,6 +151,11 @@ REPLACES = {
     "gather_dw": ("egonn_tpu_torch/csrc/gather_dw.cu", "egonn_tpu/sparse/banded.py:688"),
     "lookup": ("egonn_tpu_torch/csrc/lookup.cu", "egonn_tpu/sparse/banded.py:808"),
 }
+# Phase 7: synthetic ResNet-width calls (name, K, F_in, F_out)
+WIDE_CALLS = (("gather_conv", 27, 256, 256), ("gather_conv", 27, 512, 512),
+              ("gather_conv", 8, 256, 512), ("gather_dw", 27, 256, 256),
+              ("gather_dw", 27, 512, 512))
+WIDE_CLOUDS, WIDE_CAPACITY, WIDE_VOXELS = 4, 4096, 3000
 FLOAT_REL_TOL = 1e-5
 # gather_dw sums up to 32 x 16,384 rows per weight, in per-chunk partials
 # and then over the chunks, against one einsum in the plain version
@@ -283,10 +307,19 @@ def phase_environment(cuda_lib):
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     cuda_lib.build_all()
     log(f"[env] kernels built in {cuda_lib.build_seconds:.1f} s into {cuda_lib.BUILD_DIR}")
+    spills = []
     for src, text in cuda_lib.ptxas_log.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[env] ptxas {src}: {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and src in SPILL_FREE and (int(m[1]) or int(m[2])):
+                spills.append(f"{src}: {line.strip()}")
+    if spills:
+        raise AssertionError(f"register spills in the tensor-core kernels: {spills}")
+    unreported = [src for src in SPILL_FREE if "spill" not in cuda_lib.ptxas_log.get(src, "")]
+    if unreported:
+        raise AssertionError(f"ptxas reported no spill counts for {unreported}")
     return smi
 
 
@@ -334,16 +367,55 @@ def record_calls(kernels, run) -> list:
 def new_rows(kernels) -> dict:
     return {fn.__name__: dict(name=fn.__name__, route="cuda", source=REPLACES[fn.__name__][0],
                               replaces=REPLACES[fn.__name__][1], launches=None, max_abs_err=0.0,
-                              ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
-                              _bytes_ms=0.0, _ops_ms=0.0, calls=[])
+                              ms=0.0, plain_ms=0.0, bound_ms=0.0, tc_bound_ms=None,
+                              library_ms=None, _bytes_ms=0.0, _ops_ms=0.0, calls=[])
             for fn in kernels.KERNELS}
 
 
+def level_of(capacities) -> dict:
+    """Capacity -> level name, for the per-call lines (each EgoNN and
+    MinkLoc level has its own capacity)."""
+    return {c: f"L{l}" for l, c in enumerate(capacities)}
+
+
+def call_level(name: str, args: tuple, levels: dict) -> str:
+    """'L<in>->L<out>' of a conv or dW call from its row counts."""
+    if name == "tdown":
+        c_in, c_out = args[0].shape[1], args[4]
+    elif name in ("gather_conv", "gather_dw"):
+        c_in, c_out = args[0].shape[1], args[1].shape[2]
+    else:
+        return ""
+    return f"{levels.get(c_in, c_in)}->{levels.get(c_out, c_out)}"
+
+
+def call_desc(name: str, args: tuple) -> str:
+    """B, C_in, C_out, K and widths of a conv or dW call."""
+    if name == "tdown":
+        feats, _, _, kernel, c_out = args
+        return (f"B {feats.shape[0]} C {feats.shape[1]}->{c_out} K 8 "
+                f"F {kernel.shape[1]}->{kernel.shape[2]}")
+    feats, kmap = args[0], args[1]
+    f_out = args[2].shape[2]
+    return (f"B {feats.shape[0]} C {feats.shape[1]}->{kmap.shape[2]} K {kmap.shape[1]} "
+            f"F {feats.shape[2]}->{f_out}")
+
+
+def tc_bound_ms(name: str, nbytes: int, ops: int):
+    """The least time of a split-TF32 kernel's work: bytes over HBM, or
+    three TF32 MMAs per f32 product at the dense TF32 rate; None for the
+    integer kernels."""
+    if name not in TC_KERNELS:
+        return None
+    return max(nbytes / HBM_BYTES_PER_S, 3 * ops / TF32_OPS_PER_S) * 1e3
+
+
 def measure_calls(rows: dict, calls: list, kernels, cycles_per_ms: float, reps: int,
-                  tag: str) -> None:
+                  tag: str, levels: dict) -> None:
     """Hold every recorded call against its plain version; time each
     distinct call shape once (kernel, plain version, library call) and add
-    the times, bounds and errors of every call to its kernel's row."""
+    the times, bounds and errors of every call to its kernel's row.  Each
+    new shape prints a line, with its level for the convs and dW."""
     timed = {}
     with torch.no_grad():
         for name, args, kwargs, out in calls:
@@ -363,6 +435,7 @@ def measure_calls(rows: dict, calls: list, kernels, cycles_per_ms: float, reps: 
             ms, plain_ms, lib_ms = timed[key]
             nbytes, ops, rate = work(name, args, kwargs, out)
             bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+            tc_ms = tc_bound_ms(name, nbytes, ops)
             row = rows[name]
             row["max_abs_err"] = max(row["max_abs_err"], err)
             row["ms"] += ms
@@ -370,12 +443,21 @@ def measure_calls(rows: dict, calls: list, kernels, cycles_per_ms: float, reps: 
             row["bound_ms"] += max(bytes_ms, ops_ms)
             row["_bytes_ms"] += bytes_ms
             row["_ops_ms"] += ops_ms
+            if tc_ms is not None:
+                row["tc_bound_ms"] = (row["tc_bound_ms"] or 0.0) + tc_ms
             if lib_ms is not None:
                 row["library_ms"] = (row["library_ms"] or 0.0) + lib_ms
-            row["calls"].append(dict(shapes=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                     bytes=nbytes, ops=ops, bound_ms=max(bytes_ms, ops_ms),
+            level = call_level(name, args, levels)
+            row["calls"].append(dict(shapes=shape, level=level, ms=ms, plain_ms=plain_ms,
+                                     library_ms=lib_ms, bytes=nbytes, ops=ops,
+                                     bound_ms=max(bytes_ms, ops_ms), tc_bound_ms=tc_ms,
                                      max_abs_err=err))
-            if new_shape:
+            if new_shape and tc_ms is not None:
+                log(f"[{tag}] {name} {level} {call_desc(name, args)} "
+                    f"{'epi ' if kwargs.get('epi') is not None else ''}ms {ms:.4f} "
+                    f"plain {plain_ms:.4f} bound {max(bytes_ms, ops_ms):.4f} "
+                    f"tc_bound {tc_ms:.4f} err {err:.3g}")
+            elif new_shape:
                 log(f"[{tag}] {name} {shape[:3]} ms {ms:.4f} plain {plain_ms:.4f} "
                     f"bound {max(bytes_ms, ops_ms):.4f} err {err:.3g}")
 
@@ -387,6 +469,7 @@ def merged_rows(*paths: dict) -> dict:
     for name in paths[0]:
         rows = [p[name] for p in paths]
         libs = [r["library_ms"] for r in rows if r["library_ms"] is not None]
+        tcs = [r["tc_bound_ms"] for r in rows if r["tc_bound_ms"] is not None]
         bytes_ms = sum(r["_bytes_ms"] for r in rows)
         ops_ms = sum(r["_ops_ms"] for r in rows)
         out[name] = dict(
@@ -396,8 +479,27 @@ def merged_rows(*paths: dict) -> dict:
             ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
             bound_ms=sum(r["bound_ms"] for r in rows),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            tc_bound_ms=sum(tcs) if tcs else None,
             library_ms=sum(libs) if libs else None)
     return out
+
+
+def check_repeat(kernels, calls: list, name: str, tag: str) -> dict:
+    """The recorded `name` call with the most work, run twice more: both
+    outputs must be bit-equal to the recorded one."""
+    def size(call):
+        return work(*call[:4])[1]
+
+    _, args, kwargs, out = max((c for c in calls if c[0] == name), key=size)
+    fn = getattr(kernels, name)
+    with torch.no_grad():
+        again = [fn(*args, **kwargs) for _ in range(2)]
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, out) for a in again)
+    log(f"[{tag}] determinism: {name} {call_desc(name, args)} re-run twice, bit-equal {equal}")
+    if not equal:
+        raise AssertionError(f"{name}: a re-run differs from the recorded output")
+    return dict(name=name, call=call_desc(name, args), bit_equal=equal)
 
 
 def phase_kernels(built, kernels, inference, cycles_per_ms):
@@ -405,8 +507,61 @@ def phase_kernels(built, kernels, inference, cycles_per_ms):
     clouds, mask = make_inputs(built.device)
     calls = record_calls(kernels, lambda: inference.forward(built, clouds, mask))
     rows = new_rows(kernels)
-    measure_calls(rows, calls, kernels, cycles_per_ms, reps=20, tag="kernels")
-    return rows
+    measure_calls(rows, calls, kernels, cycles_per_ms, reps=20, tag="kernels",
+                  levels=level_of(built.pyramid_spec.capacities))
+    return rows, check_repeat(kernels, calls, "gather_conv", "kernels")
+
+
+def _wide_call(gen, name, k_vol, f_in, f_out, device):
+    """Seeded ResNet-like inputs: 4 clouds of capacity 4,096 with 3,000
+    voxels; each offset finds a neighbour for 40% of them (the centre
+    offset for all)."""
+    import numpy as np
+
+    b, c, n_valid = WIDE_CLOUDS, WIDE_CAPACITY, WIDE_VOXELS
+    feats = np.zeros((b, c, f_in), np.float32)
+    feats[:, :n_valid] = gen.standard_normal((b, n_valid, f_in))
+    kmap = np.where(gen.random((b, k_vol, c)) < 0.4, gen.integers(0, n_valid, (b, k_vol, c)), c)
+    if k_vol % 2:
+        kmap[:, k_vol // 2] = np.arange(c)
+    kmap[:, :, n_valid:] = c
+    feats = torch.from_numpy(feats).to(device)
+    kmap = torch.from_numpy(kmap.astype(np.int32)).to(device)
+    if name == "gather_dw":
+        g = np.zeros((b, c, f_out), np.float32)
+        g[:, :n_valid] = gen.standard_normal((b, n_valid, f_out))
+        return (feats, kmap, torch.from_numpy(g).to(device))
+    w = gen.standard_normal((k_vol, f_in, f_out)) / np.sqrt(k_vol * f_in)
+    return (feats, kmap, torch.from_numpy(w.astype(np.float32)).to(device))
+
+
+def phase_wide(kernels, cycles_per_ms, device) -> list:
+    """gather_conv and gather_dw at ResNet widths (256-512) on synthetic
+    seeded inputs: held against the plain versions and timed.  Not part of
+    any path's sums."""
+    import numpy as np
+
+    gen = np.random.default_rng(SEED)
+    out = []
+    with torch.no_grad():
+        for name, k_vol, f_in, f_out in WIDE_CALLS:
+            args = _wide_call(gen, name, k_vol, f_in, f_out, device)
+            fn, plain = getattr(kernels, name), plain_call(name, kernels)
+            got = fn(*args)
+            err = compare(name, got, plain(*args))
+            if not torch.equal(fn(*args), got):
+                raise AssertionError(f"wide {name}: a re-run differs")
+            ms = device_ms(lambda: fn(*args), cycles_per_ms, 10)
+            plain_ms = device_ms(lambda: plain(*args), cycles_per_ms, 10)
+            nbytes, ops, rate = work(name, args, {}, got)
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / rate) * 1e3
+            tc = tc_bound_ms(name, nbytes, ops)
+            log(f"[wide] {name} {call_desc(name, args)} ms {ms:.4f} plain {plain_ms:.4f} "
+                f"bound {bound:.4f} tc_bound {tc:.4f} err {err:.3g}")
+            out.append(dict(name=name, call=call_desc(name, args), ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound, tc_bound_ms=tc, max_abs_err=err, ops=ops,
+                            bytes=nbytes))
+    return out
 
 
 def phase_slice(built, kernels, inference, pyramid_mod):
@@ -500,7 +655,7 @@ def _gen(device, seed):
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def phase_train_kernels(step, g, l, lr, kernels, cycles_per_ms):
+def phase_train_kernels(step, g, l, lr, kernels, cycles_per_ms, levels):
     """Record every kernel call of one training step, then compare and time
     each distinct shape."""
     calls = record_calls(kernels, lambda: step(g, l, _gen(g["clouds"].device, SEED), lr, True))
@@ -509,8 +664,9 @@ def phase_train_kernels(step, g, l, lr, kernels, cycles_per_ms):
         raise AssertionError(f"kernel calls per train step {counts}, expected "
                              f"{TRAIN_STEP_LAUNCHES}")
     rows = new_rows(kernels)
-    measure_calls(rows, calls, kernels, cycles_per_ms, reps=10, tag="train-kernels")
-    return rows
+    measure_calls(rows, calls, kernels, cycles_per_ms, reps=10, tag="train-kernels",
+                  levels=levels)
+    return rows, check_repeat(kernels, calls, "gather_dw", "train-kernels")
 
 
 def _finite_stats(stats: dict, what: str) -> dict:
@@ -664,11 +820,12 @@ def _path_launches(kernels, run, expected: dict, what: str):
     return out, launches
 
 
-def _measured_path(kernels, run, launches: dict, cycles_per_ms, reps, tag) -> dict:
+def _measured_path(kernels, run, launches: dict, cycles_per_ms, reps, tag, levels) -> dict:
     """Every kernel call of run() held against its plain version and timed;
     rows with this path's launch counts."""
     rows = new_rows(kernels)
-    measure_calls(rows, record_calls(kernels, run), kernels, cycles_per_ms, reps=reps, tag=tag)
+    measure_calls(rows, record_calls(kernels, run), kernels, cycles_per_ms, reps=reps, tag=tag,
+                  levels=levels)
     for name, row in rows.items():
         row["launches"] = launches[name]
     return rows
@@ -696,7 +853,8 @@ def phase_lookup_maps(built, kernels, pyramid_mod, cycles_per_ms):
         valid.append(int((looked_up[l].kmap_down < spec.capacities[l - 1]).sum()))
     log(f"[minkloc] EgoNN kmap_down L1-L7 by lookup equal the inverted up maps; valid "
         f"entries per level {valid}")
-    rows = _measured_path(kernels, build, launches, cycles_per_ms, reps=20, tag="lookup-maps")
+    rows = _measured_path(kernels, build, launches, cycles_per_ms, reps=20, tag="lookup-maps",
+                          levels=level_of(spec.capacities))
     return rows, dict(launches=launches, kmap_down_valid=valid)
 
 
@@ -751,7 +909,8 @@ def phase_minkloc(kernels, inference, pyramid_mod, cycles_per_ms, device):
         raise AssertionError("the two pyramids give different MinkLoc outputs")
 
     rows = {name: _measured_path(kernels, lambda: inference.forward(b, clouds, mask),
-                                 launches[name], cycles_per_ms, reps=10, tag=f"{name}-kernels")
+                                 launches[name], cycles_per_ms, reps=10, tag=f"{name}-kernels",
+                                 levels=level_of(spec.capacities))
             for name, b in (("minkloc", built), ("minkloc_lookup", lookup_built))}
 
     # the same weights on the CPU, 2 clouds, one shared quantization
@@ -821,7 +980,7 @@ def main() -> int:
     cycles_per_ms = _sleep_cycles_per_ms()
 
     t0 = time.perf_counter()
-    rows = phase_kernels(built, kernels, inference, cycles_per_ms)
+    rows, repeat_fwd = phase_kernels(built, kernels, inference, cycles_per_ms)
     log(f"[kernels] phase done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     sl = phase_slice(built, kernels, inference, pyramid_mod)
@@ -853,7 +1012,8 @@ def main() -> int:
         f"{int(l['anc_mask'].sum(1).max())} voxel points per anchor "
         f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    train_rows = phase_train_kernels(step, g, l, lr, kernels, cycles_per_ms)
+    train_rows, repeat_train = phase_train_kernels(step, g, l, lr, kernels, cycles_per_ms,
+                                                   level_of(built_t.pyramid_spec.capacities))
     log(f"[train-kernels] phase done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     tr = phase_train_slice(step, g, l, lr, kernels)
@@ -879,11 +1039,15 @@ def main() -> int:
         f"pairs (host clock) on {smi}")
     paths = {"forward": rows, "train_step": train_rows, "lookup_maps": maps_rows, **mink_rows}
     all_rows = merged_rows(*paths.values())
+    t0 = time.perf_counter()
+    wide = phase_wide(kernels, cycles_per_ms, device)
+    log(f"[wide] phase done in {time.perf_counter() - t0:.1f} s")
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, slice=sl, train=tr, lookup_maps=maps, minkloc=mink, kernels=all_rows,
-             paths=paths, seconds=time.perf_counter() - t_start), indent=1))
+             paths=paths, wide=wide, determinism=[repeat_fwd, repeat_train],
+             seconds=time.perf_counter() - t_start), indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

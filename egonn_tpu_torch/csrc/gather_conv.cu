@@ -5,15 +5,17 @@
 // banded_conv_pallas), which builds a one-hot over a band window of the
 // key-sorted feature table and multiplies it on the MXU in bf16.  Here the
 // rows are gathered directly (no window, so no band overflow) and multiplied
-// in f32; see gather_mm.cuh for the design and what bounds it.
+// on the tensor cores in split TF32 (f32 accuracy); see gather_mm.cuh for the
+// design and what bounds it.  `cols` is the output-column slice of a block;
+// `n_groups` > 1 splits the offsets across blocks, summed in `partial`.
 #include "gather_mm.cuh"
 
 extern "C" int egonn_gather_conv(const float* feats, const int32_t* kmap, const float* w,
                                  const float* scale, const float* bias,
-                                 const uint8_t* mask, float* out, int batch, int c_in,
-                                 int f_in, int k_vol, int c_out, int f_out, int relu,
-                                 void* stream) {
-  return egonn::launch_gather_mm(feats, kmap, w, scale, bias, mask, out, batch, c_in,
-                                 f_in, k_vol, c_out, f_out, relu,
+                                 const uint8_t* mask, float* out, float* partial,
+                                 int n_groups, int batch, int c_in, int f_in, int k_vol,
+                                 int c_out, int f_out, int cols, int relu, void* stream) {
+  return egonn::launch_gather_mm(feats, kmap, w, scale, bias, mask, out, partial, n_groups,
+                                 batch, c_in, f_in, k_vol, c_out, f_out, cols, relu,
                                  static_cast<cudaStream_t>(stream));
 }

@@ -11,191 +11,286 @@
 // nothing carries between them, so the reduction over tiles takes two passes,
 // and rows are gathered directly (no window: exact on all data):
 //
-// 1. gather_dw_partial_kernel, grid (n_chunks, K), 256 threads.  Block (c, k)
-//    walks the 64-row tiles t = c, c + n_chunks, ... of all B x ceil(C_out/64)
-//    (cloud, tile) pairs; the stride makes every chunk sample the clouds'
-//    occupied prefixes alike.  It skips a tile whose 64 indices at offset k
-//    are all sentinel (the capacity slack past a cloud's voxels is a
-//    contiguous tail of such tiles), else gathers the 64 source rows (zeros
-//    for the sentinel) and the tile's 64 rows of g into shared memory, and
-//    each of the 16 x 16 threads adds its (F_in/16) x (F_out/16) share of the
-//    tile's 64 outer products in f32 registers (FMA).  The block then writes
-//    its partial dW[k] to partial[c, k].
+// 1. gather_dw_partial_kernel, grid (K, n_chunks, slices), 128 threads.
+//    Block (k, c, s) owns an MB x NB slice s of dW[k] (MB, NB = 32 or 64)
+//    and walks the 64-row tiles t = c, c + n_chunks, ... of all
+//    B x ceil(C_out/64) (cloud, tile) pairs; the stride makes every chunk
+//    sample the clouds' occupied prefixes alike, and the offsets of one
+//    chunk are neighbours in the grid, so they share the tiles' rows of g in
+//    L2.  Only the rows with a valid index at offset k count (the maps are
+//    sparse: 14-24% of the entries at EgoNN's L1-L2): a tile's valid rows
+//    are compacted, in row order, into rows 0 .. n-1 of a buffer, each with
+//    its gathered features (MB columns) and its row of g (NB columns), by
+//    cp.async through a ring of three shared-memory buffers, two tiles in
+//    flight while one multiplies; each thread loads one row's index a tile
+//    ahead, a ballot gives the row its place, and the warp copies its 16
+//    rows with each row's pieces on neighbouring lanes.  A
+//    tile without a valid row costs one barrier.  The 2 x 2 warps then add
+//    the tile's A^T (MB x n) . G (n x NB), the depth n rounded up to 8, to
+//    their 32 x 32 (or smaller) register pieces on the tensor cores,
+//    mma.sync m16n8k8 in split TF32 (tf32x3.cuh: f32 accuracy), into fresh
+//    accumulators added to the running sum in f32 after each tile; A's
+//    fragments are read transposed from the row-major tile, and rows are
+//    padded by 8 floats so they hit 32 distinct banks.  The block then
+//    writes its slice of partial[c, k].
 // 2. gather_dw_reduce_kernel sums partial[0 .. n_chunks-1] in index order.
 //
 // No float atomics, and a fixed summation order: the result is deterministic.
-// The wrapper picks n_chunks = ceil(264 / K), at most the tile count: two
-// blocks per SM of the H100's 132 at K = 8 (33 chunks) and K = 27 (10).
+// Slicing F_in and F_out keeps the accumulators at <= 32 registers a thread
+// at any width up to 512; each slice re-gathers the same rows from L2.  The
+// wrapper picks n_chunks so the partial pass has ~8 blocks per SM of the
+// H100's 132 (sparse/kernels.py).
 //
 // Bound: bytes of feats, kmap, g and dW, each moved once, against
-// 2 * nnz * F_in * F_out f32 operations (nnz = valid kmap entries).  At
-// EgoNN widths (32-128 channels) the operations bound it.  Per row the inner
-// loop issues F_in/16 + F_out/16 shared loads for (F_in/16)(F_out/16) FMAs.
-// Tensor cores are the next step.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// 2 * nnz * F_in * F_out f32 operations (nnz = valid kmap entries), the
+// operations at three TF32 MMAs each: at EgoNN widths the operations on
+// paper; in practice each tile's barrier and the round trip for its
+// scattered rows (PERF.md).
+#include "tf32x3.cuh"
 
 namespace egonn {
 
 constexpr int kDwRows = 64;
-constexpr int kDwThreads = 256;
-constexpr int kDwGrid = 16;  // 16 x 16 threads tile the F_in x F_out output
+constexpr int kDwThreads = 128;
+constexpr int kDwStages = 3;  // ring of tiles in shared memory: 2 in flight
 
-inline size_t gather_dw_smem_bytes(int f_in, int f_out) {
-  return sizeof(float) * (size_t)kDwRows * (f_in + f_out);
+inline size_t gather_dw_smem_bytes(int mb, int nb) {
+  return sizeof(float) * kDwStages * (size_t)kDwRows * (mb + 8 + nb + 8) +
+         sizeof(int) * (kDwStages + 1) * (kDwThreads / 32);
 }
 
-template <int FIN, int FOUT>
+template <int MB, int NB>
 __global__ void __launch_bounds__(kDwThreads)
 gather_dw_partial_kernel(const float* __restrict__ feats, const int32_t* __restrict__ kmap,
-                         const float* __restrict__ g, float* __restrict__ partial,
-                         int batch, int c_in, int k_vol, int c_out) {
-  static_assert(FIN % kDwGrid == 0 && FOUT % kDwGrid == 0, "widths must be multiples of 16");
-  constexpr int TM = FIN / kDwGrid;
-  constexpr int TN = FOUT / kDwGrid;
-  constexpr int FIN4 = FIN / 4;
-  constexpr int FOUT4 = FOUT / 4;
+                         const float* __restrict__ g, float* __restrict__ partial, int batch,
+                         int c_in, int f_in, int k_vol, int c_out, int f_out) {
+  constexpr int kLdA = MB + 8, kLdG = NB + 8;  // shared row strides (floats)
+  constexpr int kStage = kDwRows * (kLdA + kLdG);
+  constexpr int MT = MB / 32, NT = NB / 16;    // MMA tiles per warp (MB/2 x NB/2)
+  constexpr int kWarps = kDwThreads / 32;
 
   extern __shared__ float4 dw_smem4[];
-  float4* a_s = dw_smem4;                    // kDwRows x FIN/4: gathered feats
-  float4* g_s = dw_smem4 + kDwRows * FIN4;   // kDwRows x FOUT/4: the tile's g
-  __shared__ int idx_s[kDwRows];
+  float* stage_s = reinterpret_cast<float*>(dw_smem4);  // kDwStages x kStage
+  // valid rows per warp's 16 rows, for steps i mod (kDwStages + 1)
+  int* cnt_s = reinterpret_cast<int*>(stage_s + kDwStages * kStage);
 
-  const int chunk = blockIdx.x;
-  const int n_chunks = gridDim.x;
-  const int k = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int tx = tid % kDwGrid;  // output columns tx + 16 j
-  const int ty = tid / kDwGrid;  // output rows ty + 16 i
+  const int k = blockIdx.x, chunk = blockIdx.y, n_chunks = gridDim.y;
+  const int n_slices = f_out / NB;
+  const int f0 = (blockIdx.z / n_slices) * MB, n0 = (blockIdx.z % n_slices) * NB;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int r = tid >> 1, half = tid & 1;  // the row whose index this thread loads
   const int tiles_per_cloud = (c_out + kDwRows - 1) / kDwRows;
   const int n_tiles = batch * tiles_per_cloud;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int n_steps = chunk < n_tiles ? (n_tiles - 1 - chunk) / n_chunks + 1 : 0;
 
-  float acc[TM][TN];
+  // this thread's row of step i's tile at offset k: its kmap entry (c_in
+  // past the end)
+  auto raw_index = [&](int i) -> int {
+    const int tile = chunk + i * n_chunks;
+    const int b = tile / tiles_per_cloud;
+    const int row = (tile - b * tiles_per_cloud) * kDwRows + r;
+    return i < n_steps && row < c_out ? kmap[((size_t)b * k_vol + k) * c_out + row] : c_in;
+  };
+
+  // Step i's valid rows are compacted, in row order, into rows 0 .. n-1 of
+  // its buffer: the row's place is the valid rows before it, counted per
+  // warp (16 rows each) with a ballot and summed over the warps in cnt_s.
+  // Called by all threads between the copies' barrier and their issue.
+  auto count_tile = [&](int raw, int i) {
+    const bool v = (unsigned)raw < (unsigned)c_in;
+    const unsigned m = __ballot_sync(0xffffffffu, v && !half);  // even lanes: one per row
+    if (lane == 0) cnt_s[(i % (kDwStages + 1)) * kWarps + warp] = __popc(m);
+    return __popc(m & ((1u << (lane & ~1)) - 1));  // valid rows before mine in my warp
+  };
+  // Copies step i's valid rows to their places (nothing for a step without
+  // one).  Called by all threads (the shuffles need the whole warp): the
+  // lanes of a warp copy its 16 rows with a row's 16-byte pieces on
+  // neighbouring lanes, each row's index and place shuffled from the lane
+  // that loaded it.
+  auto load_tile = [&](int raw, int i, int pos) {
+    const int* cnt = cnt_s + (i % (kDwStages + 1)) * kWarps;
+    if (cnt[0] + cnt[1] + cnt[2] + cnt[3] == 0) return;  // block-uniform
+    for (int w = 0; w < warp; ++w) pos += cnt[w];
+    float* a_s = stage_s + (i % kDwStages) * kStage;
+    float* g_s = a_s + kDwRows * kLdA;
+    const int tile = chunk + i * n_chunks;
+    const int b = tile / tiles_per_cloud;
+    const int row0 = (tile - b * tiles_per_cloud) * kDwRows + warp * 16;  // this warp's rows
+    constexpr int PA = MB / 4, PG = NB / 4;  // 16-byte pieces per row
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+    for (int jr0 = 0; jr0 < 16; jr0 += 32 / PA) {
+      const int jr = jr0 + lane / PA, q = lane % PA;
+      const int src = __shfl_sync(0xffffffffu, raw, 2 * jr);
+      const int at = __shfl_sync(0xffffffffu, pos, 2 * jr);
+      if ((unsigned)src < (unsigned)c_in)
+        cp_async16(a_s + at * kLdA + 4 * q, feats + ((size_t)b * c_in + src) * f_in + f0 + 4 * q,
+                   16);
+    }
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int t = chunk; t < n_tiles; t += n_chunks) {
-    const int b = t / tiles_per_cloud;
-    const int row0 = (t - b * tiles_per_cloud) * kDwRows;
-    int valid = 0;
-    if (tid < kDwRows) {
-      const int r = row0 + tid;
-      const int src = r < c_out ? kmap[((size_t)b * k_vol + k) * c_out + r] : c_in;
-      valid = (unsigned)src < (unsigned)c_in;
-      idx_s[tid] = valid ? src : -1;
+    for (int jr0 = 0; jr0 < 16; jr0 += 32 / PG) {
+      const int jr = jr0 + lane / PG, q = lane % PG;
+      const int src = __shfl_sync(0xffffffffu, raw, 2 * jr);
+      const int at = __shfl_sync(0xffffffffu, pos, 2 * jr);
+      if ((unsigned)src < (unsigned)c_in)
+        cp_async16(g_s + at * kLdG + 4 * q,
+                   g + ((size_t)b * c_out + row0 + jr) * f_out + n0 + 4 * q, 16);
     }
-    // also the barrier between the previous tile's reads and these writes
-    if (!__syncthreads_or(valid)) continue;
+  };
 
-    const float* feats_b = feats + (size_t)b * c_in * FIN;
-    for (int e = tid; e < kDwRows * FIN4; e += kDwThreads) {
-      const int r = e / FIN4;
-      const int src = idx_s[r];
-      a_s[e] = src >= 0 ? reinterpret_cast<const float4*>(feats_b + (size_t)src * FIN)[e - r * FIN4]
-                        : zero4;
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+  // step i's n compacted rows: A^T (MB x n) . G (n x NB), depth n rounded up
+  // to the MMA's 8 (the rows past n hold stale data and are read as zero)
+  auto compute_tile = [&](int i) {
+    const int* cnt = cnt_s + (i % (kDwStages + 1)) * kWarps;
+    const int n = cnt[0] + cnt[1] + cnt[2] + cnt[3];
+    if (n == 0) return;
+    const float* a_s = stage_s + (i % kDwStages) * kStage + wm * (MB / 2);
+    const float* g_s = stage_s + (i % kDwStages) * kStage + kDwRows * kLdA + wn * (NB / 2);
+    float part[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
+    for (int kk = 0; kk < n; kk += 8) {
+      const bool v0 = kk + t < n, v1 = kk + t + 4 < n;
+      uint32_t a_hi[MT][4], a_lo[MT][4], b_hi[NT][2], b_lo[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {  // A[m][j] = a_s[j][m]: the tile transposed
+        const float* p = a_s + (kk + t) * kLdA + mt * 16 + gq;
+        split_tf32(v0 ? p[0] : 0.f, a_hi[mt][0], a_lo[mt][0]);
+        split_tf32(v0 ? p[8] : 0.f, a_hi[mt][1], a_lo[mt][1]);
+        split_tf32(v1 ? p[4 * kLdA] : 0.f, a_hi[mt][2], a_lo[mt][2]);
+        split_tf32(v1 ? p[4 * kLdA + 8] : 0.f, a_hi[mt][3], a_lo[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* p = g_s + (kk + t) * kLdG + nt * 8 + gq;
+        split_tf32(v0 ? p[0] : 0.f, b_hi[nt][0], b_lo[nt][0]);
+        split_tf32(v1 ? p[4 * kLdG] : 0.f, b_hi[nt][1], b_lo[nt][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma_3xtf32(part[mt][nt], a_hi[mt], a_lo[mt], b_hi[nt], b_lo[nt]);
     }
-    const float4* g_tile =
-        reinterpret_cast<const float4*>(g + ((size_t)b * c_out + row0) * FOUT);
-    const int n_g4 = min(kDwRows, c_out - row0) * FOUT4;
-    for (int e = tid; e < kDwRows * FOUT4; e += kDwThreads) g_s[e] = e < n_g4 ? g_tile[e] : zero4;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
+  };
+
+  // The steps through a ring of kDwStages buffers: step i + kDwStages - 1 is
+  // loaded into the buffer that step i - 1 left.  Its row counts go to slot
+  // (i + kDwStages - 1) mod (kDwStages + 1) before the barrier, never the slot
+  // that step i - 1, still computing on slower warps, reads.
+  int raw = raw_index(0);
+  for (int j = 0; j < kDwStages - 1; ++j) {
+    const int next = raw_index(j + 1);
+    const int pos = count_tile(raw, j);
     __syncthreads();
-
-    const float* a_f = reinterpret_cast<const float*>(a_s);
-    const float* g_f = reinterpret_cast<const float*>(g_s);
-#pragma unroll 4
-    for (int r = 0; r < kDwRows; ++r) {
-      float av[TM], gv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = a_f[r * FIN + ty + i * kDwGrid];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) gv[j] = g_f[r * FOUT + tx + j * kDwGrid];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], gv[j], acc[i][j]);
-    }
+    load_tile(raw, j, pos);
+    cp_async_commit();
+    raw = next;
+  }
+  for (int i = 0; i < n_steps; ++i) {
+    const int next = raw_index(i + kDwStages);  // in flight during this step
+    const int pos = count_tile(raw, i + kDwStages - 1);
+    cp_async_wait<kDwStages - 2>();  // step i has landed
+    __syncthreads();  // for every thread, with all counts; step i - 1 is done
+    load_tile(raw, i + kDwStages - 1, pos);
+    cp_async_commit();
+    compute_tile(i);
+    raw = next;
   }
 
-  float* out = partial + ((size_t)chunk * k_vol + k) * FIN * FOUT;
+  float* out = partial + ((size_t)chunk * k_vol + k) * f_in * f_out;
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) out[(ty + i * kDwGrid) * FOUT + tx + j * kDwGrid] = acc[i][j];
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = f0 + wm * (MB / 2) + mt * 16 + gq + 8 * h;
+        const int n = n0 + wn * (NB / 2) + nt * 8 + 2 * t;
+        *reinterpret_cast<float2*>(out + (size_t)m * f_out + n) =
+            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+      }
 }
 
-__global__ void gather_dw_reduce_kernel(const float* __restrict__ partial,
-                                        float* __restrict__ out, int n_chunks, int n) {
+__global__ void gather_dw_reduce_kernel(const float4* __restrict__ partial,
+                                        float4* __restrict__ out, int n_chunks, int n4) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int c = 0; c < n_chunks; ++c) s += partial[(size_t)c * n + i];
+  if (i >= n4) return;
+  float4 s = partial[i];
+  for (int c = 1; c < n_chunks; ++c) {
+    const float4 v = partial[(size_t)c * n4 + i];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
   out[i] = s;
 }
 
-template <int FIN, int FOUT>
+template <int MB, int NB>
 cudaError_t launch_gather_dw_partial(const float* feats, const int32_t* kmap, const float* g,
-                                     float* partial, int batch, int c_in, int k_vol,
-                                     int c_out, int n_chunks, cudaStream_t stream) {
-  const size_t smem = gather_dw_smem_bytes(FIN, FOUT);
-  cudaError_t err = cudaFuncSetAttribute(gather_dw_partial_kernel<FIN, FOUT>,
+                                     float* partial, int batch, int c_in, int f_in, int k_vol,
+                                     int c_out, int f_out, int n_chunks, cudaStream_t stream) {
+  const size_t smem = gather_dw_smem_bytes(MB, NB);
+  cudaError_t err = cudaFuncSetAttribute(gather_dw_partial_kernel<MB, NB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  gather_dw_partial_kernel<FIN, FOUT><<<dim3(n_chunks, k_vol), kDwThreads, smem, stream>>>(
-      feats, kmap, g, partial, batch, c_in, k_vol, c_out);
+  const dim3 grid(k_vol, n_chunks, (f_in / MB) * (f_out / NB));
+  gather_dw_partial_kernel<MB, NB><<<grid, kDwThreads, smem, stream>>>(
+      feats, kmap, g, partial, batch, c_in, f_in, k_vol, c_out, f_out);
   return cudaGetLastError();
-}
-
-template <int FIN>
-cudaError_t dispatch_f_out(int f_out, const float* feats, const int32_t* kmap, const float* g,
-                           float* partial, int batch, int c_in, int k_vol, int c_out,
-                           int n_chunks, cudaStream_t stream) {
-  switch (f_out) {
-    case 32:
-      return launch_gather_dw_partial<FIN, 32>(feats, kmap, g, partial, batch, c_in, k_vol,
-                                               c_out, n_chunks, stream);
-    case 64:
-      return launch_gather_dw_partial<FIN, 64>(feats, kmap, g, partial, batch, c_in, k_vol,
-                                               c_out, n_chunks, stream);
-    case 128:
-      return launch_gather_dw_partial<FIN, 128>(feats, kmap, g, partial, batch, c_in, k_vol,
-                                                c_out, n_chunks, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace egonn
 
-// f_in, f_out in {32, 64, 128}; partial holds n_chunks * k_vol * f_in * f_out
+// f_in, f_out multiples of 32; (mb, nb) in {32, 64}^2 the dW slice of a block,
+// mb | f_in and nb | f_out.  partial holds n_chunks * k_vol * f_in * f_out
 // floats, out k_vol * f_in * f_out.  Returns cudaGetLastError() (or the first
 // error of the attribute call or a launch).
 extern "C" int egonn_gather_dw(const float* feats, const int32_t* kmap, const float* g,
                                float* partial, float* out, int batch, int c_in, int f_in,
-                               int k_vol, int c_out, int f_out, int n_chunks, void* stream) {
+                               int k_vol, int c_out, int f_out, int mb, int nb, int n_chunks,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f_in % mb || f_out % nb || n_chunks <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err;
-  switch (f_in) {
-    case 32:
-      err = egonn::dispatch_f_out<32>(f_out, feats, kmap, g, partial, batch, c_in, k_vol,
-                                      c_out, n_chunks, st);
-      break;
-    case 64:
-      err = egonn::dispatch_f_out<64>(f_out, feats, kmap, g, partial, batch, c_in, k_vol,
-                                      c_out, n_chunks, st);
-      break;
-    case 128:
-      err = egonn::dispatch_f_out<128>(f_out, feats, kmap, g, partial, batch, c_in, k_vol,
-                                       c_out, n_chunks, st);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
+  if (mb == 64 && nb == 64)
+    err = egonn::launch_gather_dw_partial<64, 64>(feats, kmap, g, partial, batch, c_in, f_in,
+                                                  k_vol, c_out, f_out, n_chunks, st);
+  else if (mb == 64 && nb == 32)
+    err = egonn::launch_gather_dw_partial<64, 32>(feats, kmap, g, partial, batch, c_in, f_in,
+                                                  k_vol, c_out, f_out, n_chunks, st);
+  else if (mb == 32 && nb == 64)
+    err = egonn::launch_gather_dw_partial<32, 64>(feats, kmap, g, partial, batch, c_in, f_in,
+                                                  k_vol, c_out, f_out, n_chunks, st);
+  else if (mb == 32 && nb == 32)
+    err = egonn::launch_gather_dw_partial<32, 32>(feats, kmap, g, partial, batch, c_in, f_in,
+                                                  k_vol, c_out, f_out, n_chunks, st);
+  else
+    err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
-  const int n = k_vol * f_in * f_out;
-  egonn::gather_dw_reduce_kernel<<<(n + 255) / 256, 256, 0, st>>>(partial, out, n_chunks, n);
+  const int n4 = k_vol * f_in * f_out / 4;
+  egonn::gather_dw_reduce_kernel<<<(n4 + 255) / 256, 256, 0, st>>>(
+      reinterpret_cast<const float4*>(partial), reinterpret_cast<float4*>(out), n_chunks, n4);
   return (int)cudaGetLastError();
 }

@@ -12,8 +12,9 @@
 // atomics.  The child index is exactly the down conv's gather map
 // (kmap_down), so the third launch is the gather-and-multiply body of the
 // sparse conv (gather_mm.cuh) with K = 8, summing the slots in a fixed order.
-// Bound: the f32 FMAs, as for the sparse conv; the inversion moves
-// 12 bytes per fine voxel and 4 per (slot, coarse voxel).
+// Bound: as for the sparse conv (operations at the split-TF32 tensor-core
+// rate); the inversion moves 12 bytes per fine voxel and 4 per (slot,
+// coarse voxel).
 #include "gather_mm.cuh"
 
 namespace egonn {
@@ -43,7 +44,7 @@ extern "C" int egonn_tdown(const float* feats, const int32_t* up_parent,
                            const int32_t* up_koffset, const float* w, const float* scale,
                            const float* bias, const uint8_t* mask, int32_t* child,
                            float* out, int batch, int c_fine, int f_in, int c_coarse,
-                           int f_out, int relu, void* stream) {
+                           int f_out, int cols, int relu, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t n_child = (size_t)batch * 8 * c_coarse;
   const size_t n_fine = (size_t)batch * c_fine;
@@ -52,6 +53,6 @@ extern "C" int egonn_tdown(const float* feats, const int32_t* up_parent,
       up_parent, up_koffset, child, batch, c_fine, c_coarse);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return egonn::launch_gather_mm(feats, child, w, scale, bias, mask, out, batch, c_fine,
-                                 f_in, 8, c_coarse, f_out, relu, st);
+  return egonn::launch_gather_mm(feats, child, w, scale, bias, mask, out, nullptr, 1, batch,
+                                 c_fine, f_in, 8, c_coarse, f_out, cols, relu, st);
 }

@@ -5,7 +5,9 @@ Each `.cu` file becomes its own shared library with a plain C interface,
 compiled for Hopper (`sm_90a`) into `build/egonn_tpu_torch/` beside the
 package, under a name that carries a hash of the sources and flags, so a
 changed source is rebuilt and an unchanged one is reused.  All sources are
-compiled in parallel, one `nvcc` each.  Nothing here runs at import time.
+compiled in parallel, one `nvcc` each, and nvcc's `-Xptxas -v` report (registers
+and spills per kernel) is kept beside each library as `<name>.ptxas.txt`, so a
+cached build still reports it.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -33,13 +35,14 @@ SIGNATURES = {
         "egonn_zrun_rank": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "gather_conv.cu": {
-        "egonn_gather_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "egonn_gather_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _P],
     },
     "tdown.cu": {
-        "egonn_tdown": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "egonn_tdown": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "gather_dw.cu": {
-        "egonn_gather_dw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "egonn_gather_dw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "lookup.cu": {
         "egonn_lookup": [_P, _P, _P, _I, _I, _I, _P],
@@ -48,7 +51,7 @@ SIGNATURES = {
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 build_seconds: float | None = None  # wall time of the last build_all()
-ptxas_log: Dict[str, str] = {}      # nvcc's -Xptxas -v report per source
+ptxas_log: Dict[str, str] = {}      # nvcc's -Xptxas -v report per source (build_all)
 
 
 def nvcc() -> str:
@@ -70,9 +73,14 @@ def _library_path(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
+def _log_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
 def build_all() -> Dict[str, ctypes.CDLL]:
-    """Compile (in parallel) whatever is not built yet, load every library
-    and bind its C signatures.  Raises with nvcc's output on a failed build."""
+    """Compile (in parallel) whatever is not built yet, load every library,
+    bind its C signatures and read each source's ptxas report into
+    `ptxas_log`.  Raises with nvcc's output on a failed build."""
     global build_seconds
     if len(_LIBS) == len(SOURCES):
         return _LIBS
@@ -90,20 +98,22 @@ def build_all() -> Dict[str, ctypes.CDLL]:
     failed = []
     for src, (proc, tmp, lib) in procs.items():
         log, _ = proc.communicate()
-        ptxas_log[src] = log
         if proc.returncode != 0:
             failed.append(f"{src} (exit {proc.returncode}):\n{log}")
         else:
+            _log_path(lib).write_text(log)  # before the library: a library implies its log
             os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     for src in SOURCES:
-        lib = ctypes.CDLL(str(_library_path(src)))
+        path = _library_path(src)
+        lib = ctypes.CDLL(str(path))
         for name, argtypes in SIGNATURES[src].items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _LIBS[src] = lib
+        ptxas_log[src] = _log_path(path).read_text() if _log_path(path).exists() else ""
     build_seconds = time.perf_counter() - t0
     return _LIBS
 

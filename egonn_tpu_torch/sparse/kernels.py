@@ -20,6 +20,25 @@ The TPU kernels work on band windows of the key-sorted tables and drop what
 falls outside a window; these kernels index directly, so they are exact on
 all data and equal the JAX package's exact gather engine.
 
+`gather_conv`, `tdown` (its third launch) and `gather_dw` multiply on the
+tensor cores in split TF32 (`csrc/tf32x3.cuh`: each f32 operand split into
+two TF32 halves, three `mma.sync` products, f32 accuracy), with their row
+gathers copied by `cp.async` through a ring of shared-memory buffers, so
+later stages' rows fly while one multiplies.  Both follow the valid map
+entries, not dense tiles.  A `gather_conv` / `tdown` block owns (32- or
+64-column slice of F_out, 128-row tile, cloud) and walks the offsets with
+any valid index and the 32-column F_in chunks, each offset's valid rows
+compacted into dense 16-row MMA tiles and scatter-added into a shared
+accumulator; where the grid is small a tile's offsets are split over up to
+4 blocks (`offset_groups`) and a second launch sums them in order.  A
+`gather_dw` block owns a (<= 64) x (<= 64) slice of one dW[k] over a
+strided chunk of the tiles, each tile's valid rows compacted along the MMA
+depth, and a second launch sums the chunks in order.
+Widths: gather_conv / tdown take F_out a multiple of 32 up to 512 and F_in a
+multiple of 4 up to 128 or of 32 up to 512 (`conv_widths_ok`); gather_dw
+takes multiples of 32 up to 512 (`dw_widths_ok`).  No float atomics
+anywhere: equal inputs give bit-equal outputs.
+
 Dispatch: a wrapper given CUDA tensors launches its kernel (building the
 kernels on first use) or raises; given CPU tensors it runs the plain version.
 There is no fallback from one to the other.  Each wrapper adds one to its
@@ -39,10 +58,14 @@ import torch
 from egonn_tpu_torch.sparse import cuda_lib
 from egonn_tpu_torch.sparse.packing import MAXKEY, lookup_sorted
 
-_SMEM_LIMIT = 232448 - 256  # opt-in dynamic shared memory minus the static index tile
-_CONV_F_OUT = (32, 64, 128)
-_DW_WIDTHS = (32, 64, 128)
-_DW_BLOCKS = 2 * 132  # gather_dw's partial-pass blocks: two per SM of an H100
+_DW_BLOCKS = 8 * 132  # gather_dw's partial-pass blocks: eight per SM of an H100
+# gather_conv splits a tile's offsets over blocks (summed by a second launch)
+# where its grid has at most _SPLIT_BLOCKS blocks: one block per
+# _SPLIT_STAGES (offset, 32-column F_in chunk) stages, at most 4 blocks (3
+# with 64-column slices).  Fewer, longer blocks leave a tail of a few busy
+# SMs; larger grids fill the card without it.  Chosen from the sweep of
+# `probe_kernels.py` over the EgoNN forward's and train step's call shapes.
+_SPLIT_BLOCKS, _SPLIT_STAGES = 1280, 24
 # kernel launches per wrapper (CUDA tensors only; the plain versions do not count)
 LAUNCHES = {"zrun_presence": 0, "zrun_rank": 0, "gather_conv": 0, "tdown": 0, "gather_dw": 0,
             "lookup": 0}
@@ -197,12 +220,48 @@ def _check_epi(epi, b: int, c_out: int, f_out: int):
     return scale, bias, int(bool(relu)), mask
 
 
-def _check_widths(f_in: int, f_out: int, name: str) -> None:
-    if f_out not in _CONV_F_OUT or f_in % 4 or f_in < 4:
-        raise ValueError(f"{name}: F_in={f_in}, F_out={f_out}; the kernel takes "
-                         f"F_out in {_CONV_F_OUT} and F_in a multiple of 4")
-    if 4 * (f_in * f_out + 64 * f_in) > _SMEM_LIMIT:
-        raise ValueError(f"{name}: F_in={f_in} x F_out={f_out} exceeds shared memory")
+def conv_widths_ok(f_in: int, f_out: int) -> bool:
+    """The widths gather_conv and tdown take: F_out a multiple of 32 up to
+    512; F_in a multiple of 4 up to 128, or a multiple of 32 up to 512."""
+    return (f_out % 32 == 0 and 32 <= f_out <= 512
+            and ((f_in % 4 == 0 and 4 <= f_in <= 128) or (f_in % 32 == 0 and 32 <= f_in <= 512)))
+
+
+def dw_widths_ok(f_in: int, f_out: int) -> bool:
+    """The widths gather_dw takes: F_in and F_out multiples of 32 up to 512."""
+    return all(f % 32 == 0 and 32 <= f <= 512 for f in (f_in, f_out))
+
+
+def _check_widths(f_in: int, f_out: int, name: str, c_in: int) -> None:
+    if not conv_widths_ok(f_in, f_out):
+        raise ValueError(f"{name}: F_in={f_in}, F_out={f_out}; the kernel takes F_out a "
+                         "multiple of 32 up to 512 and F_in a multiple of 4 up to 128 or of "
+                         "32 up to 512")
+    if c_in >= 1 << 24:  # the kernel packs (row, source) into one int
+        raise ValueError(f"{name}: {c_in} input rows; the kernel takes fewer than 2^24")
+
+
+def conv_cols(b: int, c_out: int, f_out: int, k_vol: int) -> int:
+    """The output columns of a gather_conv block, 32 or 64.  64 halve the
+    blocks that gather each row and stage W[k]; on an H100 they win for the
+    self convs (K >= 27) where the 64-column grid keeps >= 256 blocks, and
+    on the ResNet-width calls (256 and 512 columns, K 27 and 8), and lose on
+    the EgoNN down convs (K = 8) and the deep levels' small grids
+    (`probe_kernels.py`)."""
+    if f_out % 64:
+        return 32
+    blocks = b * -(-c_out // 128) * (f_out // 64)
+    return 64 if f_out >= 256 or (k_vol >= 27 and blocks >= 256) else 32
+
+
+def offset_groups(b: int, c_out: int, f_in: int, f_out: int, k_vol: int) -> int:
+    """How many blocks share one output tile of gather_conv, each summing a
+    contiguous range of the offsets."""
+    cols = conv_cols(b, c_out, f_out, k_vol)
+    if b * -(-c_out // 128) * (f_out // cols) > _SPLIT_BLOCKS:
+        return 1
+    stages = k_vol * -(-f_in // 32)
+    return max(1, min(3 if cols == 64 else 4, k_vol, stages // _SPLIT_STAGES))
 
 
 def gather_conv(feats: torch.Tensor, kmap: torch.Tensor, kernel: torch.Tensor,
@@ -217,16 +276,20 @@ def gather_conv(feats: torch.Tensor, kmap: torch.Tensor, kernel: torch.Tensor,
     b, c_in, f_in = feats.shape
     k_vol, _, f_out = kernel.shape
     c_out = kmap.shape[2]
-    _check_widths(f_in, f_out, "gather_conv")
+    _check_widths(f_in, f_out, "gather_conv", c_in)
     _check(feats, "feats", torch.float32, (b, c_in, f_in), align16=True)
     _check(kmap, "kmap", torch.int32, (b, k_vol, c_out))
     _check(kernel, "kernel", torch.float32, (k_vol, f_in, f_out), align16=True)
     scale, bias, relu, mask = _check_epi(epi, b, c_out, f_out)
     out = torch.empty((b, c_out, f_out), dtype=torch.float32, device=feats.device)
+    cols = conv_cols(b, c_out, f_out, k_vol)
+    n_groups = offset_groups(b, c_out, f_in, f_out, k_vol)
+    partial = (torch.empty((n_groups, b, c_out, f_out), dtype=torch.float32, device=feats.device)
+               if n_groups > 1 else None)
     fn = cuda_lib.function("gather_conv.cu", "egonn_gather_conv")
     err = fn(feats.data_ptr(), kmap.data_ptr(), kernel.data_ptr(), _ptr(scale), _ptr(bias),
-             _ptr(mask), out.data_ptr(), b, c_in, f_in, k_vol, c_out, f_out, relu,
-             _stream(feats))
+             _ptr(mask), out.data_ptr(), _ptr(partial), n_groups, b, c_in, f_in, k_vol, c_out,
+             f_out, cols, relu, _stream(feats))
     _raise_on(err, "gather_conv")
     LAUNCHES["gather_conv"] += 1
     return out
@@ -270,7 +333,8 @@ def tdown(feats: torch.Tensor, up_parent: torch.Tensor, up_koffset: torch.Tensor
         return tdown_plain(feats, up_parent, up_koffset, kernel, c_coarse, epi)
     b, c_fine, f_in = feats.shape
     f_out = kernel.shape[2]
-    _check_widths(f_in, f_out, "tdown")
+    _check_widths(f_in, f_out, "tdown", c_fine)
+    cols = conv_cols(b, c_coarse, f_out, 8)
     _check(feats, "feats", torch.float32, (b, c_fine, f_in), align16=True)
     _check(up_parent, "up_parent", torch.int32, (b, c_fine))
     _check(up_koffset, "up_koffset", torch.int32, (b, c_fine))
@@ -281,7 +345,7 @@ def tdown(feats: torch.Tensor, up_parent: torch.Tensor, up_koffset: torch.Tensor
     fn = cuda_lib.function("tdown.cu", "egonn_tdown")
     err = fn(feats.data_ptr(), up_parent.data_ptr(), up_koffset.data_ptr(), kernel.data_ptr(),
              _ptr(scale), _ptr(bias), _ptr(mask), child.data_ptr(), out.data_ptr(),
-             b, c_fine, f_in, c_coarse, f_out, relu, _stream(feats))
+             b, c_fine, f_in, c_coarse, f_out, cols, relu, _stream(feats))
     _raise_on(err, "tdown")
     LAUNCHES["tdown"] += 1
     return out
@@ -306,6 +370,17 @@ def gather_dw_plain(feats: torch.Tensor, kmap: torch.Tensor, g: torch.Tensor) ->
     return out
 
 
+def dw_tiling(b: int, c_out: int, f_in: int, f_out: int, k_vol: int):
+    """(mb, nb, n_chunks) of gather_dw's partial pass: a block owns an
+    mb x nb slice of one dW[k] (64 where the width allows, else 32) over one
+    of n_chunks strided chunks of the 64-row tiles, ~_DW_BLOCKS blocks in
+    all."""
+    mb, nb = (64 if f % 64 == 0 else 32 for f in (f_in, f_out))
+    blocks = k_vol * (f_in // mb) * (f_out // nb)
+    n_chunks = max(1, min(b * -(-c_out // 64), -(-_DW_BLOCKS // blocks)))
+    return mb, nb, n_chunks
+
+
 def gather_dw(feats: torch.Tensor, kmap: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Weight gradient of `gather_conv(feats, kmap, W)` for the cotangent g.
 
@@ -316,20 +391,20 @@ def gather_dw(feats: torch.Tensor, kmap: torch.Tensor, g: torch.Tensor) -> torch
     b, c_in, f_in = feats.shape
     k_vol, c_out = kmap.shape[1], kmap.shape[2]
     f_out = g.shape[2]
-    if f_in not in _DW_WIDTHS or f_out not in _DW_WIDTHS:
-        raise ValueError(f"gather_dw: F_in={f_in}, F_out={f_out}; the kernel takes "
-                         f"widths in {_DW_WIDTHS}")
+    if not dw_widths_ok(f_in, f_out):
+        raise ValueError(f"gather_dw: F_in={f_in}, F_out={f_out}; the kernel takes widths "
+                         "that are multiples of 32 up to 512")
     _check(feats, "feats", torch.float32, (b, c_in, f_in), align16=True)
     _check(kmap, "kmap", torch.int32, (b, k_vol, c_out))
     _check(g, "g", torch.float32, (b, c_out, f_out), align16=True)
-    n_tiles = b * -(-c_out // 64)
-    n_chunks = max(1, min(n_tiles, -(-_DW_BLOCKS // k_vol)))
+    mb, nb, n_chunks = dw_tiling(b, c_out, f_in, f_out, k_vol)
     partial = torch.empty((n_chunks, k_vol, f_in, f_out), dtype=torch.float32,
                           device=feats.device)
     out = torch.empty((k_vol, f_in, f_out), dtype=torch.float32, device=feats.device)
     fn = cuda_lib.function("gather_dw.cu", "egonn_gather_dw")
     err = fn(feats.data_ptr(), kmap.data_ptr(), g.data_ptr(), partial.data_ptr(),
-             out.data_ptr(), b, c_in, f_in, k_vol, c_out, f_out, n_chunks, _stream(feats))
+             out.data_ptr(), b, c_in, f_in, k_vol, c_out, f_out, mb, nb, n_chunks,
+             _stream(feats))
     _raise_on(err, "gather_dw")
     LAUNCHES["gather_dw"] += 1
     return out

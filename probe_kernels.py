@@ -1,0 +1,159 @@
+#!/usr/bin/env python3
+"""Sweeps the launch parameters of the port's gather kernels on an H100, to
+check the rules in `egonn_tpu_torch/sparse/kernels.py` that choose them:
+
+- gather_conv: the column slice (32 or 64, `conv_cols`) and the number of
+  blocks that share a tile's offsets (1-4, `offset_groups`);
+- gather_dw: the number of chunks of its partial pass (`dw_tiling`), at 1/4,
+  1/2, 1 and 2 times the rule's choice.
+
+    python3 probe_kernels.py     # from the repository root; one CUDA card, nvcc
+
+The calls are those of one EgoNN forward and one training step at full width
+(recorded as `chip_smoke.py` records them: 8 x 65,536 points, cap0 16384; the
+train step of config/config_egonn.txt) and phase 7's synthetic ResNet-width
+calls.  Each distinct call shape prints one line per kernel: every setting's
+device time (median of 10 runs between CUDA events, as `chip_smoke.device_ms`
+times them), the rule's choice and the fastest setting.  Every setting's
+output is held against the wrapper's at chip_smoke's tolerances.  The card's
+name and power limit come first; the whole sweep goes to
+build/probe_kernels.json.
+"""
+from __future__ import annotations
+
+import json
+import sys
+import types
+
+import numpy as np
+import torch
+
+import chip_smoke
+
+
+def _conv_setting(kernels, cuda_lib, args, kwargs, cols: int, n_groups: int):
+    """The gather_conv launch of `args` with a given slice and offset split."""
+    feats, kmap, kernel = args
+    b, c_in, f_in = feats.shape
+    k_vol, _, f_out = kernel.shape
+    c_out = kmap.shape[2]
+    scale, bias, relu, mask = kernels._check_epi(kwargs.get("epi"), b, c_out, f_out)
+    out = torch.empty((b, c_out, f_out), device=feats.device)
+    partial = torch.empty((n_groups, b, c_out, f_out), device=feats.device)
+    fn = cuda_lib.function("gather_conv.cu", "egonn_gather_conv")
+
+    def run():
+        kernels._raise_on(fn(feats.data_ptr(), kmap.data_ptr(), kernel.data_ptr(),
+                             kernels._ptr(scale), kernels._ptr(bias), kernels._ptr(mask),
+                             out.data_ptr(), partial.data_ptr(), n_groups, b, c_in, f_in, k_vol,
+                             c_out, f_out, cols, relu, kernels._stream(feats)), "gather_conv")
+        return out
+    return run
+
+
+def _dw_setting(kernels, cuda_lib, args, n_chunks: int):
+    feats, kmap, g = args
+    b, c_in, f_in = feats.shape
+    k_vol, c_out = kmap.shape[1], kmap.shape[2]
+    f_out = g.shape[2]
+    mb, nb, _ = kernels.dw_tiling(b, c_out, f_in, f_out, k_vol)
+    partial = torch.empty((n_chunks, k_vol, f_in, f_out), device=feats.device)
+    out = torch.empty((k_vol, f_in, f_out), device=feats.device)
+    fn = cuda_lib.function("gather_dw.cu", "egonn_gather_dw")
+
+    def run():
+        kernels._raise_on(fn(feats.data_ptr(), kmap.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                             out.data_ptr(), b, c_in, f_in, k_vol, c_out, f_out, mb, nb, n_chunks,
+                             kernels._stream(feats)), "gather_dw")
+        return out
+    return run
+
+
+def sweep(tag, name, args, kwargs, kernels, cuda_lib, cycles_per_ms) -> dict:
+    """Every setting of one call: times, the rule's choice, the fastest."""
+    feats, kmap = args[0], args[1]
+    b, _, f_in = feats.shape
+    k_vol, c_out = kmap.shape[1], kmap.shape[2]
+    f_out = args[2].shape[2]
+    want = getattr(kernels, name)(*args, **kwargs)
+    if name == "gather_conv":
+        rule = (kernels.conv_cols(b, c_out, f_out, k_vol),
+                kernels.offset_groups(b, c_out, f_in, f_out, k_vol))
+        settings = [(c, n) for c in (32, 64) if f_out % c == 0 for n in range(1, min(4, k_vol) + 1)]
+        make = lambda s: _conv_setting(kernels, cuda_lib, args, kwargs, *s)  # noqa: E731
+    else:
+        rule = kernels.dw_tiling(b, c_out, f_in, f_out, k_vol)[2]
+        settings = sorted({max(1, rule * m // 4) for m in (1, 2, 4, 8)})
+        make = lambda s: _dw_setting(kernels, cuda_lib, args, s)  # noqa: E731
+    times = {}
+    for s in settings:
+        run = make(s)
+        chip_smoke.compare(name, run(), want)
+        times[str(s)] = chip_smoke.device_ms(run, cycles_per_ms, reps=10)
+    best = min(times, key=times.get)
+    valid = float(((kmap >= 0) & (kmap < feats.shape[1])).float().mean())
+    desc = f"{chip_smoke.call_desc(name, args)} valid {valid:.3f}"
+    chip_smoke.log(f"[{tag}] {name} {desc}: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+                   + f" ms; rule {rule} {times[str(rule)]:.4f}, best {best} {times[best]:.4f}")
+    return dict(tag=tag, name=name, call=desc, times=times, rule=str(rule), best=best)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("probe_kernels: CUDA is not available", file=sys.stderr)
+        return 1
+    from egonn_tpu_torch import inference
+    from egonn_tpu_torch.config import TrainingParams
+    from egonn_tpu_torch.data.train_batch import make_train_batch
+    from egonn_tpu_torch.models.factory import create_egonn_model
+    from egonn_tpu_torch.ops.quantization import PolarQuantizer
+    from egonn_tpu_torch.sparse import cuda_lib, kernels
+    from egonn_tpu_torch.train.state import make_lr_schedule
+    from egonn_tpu_torch.train.trainer import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = chip_smoke.phase_environment(cuda_lib)
+    device = torch.device("cuda")
+    cycles_per_ms = chip_smoke._sleep_cycles_per_ms()
+    mp = types.SimpleNamespace(model="egonn", quantizer=PolarQuantizer([1.0, 0.3, 0.2]),
+                               cap0=chip_smoke.CAP0)
+    built = create_egonn_model(mp, cap0=chip_smoke.CAP0, device=device, seed=chip_smoke.SEED)
+    clouds, mask = chip_smoke.make_inputs(device)
+    paths = {"forward": chip_smoke.record_calls(
+        kernels, lambda: inference.forward(built, clouds, mask))}
+    root = chip_smoke.ROOT
+    tp = TrainingParams(str(root / "config" / "config_egonn.txt"),
+                        str(root / "model_configs" / "egonn.txt"), require_dataset=False)
+    built_t = create_egonn_model(tp.model_params, cap0=chip_smoke.CAP0, device=device,
+                                 seed=chip_smoke.SEED + 1)
+    step = make_train_step(built_t, tp)
+    g, l = make_train_batch(tp, built_t.quantizer, device, n_places=chip_smoke.N_PLACES,
+                            n_points=chip_smoke.N_POINTS, seed=chip_smoke.SEED)
+    gen = torch.Generator(device=device).manual_seed(0)
+    paths["train"] = chip_smoke.record_calls(
+        kernels, lambda: step(g, l, gen, make_lr_schedule(tp)(0), True))
+    rng = np.random.default_rng(chip_smoke.SEED)
+    paths["wide"] = [(name, chip_smoke._wide_call(rng, name, k_vol, f_in, f_out, device), {},
+                      None) for name, k_vol, f_in, f_out in chip_smoke.WIDE_CALLS]
+
+    rows, seen = [], set()
+    with torch.no_grad():
+        for tag, calls in paths.items():
+            for name, args, kwargs, _ in calls:
+                if name not in ("gather_conv", "gather_dw"):
+                    continue
+                key = (tag, name, chip_smoke.call_desc(name, args),
+                       kwargs.get("epi") is not None)
+                if key not in seen:
+                    seen.add(key)
+                    rows.append(sweep(tag, name, args, kwargs, kernels, cuda_lib,
+                                      cycles_per_ms))
+    chip_smoke.OUT_DIR.mkdir(exist_ok=True)
+    (chip_smoke.OUT_DIR / "probe_kernels.json").write_text(
+        json.dumps(dict(card=smi, rows=rows), indent=1))
+    chip_smoke.log(f"card: {smi}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,9 +1,12 @@
 """The port's kernel wrappers (egonn_tpu_torch.sparse.kernels) on random data.
 
 CPU cases check the plain versions against brute force and the dispatch
-rules.  Cases marked `cuda` hold each CUDA kernel against its plain version
-on odd shapes and edge cases (ragged tiles, all-sentinel maps, every width)
-and check that bad inputs raise; they skip without a card.  This module
+rules: the width rules of the conv kernels, and the split-TF32 arithmetic
+of gather_conv / tdown / gather_dw emulated in numpy.  Cases marked `cuda`
+hold each CUDA kernel against its plain version on odd shapes and edge cases
+(ragged tiles, all-sentinel maps, a deep level's single occupied tile,
+widths to 512, F_in != F_out at K = 8 and 27), check that repeats are
+bit-equal and that bad inputs raise; they skip without a card.  This module
 imports no JAX, so on a machine with only torch they run with
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -p no:cacheprovider
@@ -15,7 +18,9 @@ import torch
 from egonn_tpu_torch.sparse import kernels
 from egonn_tpu_torch.sparse.packing import MAXKEY
 
-REL_TOL = 1e-5  # f32 FMA kernels against f32 torch matmuls: summation order only
+# split-TF32 tensor-core kernels against f32 torch matmuls: f32 accuracy,
+# another summation order (test_split_tf32_meets_the_f32_tolerance)
+REL_TOL = 1e-5
 # gather_dw sums up to B x C_out rows per weight in another order (per-chunk
 # partials, then the chunks) than the plain einsum: max abs error <= 1e-4 x
 # max |plain|
@@ -124,6 +129,147 @@ def test_other_devices_raise():
                             torch.zeros(27, 4, 32))
 
 
+def test_conv_width_rule():
+    """gather_conv / tdown take F_out a multiple of 32 up to 512, F_in a
+    multiple of 4 up to 128 or of 32 up to 512; everything else raises."""
+    f_outs = {f for f in range(600) if f % 32 == 0 and 32 <= f <= 512}
+    f_ins = {f for f in range(600) if (f % 4 == 0 and 4 <= f <= 128)
+             or (f % 32 == 0 and 32 <= f <= 512)}
+    for f in range(600):
+        assert kernels.conv_widths_ok(4, f) == (f in f_outs)
+        assert kernels.conv_widths_ok(f, 32) == (f in f_ins)
+    for f_in, f_out in [(4, 48), (32, 520), (520, 32), (132, 64), (2, 32)]:
+        with pytest.raises(ValueError, match="F_in"):
+            kernels._check_widths(f_in, f_out, "gather_conv", 1000)
+    with pytest.raises(ValueError, match="2\\^24"):
+        kernels._check_widths(32, 32, "gather_conv", 1 << 24)
+
+
+# call shapes of the EgoNN forward and train step, MinkLoc and ResNet widths
+# (B, C_out, F_in, F_out, K)
+_CONV_SHAPES = [(8, 6656, 64, 64, 27), (8, 4096, 32, 64, 8), (8, 1664, 128, 128, 27),
+                (32, 1664, 128, 128, 27), (1, 64, 512, 256, 8), (4, 4096, 256, 288, 27),
+                (8, 9856, 4, 32, 27)]
+
+
+@pytest.mark.parametrize("b,c_out,f_in,f_out,k_vol", _CONV_SHAPES)
+def test_conv_column_slice(b, c_out, f_in, f_out, k_vol):
+    """The column slice is one the kernel takes (32 or 64, dividing F_out)."""
+    cols = kernels.conv_cols(b, c_out, f_out, k_vol)
+    assert cols in (32, 64) and f_out % cols == 0
+
+
+@pytest.mark.parametrize("b,c_out,f_in,f_out,k_vol", _CONV_SHAPES)
+def test_conv_offset_groups(b, c_out, f_in, f_out, k_vol):
+    """1 to min(4, K) blocks share a tile's offsets, and more than one only
+    on grids of at most _SPLIT_BLOCKS blocks."""
+    groups = kernels.offset_groups(b, c_out, f_in, f_out, k_vol)
+    assert 1 <= groups <= min(4, k_vol)
+    if groups > 1:
+        cols = kernels.conv_cols(b, c_out, f_out, k_vol)
+        assert b * -(-c_out // 128) * (f_out // cols) <= kernels._SPLIT_BLOCKS
+
+
+def test_dw_width_rule():
+    """gather_dw takes F_in and F_out multiples of 32 up to 512."""
+    ok = {f for f in range(600) if f % 32 == 0 and 32 <= f <= 512}
+    for f in range(600):
+        assert kernels.dw_widths_ok(f, 64) == (f in ok)
+        assert kernels.dw_widths_ok(64, f) == (f in ok)
+    for f_in, f_out in [(48, 32), (32, 48), (520, 32), (32, 520), (36, 64)]:
+        assert not kernels.dw_widths_ok(f_in, f_out)
+
+
+def _tf32_rna(x: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32: round the f32 mantissa to 10 bits, ties away from
+    zero (the sign bit is untouched, so adding half an ulp to the bits
+    rounds the magnitude)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_tf32_rna_rounding():
+    # ties (2^-11 past 1) go away from zero, either sign
+    x = np.array([1.0, 1.0 + 2.0**-11, 1.0 + 2.0**-10, -(1.0 + 2.0**-11), 1.0 + 3 * 2.0**-12,
+                  1.0 + 2.0**-12, 0.0], np.float32)
+    want = np.array([1.0, 1.0 + 2.0**-10, 1.0 + 2.0**-10, -(1.0 + 2.0**-10), 1.0 + 2.0**-10,
+                     1.0, 0.0], np.float32)
+    np.testing.assert_array_equal(_tf32_rna(x), want)
+    # hi + lo recovers x to 2^-22 of |x|
+    gen = np.random.default_rng(1)
+    v = gen.standard_normal(10_000).astype(np.float32) * np.float32(1e3)
+    hi = _tf32_rna(v)
+    lo = _tf32_rna(v - hi)
+    assert np.all(np.abs(v.astype(np.float64) - hi - lo) <= 2.0**-22 * np.abs(v))
+
+
+def _trunc_f32(x: np.ndarray) -> np.ndarray:
+    """f64 -> f32 rounded toward zero, as the tensor cores' f32 accumulation
+    rounds."""
+    f = x.astype(np.float32)
+    return np.where(np.abs(f.astype(np.float64)) > np.abs(x), np.nextafter(f, np.float32(0)), f)
+
+
+def _gather_conv_tf32(stage: int, chain: str):
+    """A K = 27, 128 x 128 gather conv in the kernels' arithmetic: operands
+    split by cvt.rna into TF32 hi + lo, each mma.sync m16n8k8 step an exact
+    8-deep dot product added to its accumulator and rounded toward zero to
+    f32.  The three products lo*hi, hi*lo, hi*hi of each `stage`-deep stage
+    go, with chain "sets", to three fresh accumulators, whose sum
+    c0 + (c1 + c2) is added to the running sum in f32 (round to nearest:
+    gather_mm.cuh); with "stage", one after the other to one fresh
+    accumulator, added likewise (gather_dw.cu); with "all", through one
+    accumulator for the whole conv (1,296 steps).  Returns (split, single
+    TF32 hi*hi with f32 sums, f64 result)."""
+    gen = np.random.default_rng(27)
+    k_vol, c_in, c_out, f = 27, 600, 256, 128
+    feats = gen.standard_normal((c_in, f)).astype(np.float32)
+    kmap = np.where(gen.random((k_vol, c_out)) < 0.6, gen.integers(0, c_in, (k_vol, c_out)), -1)
+    w = (gen.standard_normal((k_vol, f, f)) / np.sqrt(f)).astype(np.float32)
+    rows = np.where(kmap[..., None] >= 0, feats[kmap], 0).astype(np.float32)  # (K, C_out, F)
+    exact = np.einsum("kcf,kfo->co", rows.astype(np.float64), w.astype(np.float64))
+    r_hi, w_hi = _tf32_rna(rows), _tf32_rna(w)
+    r_lo, w_lo = _tf32_rna(rows - r_hi), _tf32_rna(w - w_hi)
+    r_hi, r_lo, w_hi, w_lo = (x.astype(np.float64) for x in (r_hi, r_lo, w_hi, w_lo))
+    split = np.zeros((c_out, f), np.float32)
+    single = np.zeros((c_out, f), np.float32)
+    for k in range(k_vol):
+        single += (r_hi[k] @ w_hi[k]).astype(np.float32)
+        for c0 in range(0, f, stage):
+            sets = [np.zeros((c_out, f), np.float32) for _ in range(3)]
+            for kk in range(c0, c0 + stage, 8):
+                d = slice(kk, kk + 8)
+                for j, (a, b) in enumerate(((r_lo, w_hi), (r_hi, w_lo), (r_hi, w_hi))):
+                    if chain == "all":
+                        split = _trunc_f32(split + a[k][:, d] @ b[k][d])
+                    else:
+                        j = j if chain == "sets" else 0
+                        sets[j] = _trunc_f32(sets[j] + a[k][:, d] @ b[k][d])
+            if chain != "all":
+                split += sets[2] + (sets[0] + sets[1])
+    return split, single, exact
+
+
+# gather_conv: 32-column F_in chunks, three accumulators; gather_dw: 64-row
+# tiles, one accumulator
+@pytest.mark.parametrize("stage,chain", [(32, "sets"), (64, "stage")])
+def test_split_tf32_meets_the_f32_tolerance(stage, chain):
+    """Split TF32 with fresh accumulators each stage stays within 1e-5 x
+    max |exact| of the f64 result (chip_smoke's FLOAT_REL_TOL), and one TF32
+    product does not."""
+    split, single, exact = _gather_conv_tf32(stage, chain)
+    scale = np.abs(exact).max()
+    assert np.abs(split - exact).max() <= 1e-5 * scale
+    assert np.abs(single - exact).max() > 1e-4 * scale
+
+
+def test_chained_tf32_accumulator_misses_the_f32_tolerance():
+    """All of a conv's split products through one truncating accumulator
+    miss 1e-5 x max |exact|: why the kernels start each stage afresh."""
+    split, _, exact = _gather_conv_tf32(32, "all")
+    assert np.abs(split - exact).max() > 1e-5 * np.abs(exact).max()
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -159,10 +305,57 @@ def test_gather_conv_cuda_matches_plain(cuda, f_in, f_out, with_epi):
     assert _rel_err(got, want) <= REL_TOL
     if not with_epi:
         assert float(got[:, 512:].abs().max()) == 0.0
+    assert torch.equal(kernels.gather_conv(feats, kmap, kernel, epi=epi), got)
+
+
+def _sparse_kmap(gen, b, k_vol, c_in, c_out, n_valid, p_valid=0.4):
+    """Self-map-like: rows below n_valid gather from [0, n_valid) with
+    probability p_valid (the centre offset always itself), the rest sentinel."""
+    kmap = np.where(gen.random((b, k_vol, c_out)) < p_valid,
+                    gen.integers(0, n_valid, size=(b, k_vol, c_out)), c_in)
+    kmap[:, k_vol // 2, :] = np.arange(c_out)
+    kmap[:, :, n_valid:] = c_in
+    return kmap.astype(np.int32)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("f_in,f_out", [(32, 32), (128, 128)])
+@pytest.mark.parametrize("k_vol", [8, 27])
+@pytest.mark.parametrize("f_in,f_out", [(256, 256), (512, 512), (256, 512), (128, 32),
+                                        (32, 96), (100, 64)])
+def test_gather_conv_cuda_wide_and_mixed(cuda, k_vol, f_in, f_out):
+    """Widths to 512, F_in != F_out, 64- and 32-column slices, F_in in
+    several 64-column chunks with a ragged one; bit-equal on repeat."""
+    gen = np.random.default_rng(f_in * f_out + k_vol)
+    b, c, n_valid = 2, 700, 600
+    feats = torch.from_numpy(gen.standard_normal((b, c, f_in)).astype(np.float32)).to(cuda)
+    kmap = torch.from_numpy(_sparse_kmap(gen, b, k_vol, c, c, n_valid)).to(cuda)
+    kernel = torch.from_numpy((gen.standard_normal((k_vol, f_in, f_out)) / np.sqrt(f_in))
+                              .astype(np.float32)).to(cuda)
+    epi = _epi(gen, f_out, b, c, cuda)
+    got = kernels.gather_conv(feats, kmap, kernel, epi=epi)
+    assert _rel_err(got, kernels.gather_conv_plain(feats, kmap, kernel, epi=epi)) <= REL_TOL
+    assert torch.equal(kernels.gather_conv(feats, kmap, kernel, epi=epi), got)
+
+
+@pytest.mark.cuda
+def test_gather_conv_cuda_deep_level(cuda):
+    """A deep level: 8 clouds with 18 of 1,024 voxels each, one occupied
+    64-row tile per cloud, 128 x 128 at K = 27."""
+    gen = np.random.default_rng(7)
+    b, c, n_valid, k_vol, f = 8, 1024, 18, 27, 128
+    feats = np.zeros((b, c, f), np.float32)
+    feats[:, :n_valid] = gen.standard_normal((b, n_valid, f))
+    feats = torch.from_numpy(feats).to(cuda)
+    kmap = torch.from_numpy(_sparse_kmap(gen, b, k_vol, c, c, n_valid, 0.5)).to(cuda)
+    kernel = torch.from_numpy(gen.standard_normal((k_vol, f, f)).astype(np.float32)).to(cuda)
+    got = kernels.gather_conv(feats, kmap, kernel)
+    assert _rel_err(got, kernels.gather_conv_plain(feats, kmap, kernel)) <= REL_TOL
+    assert float(got[:, 64:].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f_in,f_out", [(32, 32), (128, 128), (256, 256), (512, 512),
+                                        (256, 512), (64, 128)])
 def test_tdown_cuda_matches_plain(cuda, f_in, f_out):
     gen = np.random.default_rng(f_in)
     b, c_fine, c_coarse = 2, 3000, 1100
@@ -179,11 +372,13 @@ def test_tdown_cuda_matches_plain(cuda, f_in, f_out):
     for epi in (None, _epi(gen, f_out, b, c_coarse, cuda)):
         got = kernels.tdown(*args, epi=epi)
         assert _rel_err(got, kernels.tdown_plain(*args, epi=epi)) <= REL_TOL
+        assert torch.equal(kernels.tdown(*args, epi=epi), got)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k_vol", [8, 27])
-@pytest.mark.parametrize("f_in,f_out", [(32, 32), (32, 64), (64, 128), (128, 128), (128, 32)])
+@pytest.mark.parametrize("f_in,f_out", [(32, 32), (32, 64), (64, 128), (128, 128), (128, 32),
+                                        (256, 256), (512, 32), (96, 160)])
 def test_gather_dw_cuda_matches_plain(cuda, k_vol, f_in, f_out):
     gen = np.random.default_rng(f_in + f_out + k_vol)
     b, c_in, c_out = 3, 1000, 777  # a ragged last tile
