@@ -22,8 +22,10 @@ Phases, each printing its lines:
    also `tc_bound_ms` (bytes, or three TF32 MMAs per product at 495 TFLOP/s),
    and one PyTorch library call where one computes the same function.  Each
    conv / dW call shape prints a line with its levels (L<in>->L<out>), rows,
-   offsets and widths.  The largest gather_conv call is re-run twice and
-   must be bit-equal.
+   offsets and widths; a tdown line adds the fine rows its blocks stream
+   (each coarse tile's hull) against the children, a zrun line the blocks
+   whose table slice overflowed shared memory (0 expected).  The largest
+   gather_conv call is re-run twice and must be bit-equal.
 3. slice: the same forward with every launch counter zeroed just before and
    read just after (zrun_presence 1, zrun_rank 7, gather_conv 14, tdown 7
    expected); output shapes, finiteness, capacity report.  Then 2 clouds on
@@ -46,7 +48,9 @@ Phases, each printing its lines:
    counters zeroed before and read after (TRAIN_STEP_LAUNCHES), and 1
    validation step (VAL_STEP_LAUNCHES) that must leave the model and the
    optimizer untouched; finite stats; every parameter and BN statistic
-   moved.  Train steps/s and clouds/s (host clock, 48 clouds a step) and the
+   moved.  Every kernel call of one more validation step (three eval
+   forwards, tdown's largest user) is held against its plain version and
+   timed as in phase 4: the `val_step` path.  Train steps/s and clouds/s (host clock, 48 clouds a step) and the
    peak device memory.  Then one step on 4 global clouds and 2 pairs on the
    card and on the CPU from the same weights, augmentation off, points at
    voxel centres (so both build the same pyramids): stats within rel 1e-4,
@@ -81,8 +85,8 @@ Phases, each printing its lines:
 
 The last three lines are the card's name and power limit, one JSON object
 with every kernel's numbers (summed over the calls of all the paths: the
-inference forward, the training step, the pyramid without up maps and the
-two MinkLoc forwards; `launches` is the paths' launch counts added) and
+inference forward, the training step, the validation step, the pyramid
+without up maps and the two MinkLoc forwards; `launches` is the paths' launch counts added) and
 `{"ok": true, "device": {...}}`.  Details (every call shape's times and
 `tc_bound_ms`, each path apart and summed) go to build/chip_smoke.json.
 Any failure exits non-zero before the last line; without CUDA the script
@@ -390,7 +394,11 @@ def call_level(name: str, args: tuple, levels: dict) -> str:
 
 
 def call_desc(name: str, args: tuple) -> str:
-    """B, C_in, C_out, K and widths of a conv or dW call."""
+    """B, C_in, C_out, K and widths of a conv or dW call; table and query
+    sizes of a zrun call."""
+    if name in ("zrun_presence", "zrun_rank"):
+        keys, q_lo, kz = args
+        return f"B {keys.shape[0]} C {keys.shape[1]} queries {tuple(q_lo.shape[1:])} kz {kz}"
     if name == "tdown":
         feats, _, _, kernel, c_out = args
         return (f"B {feats.shape[0]} C {feats.shape[1]}->{c_out} K 8 "
@@ -410,17 +418,49 @@ def tc_bound_ms(name: str, nbytes: int, ops: int):
     return max(nbytes / HBM_BYTES_PER_S, 3 * ops / TF32_OPS_PER_S) * 1e3
 
 
+def call_detail(kernels, name: str, args: tuple) -> dict:
+    """tdown: the fine rows its blocks stream (each tile's hull, at the
+    wrapper's tiling) against the children; zrun: the blocks whose table
+    slice did not fit in shared memory (one more run of the call)."""
+    if name == "tdown":
+        feats, up_parent, _, kernel, c_coarse = args
+        tile_rows = kernels.tdown_tiling(*feats.shape)[0]
+        hull = kernels.tdown_hulls_plain(up_parent, c_coarse, tile_rows)
+        return dict(tile_rows=tile_rows,
+                    hull_rows=int((hull[..., 1] - hull[..., 0]).clamp_min(0).sum()),
+                    children=int(((up_parent >= 0) & (up_parent < c_coarse)).sum()))
+    if name in ("zrun_presence", "zrun_rank"):
+        device = args[1].device
+        before = kernels.zrun_overflow_blocks(device)
+        getattr(kernels, name)(*args)
+        return dict(q_chunk=kernels.zrun_chunk(args[1].shape[2]),
+                    overflow_blocks=kernels.zrun_overflow_blocks(device) - before)
+    return {}
+
+
+def _detail_text(detail: dict) -> str:
+    if "hull_rows" in detail:
+        return (f" tile {detail['tile_rows']} hull rows {detail['hull_rows']} / children "
+                f"{detail['children']}")
+    if "overflow_blocks" in detail:
+        return f" chunk {detail['q_chunk']} overflow blocks {detail['overflow_blocks']}"
+    return ""
+
+
 def measure_calls(rows: dict, calls: list, kernels, cycles_per_ms: float, reps: int,
                   tag: str, levels: dict) -> None:
     """Hold every recorded call against its plain version; time each
     distinct call shape once (kernel, plain version, library call) and add
     the times, bounds and errors of every call to its kernel's row.  Each
-    new shape prints a line, with its level for the convs and dW."""
+    new shape prints a line, with its level for the convs and dW, and for
+    tdown and zrun the `call_detail` of its first call; every call's detail
+    is summed into its row (hull_rows, children, overflow_blocks)."""
     timed = {}
     with torch.no_grad():
         for name, args, kwargs, out in calls:
             plain = plain_call(name, kernels)
             err = compare(name, out, plain(*args, **kwargs))
+            detail = call_detail(kernels, name, args)
             shape = [list(a.shape) if torch.is_tensor(a) else a for a in args]
             key = json.dumps([name, shape, "epi" in kwargs and kwargs["epi"] is not None])
             if key not in timed:
@@ -447,19 +487,28 @@ def measure_calls(rows: dict, calls: list, kernels, cycles_per_ms: float, reps: 
                 row["tc_bound_ms"] = (row["tc_bound_ms"] or 0.0) + tc_ms
             if lib_ms is not None:
                 row["library_ms"] = (row["library_ms"] or 0.0) + lib_ms
+            for k in ("hull_rows", "children", "overflow_blocks"):
+                if k in detail:
+                    row[k] = row.get(k, 0) + detail[k]
             level = call_level(name, args, levels)
             row["calls"].append(dict(shapes=shape, level=level, ms=ms, plain_ms=plain_ms,
                                      library_ms=lib_ms, bytes=nbytes, ops=ops,
                                      bound_ms=max(bytes_ms, ops_ms), tc_bound_ms=tc_ms,
-                                     max_abs_err=err))
+                                     max_abs_err=err, **detail))
             if new_shape and tc_ms is not None:
                 log(f"[{tag}] {name} {level} {call_desc(name, args)} "
                     f"{'epi ' if kwargs.get('epi') is not None else ''}ms {ms:.4f} "
                     f"plain {plain_ms:.4f} bound {max(bytes_ms, ops_ms):.4f} "
-                    f"tc_bound {tc_ms:.4f} err {err:.3g}")
+                    f"tc_bound {tc_ms:.4f} err {err:.3g}{_detail_text(detail)}")
             elif new_shape:
                 log(f"[{tag}] {name} {shape[:3]} ms {ms:.4f} plain {plain_ms:.4f} "
-                    f"bound {max(bytes_ms, ops_ms):.4f} err {err:.3g}")
+                    f"bound {max(bytes_ms, ops_ms):.4f} err {err:.3g}{_detail_text(detail)}")
+    for name, row in rows.items():
+        if "hull_rows" in row:
+            log(f"[{tag}] {name}: {row['hull_rows']} hull rows streamed for {row['children']} "
+                f"children")
+        if "overflow_blocks" in row:
+            log(f"[{tag}] {name}: {row['overflow_blocks']} blocks overflowed their table slice")
 
 
 def merged_rows(*paths: dict) -> dict:
@@ -495,7 +544,9 @@ def check_repeat(kernels, calls: list, name: str, tag: str) -> dict:
     with torch.no_grad():
         again = [fn(*args, **kwargs) for _ in range(2)]
     torch.cuda.synchronize()
-    equal = all(torch.equal(a, out) for a in again)
+    want = out if isinstance(out, tuple) else (out,)
+    equal = all(all(torch.equal(x, y) for x, y in zip(a if isinstance(a, tuple) else (a,), want))
+                for a in again)
     log(f"[{tag}] determinism: {name} {call_desc(name, args)} re-run twice, bit-equal {equal}")
     if not equal:
         raise AssertionError(f"{name}: a re-run differs from the recorded output")
@@ -509,7 +560,8 @@ def phase_kernels(built, kernels, inference, cycles_per_ms):
     rows = new_rows(kernels)
     measure_calls(rows, calls, kernels, cycles_per_ms, reps=20, tag="kernels",
                   levels=level_of(built.pyramid_spec.capacities))
-    return rows, check_repeat(kernels, calls, "gather_conv", "kernels")
+    return rows, [check_repeat(kernels, calls, name, "kernels")
+                  for name in ("gather_conv", "tdown", "zrun_rank")]
 
 
 def _wide_call(gen, name, k_vol, f_in, f_out, device):
@@ -666,7 +718,21 @@ def phase_train_kernels(step, g, l, lr, kernels, cycles_per_ms, levels):
     rows = new_rows(kernels)
     measure_calls(rows, calls, kernels, cycles_per_ms, reps=10, tag="train-kernels",
                   levels=levels)
-    return rows, check_repeat(kernels, calls, "gather_dw", "train-kernels")
+    return rows, [check_repeat(kernels, calls, name, "train-kernels")
+                  for name in ("gather_dw", "zrun_presence", "zrun_rank")]
+
+
+def phase_val_kernels(step, g, l, lr, kernels, cycles_per_ms, levels):
+    """Record every kernel call of one validation step (three eval forwards:
+    tdown's largest user), then compare and time each distinct shape."""
+    calls = record_calls(kernels, lambda: step(g, l, None, lr, False))
+    counts = {name: sum(c[0] == name for c in calls) for name in VAL_STEP_LAUNCHES}
+    if counts != VAL_STEP_LAUNCHES:
+        raise AssertionError(f"kernel calls per validation step {counts}, expected "
+                             f"{VAL_STEP_LAUNCHES}")
+    rows = new_rows(kernels)
+    measure_calls(rows, calls, kernels, cycles_per_ms, reps=10, tag="val-kernels", levels=levels)
+    return rows, check_repeat(kernels, calls, "tdown", "val-kernels")
 
 
 def _finite_stats(stats: dict, what: str) -> dict:
@@ -1024,6 +1090,12 @@ def main() -> int:
         f"(host clock), peak memory {tr['peak_memory_gb']:.2f} GiB on {smi}")
     for name, row in train_rows.items():
         row["launches"] = tr["train_launches"][name]
+    t0 = time.perf_counter()
+    val_rows, repeat_val = phase_val_kernels(step, g, l, lr, kernels, cycles_per_ms,
+                                             level_of(built_t.pyramid_spec.capacities))
+    log(f"[val-kernels] phase done in {time.perf_counter() - t0:.1f} s")
+    for name, row in val_rows.items():
+        row["launches"] = tr["val_launches"][name]
 
     t0 = time.perf_counter()
     maps_rows, maps = phase_lookup_maps(built, kernels, pyramid_mod, cycles_per_ms)
@@ -1037,7 +1109,8 @@ def main() -> int:
         f"{MINKLOC_ROUNDS} turns of 10 forwards of {B} x {N_POINTS} points in alternation, "
         f"quartiles {quartiles}, the factory pyramid faster in {wins} of {MINKLOC_ROUNDS} "
         f"pairs (host clock) on {smi}")
-    paths = {"forward": rows, "train_step": train_rows, "lookup_maps": maps_rows, **mink_rows}
+    paths = {"forward": rows, "train_step": train_rows, "val_step": val_rows,
+             "lookup_maps": maps_rows, **mink_rows}
     all_rows = merged_rows(*paths.values())
     t0 = time.perf_counter()
     wide = phase_wide(kernels, cycles_per_ms, device)
@@ -1046,7 +1119,7 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, slice=sl, train=tr, lookup_maps=maps, minkloc=mink, kernels=all_rows,
-             paths=paths, wide=wide, determinism=[repeat_fwd, repeat_train],
+             paths=paths, wide=wide, determinism=[*repeat_fwd, *repeat_train, repeat_val],
              seconds=time.perf_counter() - t_start), indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,5 +1,4 @@
-// Gather-and-multiply body shared by the sparse conv (gather_conv.cu) and the
-// transposed down conv (tdown.cu):
+// Gather-and-multiply body of the sparse conv (gather_conv.cu):
 //
 //   out[b, r, :] = epi( sum_k feats[b, kmap[b, k, r], :] @ w[k] )
 //   epi(v)       = mask[b, r] ? relu?(v * scale + bias) : 0
@@ -7,8 +6,8 @@
 // A kmap entry outside [0, c_in) (the sentinel c_in) gathers a zero row.
 //
 // Replaces the TPU's banded one-hot MXU gather (egonn_tpu/sparse/banded.py
-// _pallas_banded_conv / _pallas_banded_tdown).  On Hopper a direct row gather
-// needs no band window, so this kernel is exact on all data.
+// _pallas_banded_conv).  On Hopper a direct row gather needs no band
+// window, so this kernel is exact on all data.
 //
 // Design: one block of 256 threads (8 warps) per (32- or 64-column slice
 // NS of F_out, tile of 128 output rows, cloud); the slices of one tile are

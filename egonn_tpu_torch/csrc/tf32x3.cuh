@@ -1,4 +1,4 @@
-// Building blocks shared by the gather-and-multiply kernels (gather_mm.cuh,
+// Building blocks shared by the tensor-core kernels (gather_mm.cuh, tdown.cu,
 // gather_dw.cu): 16-byte cp.async copies into shared memory, and a f32
 // product on the tensor cores in split TF32 ("3xTF32").
 //
@@ -60,7 +60,7 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 // in split TF32, each into its own accumulator, so that they do not wait
 // for one another (a dependent mma.sync waits out the one before); the
 // caller adds c[0] + (c[1] + c[2]), the small terms first.  gather_mm.cuh
-// uses it: a warp there holds few accumulators.
+// and tdown.cu use it: a warp there holds few accumulators.
 __device__ __forceinline__ void mma_3xtf32_sets(float (&c)[3][4], const uint32_t (&a_hi)[4],
                                                 const uint32_t (&a_lo)[4],
                                                 const uint32_t (&b_hi)[2],

@@ -31,15 +31,17 @@ _I = ctypes.c_int
 # C signatures: every pointer and the stream as void*, every size as int
 SIGNATURES = {
     "zrun.cu": {
-        "egonn_zrun_presence": [_P, _P, _P, _I, _I, _I, _I, _P],
-        "egonn_zrun_rank": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "egonn_zrun_presence": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "egonn_zrun_rank": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "gather_conv.cu": {
         "egonn_gather_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _P],
     },
     "tdown.cu": {
-        "egonn_tdown": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "egonn_tdown": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _P],
+        "egonn_tdown_hulls": [_P, _P, _I, _I, _I, _I, _P],
     },
     "gather_dw.cu": {
         "egonn_gather_dw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],

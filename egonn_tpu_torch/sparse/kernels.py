@@ -20,20 +20,28 @@ The TPU kernels work on band windows of the key-sorted tables and drop what
 falls outside a window; these kernels index directly, so they are exact on
 all data and equal the JAX package's exact gather engine.
 
-`gather_conv`, `tdown` (its third launch) and `gather_dw` multiply on the
-tensor cores in split TF32 (`csrc/tf32x3.cuh`: each f32 operand split into
-two TF32 halves, three `mma.sync` products, f32 accuracy), with their row
-gathers copied by `cp.async` through a ring of shared-memory buffers, so
-later stages' rows fly while one multiplies.  Both follow the valid map
-entries, not dense tiles.  A `gather_conv` / `tdown` block owns (32- or
+`gather_conv`, `tdown` and `gather_dw` multiply on the tensor cores in
+split TF32 (`csrc/tf32x3.cuh`: each f32 operand split into two TF32 halves,
+three `mma.sync` products, f32 accuracy), with their rows copied by
+`cp.async` through a ring of shared-memory buffers, so later stages' rows
+fly while one multiplies.  All three follow the valid map entries, not
+dense tiles.  A `gather_conv` block (`csrc/gather_mm.cuh`) owns (32- or
 64-column slice of F_out, 128-row tile, cloud) and walks the offsets with
 any valid index and the 32-column F_in chunks, each offset's valid rows
-compacted into dense 16-row MMA tiles and scatter-added into a shared
-accumulator; where the grid is small a tile's offsets are split over up to
-4 blocks (`offset_groups`) and a second launch sums them in order.  A
-`gather_dw` block owns a (<= 64) x (<= 64) slice of one dW[k] over a
-strided chunk of the tiles, each tile's valid rows compacted along the MMA
-depth, and a second launch sums the chunks in order.
+gathered, compacted into dense 16-row MMA tiles and scatter-added into a
+shared accumulator; where the grid is small a tile's offsets are split over
+up to 4 blocks (`offset_groups`) and a second launch sums them in order.
+`tdown` needs no inverted map: a first launch computes each coarse tile's
+hull of fine rows from the up map (`tdown_hulls_plain`), and a block per
+(column slice, tile, cloud) either builds the tile's child table from the
+hull in shared memory and gathers each slot's children stage by stage, or,
+on small deep levels, streams the hull's rows contiguously with all 8
+slots' W resident (`tdown_tiling` picks the body and its tiling).  A `gather_dw`
+block owns a (<= 64) x (<= 64) slice of one dW[k] over a strided chunk of
+the tiles, each tile's valid rows compacted along the MMA depth, and a
+second launch sums the chunks in order.  `zrun_presence` / `zrun_rank`
+copy the slice of the key table that a chunk of a row's (sorted) queries
+needs into shared memory and search there (`zrun_chunk` picks the chunk).
 Widths: gather_conv / tdown take F_out a multiple of 32 up to 512 and F_in a
 multiple of 4 up to 128 or of 32 up to 512 (`conv_widths_ok`); gather_dw
 takes multiples of 32 up to 512 (`dw_widths_ok`).  No float atomics
@@ -69,6 +77,8 @@ _SPLIT_BLOCKS, _SPLIT_STAGES = 1280, 24
 # kernel launches per wrapper (CUDA tensors only; the plain versions do not count)
 LAUNCHES = {"zrun_presence": 0, "zrun_rank": 0, "gather_conv": 0, "tdown": 0, "gather_dw": 0,
             "lookup": 0}
+# per CUDA device: zrun blocks whose table slice did not fit (`zrun_overflow_blocks`)
+_ZRUN_OVERFLOW: dict = {}
 
 
 # ---------------------------------------------------------------------------
@@ -146,7 +156,40 @@ def zrun_plain(sorted_keys: torch.Tensor, q_lo: torch.Tensor, kz: int):
     return bits, rank
 
 
-def _zrun_cuda(sorted_keys, q_lo, kz, with_rank: bool):
+def zrun_chunk(n_row: int) -> int:
+    """Queries per zrun block: 1024 for rows of 8,192 queries or more, else
+    512.  On an H100 this is the fastest of 256, 512 and 1024 for every
+    zrun call of the forward, the train step and MinkLoc, or within 5% of it
+    (`probe_kernels.py`): a block's time is a few round trips to L2 whatever
+    its size, so long rows want few big chunks, and mid-size rows lose to
+    1024's ragged last chunk."""
+    return 1024 if n_row >= 8192 else 512
+
+
+def _zrun_overflow(device: torch.device) -> torch.Tensor:
+    device = _index_device(device)
+    if device not in _ZRUN_OVERFLOW:
+        _ZRUN_OVERFLOW[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _ZRUN_OVERFLOW[device]
+
+
+def zrun_overflow_blocks(device) -> int:
+    """zrun blocks on `device` whose table slice did not fit in shared memory
+    (they searched the global table instead), since the first zrun launch
+    there."""
+    device = _index_device(device)
+    return int(_ZRUN_OVERFLOW[device].item()) if device in _ZRUN_OVERFLOW else 0
+
+
+def _index_device(device) -> torch.device:
+    """`cuda` as `cuda:<current device>`, so both name one counter."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _zrun_cuda(sorted_keys, q_lo, kz, with_rank: bool, q_chunk: Optional[int] = None):
     if not 1 <= kz <= 8:
         raise ValueError(f"kz={kz}: the zrun kernels take 1 <= kz <= 8")
     b, c_in = sorted_keys.shape
@@ -154,18 +197,20 @@ def _zrun_cuda(sorted_keys, q_lo, kz, with_rank: bool):
     if q_lo.dim() != 3 or q_lo.shape[0] != b:
         raise ValueError(f"q_lo: shape {tuple(q_lo.shape)}, expected (B={b}, Kxy, C_out)")
     _check(q_lo, "q_lo", torch.int32, q_lo.shape)
-    n_q = q_lo.shape[1] * q_lo.shape[2]
+    n_xy, n_row = q_lo.shape[1], q_lo.shape[2]
+    q_chunk = q_chunk or zrun_chunk(n_row)
+    overflow = _zrun_overflow(q_lo.device)
     bits = torch.empty_like(q_lo)
     if with_rank:
         rank = torch.empty_like(q_lo)
         fn = cuda_lib.function("zrun.cu", "egonn_zrun_rank")
         err = fn(sorted_keys.data_ptr(), q_lo.data_ptr(), bits.data_ptr(), rank.data_ptr(),
-                 b, c_in, n_q, kz, _stream(q_lo))
+                 overflow.data_ptr(), b, c_in, n_xy, n_row, q_chunk, kz, _stream(q_lo))
         _raise_on(err, "zrun_rank")
         return bits, rank
     fn = cuda_lib.function("zrun.cu", "egonn_zrun_presence")
-    err = fn(sorted_keys.data_ptr(), q_lo.data_ptr(), bits.data_ptr(), b, c_in, n_q, kz,
-             _stream(q_lo))
+    err = fn(sorted_keys.data_ptr(), q_lo.data_ptr(), bits.data_ptr(), overflow.data_ptr(), b,
+             c_in, n_xy, n_row, q_chunk, kz, _stream(q_lo))
     _raise_on(err, "zrun_presence")
     return bits
 
@@ -322,6 +367,88 @@ def tdown_plain(feats: torch.Tensor, up_parent: torch.Tensor, up_koffset: torch.
     return gather_conv_plain(feats, invert_up(up_parent, up_koffset, c_coarse), kernel, epi)
 
 
+def tdown_hulls_plain(up_parent: torch.Tensor, c_coarse: int, rows: int) -> torch.Tensor:
+    """(B, ceil(c_coarse / rows), 2) int32 [first, end) per tile of `rows`
+    coarse rows: the fine rows between the first whose running max of
+    parents reaches the tile and the last whose running min from the end
+    lies below the tile's end (rows without a parent in [0, c_coarse) count
+    as -1 and +inf).  Every child of the tile lies inside; the tdown
+    kernel's first launch computes the same (tdown_layout's formula in
+    egonn_tpu/sparse/banded.py without its alignment)."""
+    valid = (up_parent >= 0) & (up_parent < c_coarse)
+    m = torch.cummax(torch.where(valid, up_parent, -1), dim=1).values
+    hi = torch.where(valid, up_parent, 1 << 30)
+    rm = torch.flip(torch.cummin(torch.flip(hi, [1]), dim=1).values, [1])
+    bounds = torch.arange(0, c_coarse, rows, dtype=up_parent.dtype, device=up_parent.device)
+    bounds = bounds.expand(up_parent.shape[0], -1).contiguous()
+    first = torch.searchsorted(m.contiguous(), bounds)  # entries below the bound
+    end = torch.searchsorted(rm.contiguous(), bounds + rows)
+    return torch.stack([first, end], dim=2).to(torch.int32)
+
+
+def tdown_tiling(b: int, c_fine: int, f_in: int):
+    """(rows, rc, gather) of a tdown call: the gathering body (128-row
+    tiles) at F_in <= 64 and on calls of 49,152 fine rows or more (B x
+    C_fine), else the streaming body with 32-row tiles and 128-row stages.
+    On an H100 the rule's body is the fastest, or within 1 us of it, at
+    every forward, validation step and MinkLoc call, and the streaming
+    tiling within 11 us of its best (`probe_kernels.py`): the gathering
+    body walks 8 x F_in / 64 stages of a slot's children each, which the
+    deep levels' few children do not fill, while the streaming body loads
+    all of w and its hull's rows at once."""
+    if f_in <= 64 or b * c_fine >= 49152:
+        return 128, 0, True
+    return 32, 128, False
+
+
+def tdown_tiling_ok(f_in: int, f_out: int, rows: int, rc: int, gather: bool = False) -> bool:
+    """Whether the tdown kernel takes this tiling: the gathering body with
+    128-row tiles, or the streaming body with 32, 64 or 128 rows and row
+    chunks, all of which fit a block's shared memory but chunks of 128 rows
+    beside more than 32 rows above 64 F_in columns; F_out a multiple of the
+    32-column slice."""
+    if f_out % 32:
+        return False
+    if gather:
+        return rows == 128
+    return (rows in (32, 64, 128) and rc in (32, 64, 128)
+            and not (f_in > 64 and rc == 128 and rows > 32))
+
+
+def _tdown_hulls_cuda(up_parent: torch.Tensor, c_coarse: int, rows: int) -> torch.Tensor:
+    """The tdown kernel's first launch alone (tests and launch sweeps): the
+    hulls of `tdown_hulls_plain` from the card."""
+    b, c_fine = up_parent.shape
+    _check(up_parent, "up_parent", torch.int32, (b, c_fine))
+    hull = torch.empty((b, -(-c_coarse // rows), 2), dtype=torch.int32, device=up_parent.device)
+    fn = cuda_lib.function("tdown.cu", "egonn_tdown_hulls")
+    _raise_on(fn(up_parent.data_ptr(), hull.data_ptr(), b, c_fine, c_coarse, rows,
+                 _stream(up_parent)), "tdown hulls")
+    return hull
+
+
+def _tdown_cuda(feats, up_parent, up_koffset, kernel, c_coarse, epi, rows, rc, gather=False):
+    b, c_fine, f_in = feats.shape
+    f_out = kernel.shape[2]
+    _check_widths(f_in, f_out, "tdown", c_fine)
+    if not tdown_tiling_ok(f_in, f_out, rows, rc, gather):
+        raise ValueError(f"tdown: {rows}-row tiles, {rc}-row stages at F_in={f_in}; "
+                         "see tdown_tiling_ok")
+    _check(feats, "feats", torch.float32, (b, c_fine, f_in), align16=True)
+    _check(up_parent, "up_parent", torch.int32, (b, c_fine))
+    _check(up_koffset, "up_koffset", torch.int32, (b, c_fine))
+    _check(kernel, "kernel", torch.float32, (8, f_in, f_out), align16=True)
+    scale, bias, relu, mask = _check_epi(epi, b, c_coarse, f_out)
+    hull = torch.empty((b, -(-c_coarse // rows), 2), dtype=torch.int32, device=feats.device)
+    out = torch.empty((b, c_coarse, f_out), dtype=torch.float32, device=feats.device)
+    fn = cuda_lib.function("tdown.cu", "egonn_tdown")
+    err = fn(feats.data_ptr(), up_parent.data_ptr(), up_koffset.data_ptr(), kernel.data_ptr(),
+             _ptr(scale), _ptr(bias), _ptr(mask), hull.data_ptr(), out.data_ptr(),
+             b, c_fine, f_in, c_coarse, f_out, rows, rc, int(gather), relu, _stream(feats))
+    _raise_on(err, "tdown")
+    return out
+
+
 def tdown(feats: torch.Tensor, up_parent: torch.Tensor, up_koffset: torch.Tensor,
           kernel: torch.Tensor, c_coarse: int, epi: Optional[tuple] = None) -> torch.Tensor:
     """k=2 s=2 down conv driven by the fine level's up map.
@@ -331,22 +458,8 @@ def tdown(feats: torch.Tensor, up_parent: torch.Tensor, up_koffset: torch.Tensor
     tensors = [feats, up_parent, up_koffset, kernel] + ([epi[0], epi[1], epi[3]] if epi else [])
     if not _on_cuda(*tensors):
         return tdown_plain(feats, up_parent, up_koffset, kernel, c_coarse, epi)
-    b, c_fine, f_in = feats.shape
-    f_out = kernel.shape[2]
-    _check_widths(f_in, f_out, "tdown", c_fine)
-    cols = conv_cols(b, c_coarse, f_out, 8)
-    _check(feats, "feats", torch.float32, (b, c_fine, f_in), align16=True)
-    _check(up_parent, "up_parent", torch.int32, (b, c_fine))
-    _check(up_koffset, "up_koffset", torch.int32, (b, c_fine))
-    _check(kernel, "kernel", torch.float32, (8, f_in, f_out), align16=True)
-    scale, bias, relu, mask = _check_epi(epi, b, c_coarse, f_out)
-    child = torch.empty((b, 8, c_coarse), dtype=torch.int32, device=feats.device)
-    out = torch.empty((b, c_coarse, f_out), dtype=torch.float32, device=feats.device)
-    fn = cuda_lib.function("tdown.cu", "egonn_tdown")
-    err = fn(feats.data_ptr(), up_parent.data_ptr(), up_koffset.data_ptr(), kernel.data_ptr(),
-             _ptr(scale), _ptr(bias), _ptr(mask), child.data_ptr(), out.data_ptr(),
-             b, c_fine, f_in, c_coarse, f_out, cols, relu, _stream(feats))
-    _raise_on(err, "tdown")
+    tiling = tdown_tiling(*feats.shape)
+    out = _tdown_cuda(feats, up_parent, up_koffset, kernel, c_coarse, epi, *tiling)
     LAUNCHES["tdown"] += 1
     return out
 

@@ -1,26 +1,34 @@
 #!/usr/bin/env python3
-"""Sweeps the launch parameters of the port's gather kernels on an H100, to
-check the rules in `egonn_tpu_torch/sparse/kernels.py` that choose them:
+"""Sweeps the launch parameters of the port's kernels on an H100, to check
+the rules in `egonn_tpu_torch/sparse/kernels.py` that choose them:
 
 - gather_conv: the column slice (32 or 64, `conv_cols`) and the number of
   blocks that share a tile's offsets (1-4, `offset_groups`);
 - gather_dw: the number of chunks of its partial pass (`dw_tiling`), at 1/4,
-  1/2, 1 and 2 times the rule's choice.
+  1/2, 1 and 2 times the rule's choice;
+- tdown: the gathering body, and the streaming body's coarse rows of a
+  tile (32, 64, 128) by fine rows of a stage (32, 64, 128) (`tdown_tiling`),
+  and its hull launch alone;
+- zrun_presence / zrun_rank: the queries of a block (256, 512, 1024,
+  `zrun_chunk`).
 
     python3 probe_kernels.py     # from the repository root; one CUDA card, nvcc
 
 The calls are those of one EgoNN forward and one training step at full width
 (recorded as `chip_smoke.py` records them: 8 x 65,536 points, cap0 16384; the
-train step of config/config_egonn.txt) and phase 7's synthetic ResNet-width
-calls.  Each distinct call shape prints one line per kernel: every setting's
-device time (median of 10 runs between CUDA events, as `chip_smoke.device_ms`
-times them), the rule's choice and the fastest setting.  Every setting's
-output is held against the wrapper's at chip_smoke's tolerances.  The card's
-name and power limit come first; the whole sweep goes to
-build/probe_kernels.json.
+train step of config/config_egonn.txt), the tdown calls of its validation
+step (32 + 8 + 8 clouds), one MinkLoc forward
+(model_configs/minkloc3d_mulran.txt, cap0 40960, as chip_smoke's phase 6)
+and phase 7's synthetic ResNet-width calls.  Each distinct call shape
+prints one line per kernel: every setting's device time (median of 10 runs
+between CUDA events, as `chip_smoke.device_ms` times them), the rule's
+choice and the fastest setting.  Every setting's output is held against the
+wrapper's at chip_smoke's tolerances.  The card's name and power limit come
+first; the whole sweep goes to build/probe_kernels.json.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import sys
 import types
@@ -69,32 +77,69 @@ def _dw_setting(kernels, cuda_lib, args, n_chunks: int):
     return run
 
 
-def sweep(tag, name, args, kwargs, kernels, cuda_lib, cycles_per_ms) -> dict:
-    """Every setting of one call: times, the rule's choice, the fastest."""
+def _tdown_setting(kernels, args, kwargs, tiling):
+    return lambda: kernels._tdown_cuda(*args, kwargs.get("epi"), *tiling)
+
+
+def _zrun_setting(kernels, name, args, q_chunk: int):
+    keys, q_lo, kz = args
+    return lambda: kernels._zrun_cuda(keys, q_lo, kz, name == "zrun_rank", q_chunk)
+
+
+def _settings(name, args, kwargs, kernels, cuda_lib):
+    """(description, the rule's setting, every setting, setting -> run)."""
+    if name in ("zrun_presence", "zrun_rank"):
+        q_lo = args[1]
+        valid = float((q_lo != 2**31 - 1).float().mean())
+        desc = f"B {q_lo.shape[0]} Kxy {q_lo.shape[1]} C {q_lo.shape[2]} valid {valid:.3f}"
+        return (desc, kernels.zrun_chunk(q_lo.shape[2]), [256, 512, 1024],
+                lambda s: _zrun_setting(kernels, name, args, s))
+    if name == "tdown":
+        feats, up_parent, _, kernel, c_coarse = args
+        children = int((up_parent < c_coarse).sum())
+        desc = f"{chip_smoke.call_desc(name, args)} children {children}"
+        rule = kernels.tdown_tiling(*feats.shape)
+        settings = [(128, 0, True)] + [
+            (rows, rc, False) for rows, rc in itertools.product((32, 64, 128), (32, 64, 128))
+            if kernels.tdown_tiling_ok(feats.shape[2], kernel.shape[2], rows, rc)]
+        return desc, rule, settings, lambda s: _tdown_setting(kernels, args, kwargs, s)
     feats, kmap = args[0], args[1]
     b, _, f_in = feats.shape
     k_vol, c_out = kmap.shape[1], kmap.shape[2]
     f_out = args[2].shape[2]
-    want = getattr(kernels, name)(*args, **kwargs)
+    valid = float(((kmap >= 0) & (kmap < feats.shape[1])).float().mean())
+    desc = f"{chip_smoke.call_desc(name, args)} valid {valid:.3f}"
     if name == "gather_conv":
         rule = (kernels.conv_cols(b, c_out, f_out, k_vol),
                 kernels.offset_groups(b, c_out, f_in, f_out, k_vol))
         settings = [(c, n) for c in (32, 64) if f_out % c == 0 for n in range(1, min(4, k_vol) + 1)]
-        make = lambda s: _conv_setting(kernels, cuda_lib, args, kwargs, *s)  # noqa: E731
-    else:
-        rule = kernels.dw_tiling(b, c_out, f_in, f_out, k_vol)[2]
-        settings = sorted({max(1, rule * m // 4) for m in (1, 2, 4, 8)})
-        make = lambda s: _dw_setting(kernels, cuda_lib, args, s)  # noqa: E731
+        return desc, rule, settings, lambda s: _conv_setting(kernels, cuda_lib, args, kwargs, *s)
+    rule = kernels.dw_tiling(b, c_out, f_in, f_out, k_vol)[2]
+    settings = sorted({max(1, rule * m // 4) for m in (1, 2, 4, 8)})
+    return desc, rule, settings, lambda s: _dw_setting(kernels, cuda_lib, args, s)
+
+
+def sweep(tag, name, args, kwargs, kernels, cuda_lib, cycles_per_ms) -> dict:
+    """Every setting of one call: times, the rule's choice, the fastest."""
+    want = getattr(kernels, name)(*args, **kwargs)
+    desc, rule, settings, make = _settings(name, args, kwargs, kernels, cuda_lib)
     times = {}
     for s in settings:
         run = make(s)
         chip_smoke.compare(name, run(), want)
         times[str(s)] = chip_smoke.device_ms(run, cycles_per_ms, reps=10)
     best = min(times, key=times.get)
-    valid = float(((kmap >= 0) & (kmap < feats.shape[1])).float().mean())
-    desc = f"{chip_smoke.call_desc(name, args)} valid {valid:.3f}"
-    chip_smoke.log(f"[{tag}] {name} {desc}: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
-                   + f" ms; rule {rule} {times[str(rule)]:.4f}, best {best} {times[best]:.4f}")
+    hull = ""
+    if name == "tdown":  # its first launch alone, at each tile height
+        hull_ms = {r: chip_smoke.device_ms(
+            lambda r=r: kernels._tdown_hulls_cuda(args[1], args[4], r), cycles_per_ms, reps=10)
+            for r in (32, 64, 128)}
+        times.update({f"hulls {r}": v for r, v in hull_ms.items()})
+        hull = "; hulls alone " + ", ".join(f"{r} {v:.4f}" for r, v in hull_ms.items())
+    chip_smoke.log(f"[{tag}] {name} {desc}: " + ", ".join(f"{s} {times[str(s)]:.4f}"
+                                                          for s in settings)
+                   + f" ms; rule {rule} {times[str(rule)]:.4f}, best {best} {times[best]:.4f}"
+                   + hull)
     return dict(tag=tag, name=name, call=desc, times=times, rule=str(rule), best=best)
 
 
@@ -105,7 +150,7 @@ def main() -> int:
     from egonn_tpu_torch import inference
     from egonn_tpu_torch.config import TrainingParams
     from egonn_tpu_torch.data.train_batch import make_train_batch
-    from egonn_tpu_torch.models.factory import create_egonn_model
+    from egonn_tpu_torch.models.factory import create_egonn_model, model_factory
     from egonn_tpu_torch.ops.quantization import PolarQuantizer
     from egonn_tpu_torch.sparse import cuda_lib, kernels
     from egonn_tpu_torch.train.state import make_lr_schedule
@@ -132,6 +177,13 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(0)
     paths["train"] = chip_smoke.record_calls(
         kernels, lambda: step(g, l, gen, make_lr_schedule(tp)(0), True))
+    # the validation step (three eval forwards): tdown's largest user
+    paths["val"] = chip_smoke.record_calls(
+        kernels, lambda: step(g, l, None, make_lr_schedule(tp)(0), False))
+    mink = model_factory(chip_smoke._minkloc_params(), cap0=chip_smoke.MINKLOC_CAP0,
+                         device=device, seed=chip_smoke.SEED + 3)
+    paths["minkloc"] = chip_smoke.record_calls(
+        kernels, lambda: inference.forward(mink, clouds, mask))
     rng = np.random.default_rng(chip_smoke.SEED)
     paths["wide"] = [(name, chip_smoke._wide_call(rng, name, k_vol, f_in, f_out, device), {},
                       None) for name, k_vol, f_in, f_out in chip_smoke.WIDE_CALLS]
@@ -140,10 +192,10 @@ def main() -> int:
     with torch.no_grad():
         for tag, calls in paths.items():
             for name, args, kwargs, _ in calls:
-                if name not in ("gather_conv", "gather_dw"):
+                if name == "lookup" or (tag == "val" and name != "tdown"):
                     continue
-                key = (tag, name, chip_smoke.call_desc(name, args),
-                       kwargs.get("epi") is not None)
+                shapes = [tuple(a.shape) if torch.is_tensor(a) else a for a in args]
+                key = (tag, name, str(shapes), kwargs.get("epi") is not None)
                 if key not in seen:
                     seen.add(key)
                     rows.append(sweep(tag, name, args, kwargs, kernels, cuda_lib,

@@ -11,6 +11,8 @@ imports no JAX, so on a machine with only torch they run with
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -p no:cacheprovider
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -375,6 +377,111 @@ def test_tdown_cuda_matches_plain(cuda, f_in, f_out):
         assert torch.equal(kernels.tdown(*args, epi=epi), got)
 
 
+def _full_pyramid(kind, device):
+    """The forward's (EgoNN, 8 x 65,536 lidar_sim points, cap0 16384) or
+    MinkLoc's (minkloc3d_mulran.txt, cap0 40960) pyramid on the card, with
+    the widths of each level's down conv."""
+    import pathlib
+
+    from egonn_tpu_torch.config import ModelParams
+    from egonn_tpu_torch.data.lidar_sim import lidar_scan_clouds
+    from egonn_tpu_torch.models.factory import model_factory
+    from egonn_tpu_torch.ops.quantization import PolarQuantizer
+    from egonn_tpu_torch.sparse import pyramid as tpyr
+
+    clouds = torch.from_numpy(lidar_scan_clouds(8, 65536, seed=0)).to(device)
+    mask = torch.ones(clouds.shape[:2], dtype=torch.bool, device=device)
+    if kind == "egonn":
+        quantizer, spec = PolarQuantizer([1.0, 0.3, 0.2]), tpyr.egonn_pyramid_spec(cap0=16384)
+        widths = [(32, 32), (32, 32), (64, 64), (64, 64), (128, 128), (128, 128), (128, 128)]
+    else:
+        root = pathlib.Path(__file__).resolve().parents[1]
+        mp = ModelParams(str(root / "model_configs" / "minkloc3d_mulran.txt"))
+        built = model_factory(mp, cap0=40960, device="cpu")
+        quantizer, spec = built.quantizer, built.pyramid_spec
+        widths = [(32, 32), (32, 32), (64, 64)]
+    res = quantizer.quantize(clouds, mask, spec.capacities[0], need_index=False)
+    return tpyr.build_pyramid(res.coords_t, res.mask, spec, keys0=res.keys), spec, widths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["egonn", "minkloc"])
+def test_tdown_cuda_at_pyramid_levels(cuda, kind):
+    """Every down conv of the EgoNN forward and of MinkLoc's, on their real
+    up maps and widths, with and without the epilogue; bit-equal repeats."""
+    pyr, spec, widths = _full_pyramid(kind, cuda)
+    gen = np.random.default_rng(11)
+    for l, (f_in, f_out) in zip(spec.up_levels, widths):
+        b, c_fine = pyr[l].up_parent.shape
+        c_coarse = spec.capacities[l + 1]
+        feats = torch.from_numpy(gen.standard_normal((b, c_fine, f_in)).astype(np.float32))
+        kernel = torch.from_numpy((gen.standard_normal((8, f_in, f_out)) / np.sqrt(f_in))
+                                  .astype(np.float32))
+        args = (feats.to(cuda), pyr[l].up_parent, pyr[l].up_koffset, kernel.to(cuda), c_coarse)
+        for rows in (32, 64, 128):
+            assert torch.equal(kernels._tdown_hulls_cuda(pyr[l].up_parent, c_coarse, rows),
+                               kernels.tdown_hulls_plain(pyr[l].up_parent, c_coarse, rows))
+        for epi in (None, _epi(gen, f_out, b, c_coarse, cuda)):
+            got = kernels.tdown(*args, epi=epi)
+            assert _rel_err(got, kernels.tdown_plain(*args, epi=epi)) <= REL_TOL, f"L{l}"
+            assert torch.equal(kernels.tdown(*args, epi=epi), got)
+
+
+def _edge_up_map(case, gen, b, c_fine, c_coarse):
+    """Up maps at the edges of the tdown kernel's design."""
+    parent = np.full((b, c_fine), c_coarse, np.int32)
+    slot = gen.integers(0, 8, size=(b, c_fine)).astype(np.int32)
+    if case == "full":  # every parent below c_fine // 8 has all 8 children, in slot order
+        p = np.arange(c_fine) // 8
+        parent[:] = np.where(p < c_coarse, p, c_coarse)
+        slot[:] = np.arange(c_fine) % 8
+    elif case in ("dropped", "shuffled", "tiles"):
+        cells = np.sort([gen.choice(8 * c_coarse, c_fine, replace=False) for _ in range(b)],
+                        axis=1)
+        parent[:], slot[:] = cells // 8, cells % 8
+        if case == "dropped":  # parents dropped by capacity: runs and scattered rows
+            parent[:, c_fine // 3: c_fine // 2] = c_coarse
+            parent[gen.random((b, c_fine)) < 0.2] = c_coarse
+        elif case == "shuffled":  # hulls span the table
+            order = gen.permutation(c_fine)
+            parent[:], slot[:] = parent[:, order], slot[:, order]
+        else:  # whole empty tiles between occupied ones
+            parent[(parent // 64) % 3 == 1] = c_coarse
+    # case "empty": no fine row has a parent
+    return parent, slot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empty", "full", "dropped", "shuffled", "tiles"])
+@pytest.mark.parametrize("f_in,f_out", [(32, 32), (128, 128), (36, 64)])
+def test_tdown_cuda_edge_cases(cuda, case, f_in, f_out):
+    """Empty tiles and tables, parents with all 8 children, children whose
+    parent was dropped by capacity, shuffled parents, each with and without
+    the epilogue, at every tiling the kernel takes; bit-equal repeats."""
+    gen = np.random.default_rng(f_in + len(case))
+    b, c_fine, c_coarse = 3, 2000, 700
+    parent, slot = _edge_up_map(case, gen, b, c_fine, c_coarse)
+    feats = torch.from_numpy(gen.standard_normal((b, c_fine, f_in)).astype(np.float32)).to(cuda)
+    kernel = torch.from_numpy(gen.standard_normal((8, f_in, f_out)).astype(np.float32)).to(cuda)
+    args = (feats, torch.from_numpy(parent).to(cuda), torch.from_numpy(slot).to(cuda), kernel,
+            c_coarse)
+    for rows in (32, 64, 128):  # the first launch alone: the hulls
+        assert torch.equal(kernels._tdown_hulls_cuda(args[1], c_coarse, rows),
+                           kernels.tdown_hulls_plain(args[1], c_coarse, rows))
+    for epi in (None, _epi(gen, f_out, b, c_coarse, cuda)):
+        want = kernels.tdown_plain(*args, epi=epi)
+        tilings = [(128, 0, True)] + [(rows, rc, False) for rows, rc in
+                                      itertools.product((32, 64, 128), (32, 128))]
+        for tiling in tilings:  # both bodies
+            if not kernels.tdown_tiling_ok(f_in, f_out, *tiling):
+                continue
+            got = kernels._tdown_cuda(*args, epi, *tiling)
+            assert _rel_err(got, want) <= REL_TOL, tiling
+            assert torch.equal(kernels._tdown_cuda(*args, epi, *tiling), got)
+        if case == "empty" and epi is None:
+            assert float(kernels.tdown(*args).abs().max()) == 0.0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k_vol", [8, 27])
 @pytest.mark.parametrize("f_in,f_out", [(32, 32), (32, 64), (64, 128), (128, 128), (128, 32),
@@ -411,6 +518,50 @@ def test_zrun_cuda_matches_plain(cuda, kz):
     want_bits, want_rank = kernels.zrun_plain(keys_t, q_t, kz)
     assert torch.equal(bits, want_bits) and torch.equal(rank, want_rank)
     assert torch.equal(kernels.zrun_presence(keys_t, q_t, kz), want_bits)
+
+
+def _sorted_rows(gen, keys, shape, kz):
+    """Queries as `_zrun_queries` gives them: each row sorted over its valid
+    entries, near the table's keys, with MAXKEY holes mid-row and a tail
+    past the last key."""
+    b = keys.shape[0]
+    q = np.empty(shape, np.int64)
+    for i in range(b):
+        valid = keys[i][keys[i] != MAXKEY].astype(np.int64)
+        for r in range(shape[1]):
+            q[i, r] = np.sort(gen.choice(valid, shape[2]) + gen.integers(-kz, 2, shape[2]))
+    q[:, :, -40:] = keys[keys != MAXKEY].max() + np.arange(1, 41)  # past the last key
+    q[gen.random(shape) < 0.15] = MAXKEY                          # holes mid-row
+    q[0, 0] = MAXKEY                                              # an all-invalid row
+    return np.clip(q, 0, MAXKEY).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kz", [3, 5])
+@pytest.mark.parametrize("q_chunk", [256, 512, 1024, 100])
+def test_zrun_cuda_chunks(cuda, kz, q_chunk):
+    """Sorted rows with MAXKEY holes and queries past the last key, rows not
+    a multiple of the chunk: every chunk's slice fits, bit-equal to the plain
+    version and on repeat.  Shuffled rows spread a chunk over the table: its
+    blocks search the global table (counted), still exact."""
+    gen = np.random.default_rng(kz * q_chunk)
+    keys = _sorted_keys(gen, 3, 5000, 4200, 40000)
+    q = _sorted_rows(gen, keys, (3, kz * kz, 2999), kz)
+    keys_t = torch.from_numpy(keys).to(cuda)
+    for shuffled in (False, True):
+        rows = gen.permuted(q, axis=2) if shuffled else q
+        q_t = torch.from_numpy(np.ascontiguousarray(rows)).to(cuda)
+        want_bits, want_rank = kernels.zrun_plain(keys_t, q_t, kz)
+        before = kernels.zrun_overflow_blocks(cuda)
+        bits, rank = kernels._zrun_cuda(keys_t, q_t, kz, True, q_chunk)
+        presence = kernels._zrun_cuda(keys_t, q_t, kz, False, q_chunk)
+        torch.cuda.synchronize()
+        overflow = kernels.zrun_overflow_blocks(cuda) - before
+        assert torch.equal(bits, want_bits) and torch.equal(rank, want_rank)
+        assert torch.equal(presence, want_bits)
+        again = kernels._zrun_cuda(keys_t, q_t, kz, True, q_chunk)
+        assert torch.equal(again[0], bits) and torch.equal(again[1], rank)
+        assert (overflow > 0) == shuffled, overflow
 
 
 @pytest.mark.cuda
