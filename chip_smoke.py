@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Runs the PyTorch / CUDA port of EgoNN (inference and training) and of
-MinkLoc (inference) on one NVIDIA GPU.
+"""Runs the PyTorch / CUDA port of EgoNN (inference and training), of
+MinkLoc (inference) and of ResNet14 (inference) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
 
@@ -59,11 +59,18 @@ Phases, each printing its lines:
    statistics within rel 1e-4, and on each side the first Adam update equal
    to its closed form within 1e-6.
 6. MinkLoc and lookup.  (a) Phase 2's 8 clouds and EgoNN spec with no up
-   maps recorded: the lookup kernel builds kmap_down at L1-L7 (launches
-   LOOKUP_MAPS_LAUNCHES); every map equals the inverted up map of the
-   standard pyramid, and every kernel call of that pyramid is held against
-   its plain version and timed (library: `torch.searchsorted` on the same
-   table and queries, which gives the rank only).  (b) The MinkFPN model of
+   maps recorded: one launch of the lookup kernel in down mode
+   (`kernels.lookup_down`, the queries formed in the kernel) builds
+   kmap_down at L1-L7 (launches LOOKUP_MAPS_LAUNCHES); every map equals the
+   inverted up map of the standard pyramid, every kernel call of that
+   pyramid is held against its plain version (`lookup_down_plain`: the
+   queries in torch ops, then `lookup_plain` per level) and timed (library:
+   `torch.searchsorted` per level on the same tables and the formed
+   queries, which gives the rank only), the grouped call is re-run
+   bit-equal, and its blocks whose table run overflowed shared memory are
+   counted (0 expected; the result is exact either way).  Lookup calls
+   print two bounds: the fused form's (coarse keys and table in, positions
+   out) and the TPU kernel's (table and queries in, positions out).  (b) The MinkFPN model of
    model_configs/minkloc3d_mulran.txt through `model_factory` at its
    published widths (cartesian 0.3 m, planes 32/64/64, one top-down step,
    ECA blocks, GeM, 256-d), seeded weights, cap0 40960 (every level fits),
@@ -75,18 +82,37 @@ Phases, each printing its lines:
    clouds on the card and on the CPU from one shared quantization, each
    pyramid: maps bit-equal, `global` within rel 1e-5.  Last, clouds/s of
    each pyramid (host clock): the median of 20 turns of 10 forwards on
-   varied inputs, the two pyramids in alternation.
+   varied inputs, the two pyramids in alternation.  The lookup pyramid's
+   grouped lookup call is re-run bit-equal.
 7. wide: gather_conv at (256, 256) and (512, 512) with K = 27 and at
    (256, 512) with K = 8, gather_dw at (256, 256) and (512, 512) with K = 27,
    on seeded ResNet-like inputs (4 clouds of capacity 4,096, 3,000 voxels,
    40% of the neighbours present): held against the plain versions, re-run
-   bit-equal, timed (median of 10).  Not in the kernels line's sums: they go
-   to build/chip_smoke.json under "wide".
+   bit-equal, timed (median of 10).  Then the widths the kernels take only
+   through the wrappers' width plan (zero padding, 512-wide splits):
+   gather_conv at F_in 1 (K 125) and 3 (K 27), F_out 48, 1024 -> 1024 at
+   K = 8 (ResNet50's stage-4 down conv), gather_dw at 1024, tdown at F_out
+   48.  Not in the kernels line's sums: they go to build/chip_smoke.json
+   under "wide".
+8. ResNet14 (`models/resnet.py`: BasicBlock, planes 64/128/256/512,
+   init_dim 64, in_channels 1, 5^3 stem), seeded weights, on phase 2's 8
+   clouds through the cartesian 0.3 m quantizer of
+   model_configs/minkloc3d_mulran.txt, capacities RESNET_CAPACITIES (every
+   level fits), each voxel's one feature its centre's z (so the stem's
+   F_in = 1 runs through the width plan): capacity report, launches
+   RESNET_LAUNCHES (L1-L4's down maps in one lookup launch), level outputs
+   finite, every kernel call held against its plain version and timed
+   (median of 10), the grouped lookup re-run bit-equal; 2 clouds on the
+   card and on the CPU from one shared quantization: pyramids bit-equal,
+   each level's output within rel 1e-5; clouds/s (host clock, median of
+   RESNET_ROUNDS turns of 10 forwards on varied inputs, quantization
+   included).
 
 The last three lines are the card's name and power limit, one JSON object
 with every kernel's numbers (summed over the calls of all the paths: the
 inference forward, the training step, the validation step, the pyramid
-without up maps and the two MinkLoc forwards; `launches` is the paths' launch counts added) and
+without up maps, the two MinkLoc forwards and the ResNet14 forward;
+`launches` is the paths' launch counts added) and
 `{"ok": true, "device": {...}}`.  Details (every call shape's times and
 `tc_bound_ms`, each path apart and summed) go to build/chip_smoke.json.
 Any failure exits non-zero before the last line; without CUDA the script
@@ -134,19 +160,33 @@ TRAIN_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 97, "
 # The validation step: three eval forwards (7 tdown, 14 gather_conv each).
 VAL_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 42, "tdown": 21,
                      "gather_dw": 0, "lookup": 0}
-# Phase 6a: the EgoNN pyramid without up maps, kmap_down looked up at L1-L7.
+# Phase 6a: the EgoNN pyramid without up maps, kmap_down looked up at L1-L7
+# in one launch of the lookup kernel.
 LOOKUP_MAPS_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 0, "tdown": 0,
-                        "gather_dw": 0, "lookup": 7}
+                        "gather_dw": 0, "lookup": 1}
 # Phase 6b: one MinkLoc forward: the stem map, 3 self maps, 2 convs in each
 # of 3 blocks; the factory pyramid runs the 3 down convs from the up maps,
-# the one with level 2's up map alone looks up L1 and L2's down maps and
-# runs those down convs as gathers.
+# the one with level 2's up map alone looks up L1 and L2's down maps (one
+# lookup launch) and runs those down convs as gathers.
 MINKLOC_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 3, "gather_conv": 6, "tdown": 3,
                     "gather_dw": 0, "lookup": 0}
 MINKLOC_LOOKUP_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 3, "gather_conv": 8, "tdown": 1,
-                           "gather_dw": 0, "lookup": 2}
+                           "gather_dw": 0, "lookup": 1}
 MINKLOC_CAP0 = 40960
 MINKLOC_ROUNDS = 20  # throughput turns of each MinkLoc pyramid
+# Phase 8: ResNet14 at torchvision widths over MinkLoc's quantizer and
+# capacities max(256, cap0 >> min(l, 4)).  One forward: the L0 (k = 5) and
+# L1-L4 self maps by z-run rank (real features: positions, not presence),
+# the stem, 4 down convs and 2 convs in each of 4 blocks through gather_conv,
+# no up maps, so the L1-L4 down maps come from one lookup launch.
+RESNET_CAPACITIES = (40960, 20480, 10240, 5120, 2560)
+RESNET_PLANES, RESNET_INIT_DIM = (64, 128, 256, 512), 64
+RESNET_LAUNCHES = {"zrun_presence": 0, "zrun_rank": 5, "gather_conv": 13, "tdown": 0,
+                   "gather_dw": 0, "lookup": 1}
+RESNET_Z_SCALE = 0.25  # the stem's one feature: the voxel centre's z, per 4 m
+RESNET_ROUNDS = 5      # throughput turns of 10 forwards
+# the wrappers recorded apart from KERNELS, and the kernel whose row they feed
+ROW_OF = {"lookup_down": "lookup"}
 REPLACES = {
     "zrun_presence": ("egonn_tpu_torch/csrc/zrun.cu", "egonn_tpu/sparse/banded.py:970"),
     "zrun_rank": ("egonn_tpu_torch/csrc/zrun.cu", "egonn_tpu/sparse/banded.py:1095"),
@@ -155,10 +195,14 @@ REPLACES = {
     "gather_dw": ("egonn_tpu_torch/csrc/gather_dw.cu", "egonn_tpu/sparse/banded.py:688"),
     "lookup": ("egonn_tpu_torch/csrc/lookup.cu", "egonn_tpu/sparse/banded.py:808"),
 }
-# Phase 7: synthetic ResNet-width calls (name, K, F_in, F_out)
+# Phase 7: synthetic ResNet-width calls (name, K, F_in, F_out); the last
+# six at widths the kernels take only through the wrappers' width plan
 WIDE_CALLS = (("gather_conv", 27, 256, 256), ("gather_conv", 27, 512, 512),
               ("gather_conv", 8, 256, 512), ("gather_dw", 27, 256, 256),
-              ("gather_dw", 27, 512, 512))
+              ("gather_dw", 27, 512, 512), ("gather_conv", 125, 1, 64),
+              ("gather_conv", 27, 3, 64), ("gather_conv", 27, 64, 48),
+              ("gather_conv", 8, 1024, 1024), ("gather_dw", 8, 1024, 1024),
+              ("tdown", 8, 32, 48))
 WIDE_CLOUDS, WIDE_CAPACITY, WIDE_VOXELS = 4, 4096, 3000
 FLOAT_REL_TOL = 1e-5
 # gather_dw sums up to 32 x 16,384 rows per weight, in per-chunk partials
@@ -225,6 +269,39 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def row_of(name: str) -> str:
+    """The kernel row a recorded wrapper's calls feed."""
+    return ROW_OF.get(name, name)
+
+
+def _outputs(out) -> tuple:
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+
+def _down_queries(args: tuple) -> list:
+    """The queries a `lookup_down` call forms in the kernel, one tensor per
+    level (for its work and for `torch.searchsorted` beside it)."""
+    from egonn_tpu_torch.sparse import kernels
+
+    keys, packs, levels = args
+    return [kernels.down_queries(keys[l], packs[l], packs[l - 1]) for l in levels]
+
+
+def _lookup_ops(tables, queries) -> int:
+    """Binary search steps + one equality test per valid query."""
+    return sum(int((q != 2**31 - 1).sum()) * (math.ceil(math.log2(t.shape[1] + 1)) + 1)
+               for t, q in zip(tables, queries))
+
+
+def lookup_tpu_bytes(args: tuple, out) -> int:
+    """The bytes of the TPU kernel's form of a `lookup_down` call: each
+    level's table, its formed queries in and its positions out (what
+    `lookup` moves given the queries), so that the grouped call compares
+    with the per-level one."""
+    keys, _, levels = args
+    return sum(_nbytes(keys[l - 1]) + 2 * _nbytes(pos) for l, pos in zip(levels, out))
+
+
 def work(name: str, args: tuple, kwargs: dict, out) -> tuple:
     """(bytes, operations, ops rate) the call needs: each input read once,
     each output written once; operations as this call's data needs them."""
@@ -237,10 +314,12 @@ def work(name: str, args: tuple, kwargs: dict, out) -> tuple:
         return _nbytes(keys, q_lo, *outs), ops, INT32_OPS_PER_S
     if name == "lookup":
         keys, queries = args
-        n_valid = int((queries != 2**31 - 1).sum())
-        # binary search steps + one equality test per valid query
-        ops = n_valid * (math.ceil(math.log2(keys.shape[1] + 1)) + 1)
-        return _nbytes(keys, queries, out), ops, INT32_OPS_PER_S
+        return _nbytes(keys, queries, out), _lookup_ops([keys], [queries]), INT32_OPS_PER_S
+    if name == "lookup_down":  # the fused form: coarse keys and table in, positions out
+        keys, _, levels = args
+        nbytes = sum(_nbytes(keys[l], keys[l - 1], pos) for l, pos in zip(levels, out))
+        return (nbytes, _lookup_ops([keys[l - 1] for l in levels], _down_queries(args)),
+                INT32_OPS_PER_S)
     if name == "gather_dw":
         feats, kmap, g = args
         nnz = int(((kmap >= 0) & (kmap < feats.shape[1])).sum())
@@ -266,6 +345,7 @@ def plain_call(name: str, kernels):
         "tdown": kernels.tdown_plain,
         "gather_dw": kernels.gather_dw_plain,
         "lookup": kernels.lookup_plain,
+        "lookup_down": kernels.lookup_down_plain,
     }[name]
 
 
@@ -275,12 +355,18 @@ def library_call(name: str, args: tuple):
         keys, q = args[:2]
         q = q.reshape(keys.shape[0], -1)
         return lambda: torch.searchsorted(keys, q, out_int32=True)
+    if name == "lookup_down":  # one call per level, on the queries formed beforehand
+        keys, _, levels = args
+        pairs = [(keys[l - 1], q.reshape(q.shape[0], -1))
+                 for l, q in zip(levels, _down_queries(args))]
+        return lambda: [torch.searchsorted(t, q, out_int32=True) for t, q in pairs]
     return None
 
 
 def compare(name: str, got, want) -> float:
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
+    got, want = _outputs(got), _outputs(want)
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} outputs against {len(want)}")
     tol = DW_REL_TOL if name == "gather_dw" else FLOAT_REL_TOL
     err = 0.0
     for g, w in zip(got, want):
@@ -340,6 +426,7 @@ def record_calls(kernels, run) -> list:
     (name, positional args, keyword args, output)."""
     calls = []
     originals = {fn.__name__: fn for fn in kernels.KERNELS}
+    originals.update({name: getattr(kernels, name) for name in ROW_OF})
 
     def recorder(name):
         sig = inspect.signature(originals[name])
@@ -399,6 +486,10 @@ def call_desc(name: str, args: tuple) -> str:
     if name in ("zrun_presence", "zrun_rank"):
         keys, q_lo, kz = args
         return f"B {keys.shape[0]} C {keys.shape[1]} queries {tuple(q_lo.shape[1:])} kz {kz}"
+    if name == "lookup_down":
+        keys, _, levels = args
+        return (f"B {keys[0].shape[0]} levels L{levels[0]}-L{levels[-1]} C "
+                f"{[keys[l].shape[1] for l in levels]} into {[keys[l - 1].shape[1] for l in levels]}")
     if name == "tdown":
         feats, _, _, kernel, c_out = args
         return (f"B {feats.shape[0]} C {feats.shape[1]}->{c_out} K 8 "
@@ -420,8 +511,9 @@ def tc_bound_ms(name: str, nbytes: int, ops: int):
 
 def call_detail(kernels, name: str, args: tuple) -> dict:
     """tdown: the fine rows its blocks stream (each tile's hull, at the
-    wrapper's tiling) against the children; zrun: the blocks whose table
-    slice did not fit in shared memory (one more run of the call)."""
+    wrapper's tiling) against the children; zrun and the grouped lookup:
+    the blocks whose table slice did not fit in shared memory (one more run
+    of the call), and for the lookup its TPU-form bound."""
     if name == "tdown":
         feats, up_parent, _, kernel, c_coarse = args
         tile_rows = kernels.tdown_tiling(*feats.shape)[0]
@@ -435,6 +527,12 @@ def call_detail(kernels, name: str, args: tuple) -> dict:
         getattr(kernels, name)(*args)
         return dict(q_chunk=kernels.zrun_chunk(args[1].shape[2]),
                     overflow_blocks=kernels.zrun_overflow_blocks(device) - before)
+    if name == "lookup_down":
+        device = args[0][0].device
+        before = kernels.lookup_overflow_blocks(device)
+        out = kernels.lookup_down(*args)
+        return dict(overflow_blocks=kernels.lookup_overflow_blocks(device) - before,
+                    tpu_bound_ms=lookup_tpu_bytes(args, out) / HBM_BYTES_PER_S * 1e3)
     return {}
 
 
@@ -442,9 +540,22 @@ def _detail_text(detail: dict) -> str:
     if "hull_rows" in detail:
         return (f" tile {detail['tile_rows']} hull rows {detail['hull_rows']} / children "
                 f"{detail['children']}")
-    if "overflow_blocks" in detail:
+    if "q_chunk" in detail:
         return f" chunk {detail['q_chunk']} overflow blocks {detail['overflow_blocks']}"
+    if "tpu_bound_ms" in detail:
+        return (f" overflow blocks {detail['overflow_blocks']} tpu-form bound "
+                f"{detail['tpu_bound_ms']:.4f}")
     return ""
+
+
+def _shape(a):
+    """A call argument as it keys and describes the call: a tensor's shape,
+    a list's items, a packing by its repr."""
+    if torch.is_tensor(a):
+        return list(a.shape)
+    if isinstance(a, (list, tuple)):
+        return [_shape(x) for x in a]
+    return a if isinstance(a, (int, float, bool, str, type(None))) else repr(a)
 
 
 def measure_calls(rows: dict, calls: list, kernels, cycles_per_ms: float, reps: int,
@@ -461,7 +572,7 @@ def measure_calls(rows: dict, calls: list, kernels, cycles_per_ms: float, reps: 
             plain = plain_call(name, kernels)
             err = compare(name, out, plain(*args, **kwargs))
             detail = call_detail(kernels, name, args)
-            shape = [list(a.shape) if torch.is_tensor(a) else a for a in args]
+            shape = [_shape(a) for a in args]
             key = json.dumps([name, shape, "epi" in kwargs and kwargs["epi"] is not None])
             if key not in timed:
                 kern = getattr(kernels, name)
@@ -476,7 +587,7 @@ def measure_calls(rows: dict, calls: list, kernels, cycles_per_ms: float, reps: 
             nbytes, ops, rate = work(name, args, kwargs, out)
             bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
             tc_ms = tc_bound_ms(name, nbytes, ops)
-            row = rows[name]
+            row = rows[row_of(name)]
             row["max_abs_err"] = max(row["max_abs_err"], err)
             row["ms"] += ms
             row["plain_ms"] += plain_ms
@@ -487,7 +598,7 @@ def measure_calls(rows: dict, calls: list, kernels, cycles_per_ms: float, reps: 
                 row["tc_bound_ms"] = (row["tc_bound_ms"] or 0.0) + tc_ms
             if lib_ms is not None:
                 row["library_ms"] = (row["library_ms"] or 0.0) + lib_ms
-            for k in ("hull_rows", "children", "overflow_blocks"):
+            for k in ("hull_rows", "children", "overflow_blocks", "tpu_bound_ms"):
                 if k in detail:
                     row[k] = row.get(k, 0) + detail[k]
             level = call_level(name, args, levels)
@@ -501,7 +612,8 @@ def measure_calls(rows: dict, calls: list, kernels, cycles_per_ms: float, reps: 
                     f"plain {plain_ms:.4f} bound {max(bytes_ms, ops_ms):.4f} "
                     f"tc_bound {tc_ms:.4f} err {err:.3g}{_detail_text(detail)}")
             elif new_shape:
-                log(f"[{tag}] {name} {shape[:3]} ms {ms:.4f} plain {plain_ms:.4f} "
+                log(f"[{tag}] {name} {call_desc(name, args)} ms {ms:.4f} plain {plain_ms:.4f} "
+                    f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} "
                     f"bound {max(bytes_ms, ops_ms):.4f} err {err:.3g}{_detail_text(detail)}")
     for name, row in rows.items():
         if "hull_rows" in row:
@@ -544,9 +656,8 @@ def check_repeat(kernels, calls: list, name: str, tag: str) -> dict:
     with torch.no_grad():
         again = [fn(*args, **kwargs) for _ in range(2)]
     torch.cuda.synchronize()
-    want = out if isinstance(out, tuple) else (out,)
-    equal = all(all(torch.equal(x, y) for x, y in zip(a if isinstance(a, tuple) else (a,), want))
-                for a in again)
+    want = _outputs(out)
+    equal = all(all(torch.equal(x, y) for x, y in zip(_outputs(a), want)) for a in again)
     log(f"[{tag}] determinism: {name} {call_desc(name, args)} re-run twice, bit-equal {equal}")
     if not equal:
         raise AssertionError(f"{name}: a re-run differs from the recorded output")
@@ -577,6 +688,15 @@ def _wide_call(gen, name, k_vol, f_in, f_out, device):
     if k_vol % 2:
         kmap[:, k_vol // 2] = np.arange(c)
     kmap[:, :, n_valid:] = c
+    if name == "tdown":  # each fine voxel a child of one of c / 2 parents, 8 slots each
+        cells = np.stack([gen.choice(4 * c, n_valid, replace=False) for _ in range(b)])
+        parent = np.full((b, c), c // 2, np.int32)
+        slot = np.zeros((b, c), np.int32)
+        parent[:, :n_valid], slot[:, :n_valid] = cells // 8, cells % 8
+        w = gen.standard_normal((8, f_in, f_out)) / np.sqrt(8 * f_in)
+        return (torch.from_numpy(feats).to(device), torch.from_numpy(parent).to(device),
+                torch.from_numpy(slot).to(device), torch.from_numpy(w.astype(np.float32)).to(device),
+                c // 2)
     feats = torch.from_numpy(feats).to(device)
     kmap = torch.from_numpy(kmap.astype(np.int32)).to(device)
     if name == "gather_dw":
@@ -588,9 +708,11 @@ def _wide_call(gen, name, k_vol, f_in, f_out, device):
 
 
 def phase_wide(kernels, cycles_per_ms, device) -> list:
-    """gather_conv and gather_dw at ResNet widths (256-512) on synthetic
-    seeded inputs: held against the plain versions and timed.  Not part of
-    any path's sums."""
+    """gather_conv and gather_dw at ResNet widths (256-512), and gather_conv,
+    gather_dw and tdown at widths the kernels take only through the width
+    plan (F_in 1 and 3, F_out 48, 1024), on synthetic seeded inputs: held
+    against the plain versions, re-run bit-equal and timed.  Not part of any
+    path's sums."""
     import numpy as np
 
     gen = np.random.default_rng(SEED)
@@ -608,8 +730,11 @@ def phase_wide(kernels, cycles_per_ms, device) -> list:
             nbytes, ops, rate = work(name, args, {}, got)
             bound = max(nbytes / HBM_BYTES_PER_S, ops / rate) * 1e3
             tc = tc_bound_ms(name, nbytes, ops)
+            plan = kernels.width_plan(f_in, f_out, dw=name == "gather_dw")
             log(f"[wide] {name} {call_desc(name, args)} ms {ms:.4f} plain {plain_ms:.4f} "
-                f"bound {bound:.4f} tc_bound {tc:.4f} err {err:.3g}")
+                f"bound {bound:.4f} tc_bound {tc:.4f} err {err:.3g} plan "
+                f"{plan.f_in}x{plan.f_out} in {len(plan.in_chunks) * len(plan.out_chunks)} "
+                f"launches")
             out.append(dict(name=name, call=call_desc(name, args), ms=ms, plain_ms=plain_ms,
                             bound_ms=bound, tc_bound_ms=tc, max_abs_err=err, ops=ops,
                             bytes=nbytes))
@@ -711,7 +836,7 @@ def phase_train_kernels(step, g, l, lr, kernels, cycles_per_ms, levels):
     """Record every kernel call of one training step, then compare and time
     each distinct shape."""
     calls = record_calls(kernels, lambda: step(g, l, _gen(g["clouds"].device, SEED), lr, True))
-    counts = {name: sum(c[0] == name for c in calls) for name in TRAIN_STEP_LAUNCHES}
+    counts = {name: sum(row_of(c[0]) == name for c in calls) for name in TRAIN_STEP_LAUNCHES}
     if counts != TRAIN_STEP_LAUNCHES:
         raise AssertionError(f"kernel calls per train step {counts}, expected "
                              f"{TRAIN_STEP_LAUNCHES}")
@@ -726,7 +851,7 @@ def phase_val_kernels(step, g, l, lr, kernels, cycles_per_ms, levels):
     """Record every kernel call of one validation step (three eval forwards:
     tdown's largest user), then compare and time each distinct shape."""
     calls = record_calls(kernels, lambda: step(g, l, None, lr, False))
-    counts = {name: sum(c[0] == name for c in calls) for name in VAL_STEP_LAUNCHES}
+    counts = {name: sum(row_of(c[0]) == name for c in calls) for name in VAL_STEP_LAUNCHES}
     if counts != VAL_STEP_LAUNCHES:
         raise AssertionError(f"kernel calls per validation step {counts}, expected "
                              f"{VAL_STEP_LAUNCHES}")
@@ -873,33 +998,34 @@ def phase_train_card_vs_cpu(tp, g, l, lr):
 # MinkLoc and lookup
 # ---------------------------------------------------------------------------
 
-def _path_launches(kernels, run, expected: dict, what: str):
+def _path_launches(kernels, run, expected: dict, what: str, tag: str = "minkloc"):
     """run() with every launch counter zeroed just before and read just
     after; fails unless the counts are `expected`."""
     kernels.reset_launches()
     out = run()
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    log(f"[minkloc] launches per {what}: {launches}")
+    log(f"[{tag}] launches per {what}: {launches}")
     if launches != expected:
         raise AssertionError(f"{what}: launches {launches}, expected {expected}")
     return out, launches
 
 
-def _measured_path(kernels, run, launches: dict, cycles_per_ms, reps, tag, levels) -> dict:
+def _measured_path(kernels, run, launches: dict, cycles_per_ms, reps, tag, levels):
     """Every kernel call of run() held against its plain version and timed;
-    rows with this path's launch counts."""
+    rows with this path's launch counts, and the calls."""
     rows = new_rows(kernels)
-    measure_calls(rows, record_calls(kernels, run), kernels, cycles_per_ms, reps=reps, tag=tag,
-                  levels=levels)
+    calls = record_calls(kernels, run)
+    measure_calls(rows, calls, kernels, cycles_per_ms, reps=reps, tag=tag, levels=levels)
     for name, row in rows.items():
         row["launches"] = launches[name]
-    return rows
+    return rows, calls
 
 
 def phase_lookup_maps(built, kernels, pyramid_mod, cycles_per_ms):
     """Phase 2's clouds and EgoNN spec, the pyramid built again without up
-    maps: kmap_down at L1-L7 from the lookup kernel."""
+    maps: kmap_down at L1-L7 from one launch of the lookup kernel, equal to
+    the inverted up maps and to `lookup_down_plain`, bit-equal on repeat."""
     clouds, mask = make_inputs(built.device)
     spec = built.pyramid_spec
     res = built.quantizer.quantize(clouds, mask, spec.capacities[0], need_index=False)
@@ -919,9 +1045,10 @@ def phase_lookup_maps(built, kernels, pyramid_mod, cycles_per_ms):
         valid.append(int((looked_up[l].kmap_down < spec.capacities[l - 1]).sum()))
     log(f"[minkloc] EgoNN kmap_down L1-L7 by lookup equal the inverted up maps; valid "
         f"entries per level {valid}")
-    rows = _measured_path(kernels, build, launches, cycles_per_ms, reps=20, tag="lookup-maps",
-                          levels=level_of(spec.capacities))
-    return rows, dict(launches=launches, kmap_down_valid=valid)
+    rows, calls = _measured_path(kernels, build, launches, cycles_per_ms, reps=20,
+                                 tag="lookup-maps", levels=level_of(spec.capacities))
+    return rows, dict(launches=launches, kmap_down_valid=valid,
+                      repeat=check_repeat(kernels, calls, "lookup_down", "lookup-maps"))
 
 
 def _minkloc_params():
@@ -974,10 +1101,13 @@ def phase_minkloc(kernels, inference, pyramid_mod, cycles_per_ms, device):
     if not spec_rel <= 1e-6:
         raise AssertionError("the two pyramids give different MinkLoc outputs")
 
-    rows = {name: _measured_path(kernels, lambda: inference.forward(b, clouds, mask),
-                                 launches[name], cycles_per_ms, reps=10, tag=f"{name}-kernels",
-                                 levels=level_of(spec.capacities))
-            for name, b in (("minkloc", built), ("minkloc_lookup", lookup_built))}
+    rows, repeat = {}, None
+    for name, b in (("minkloc", built), ("minkloc_lookup", lookup_built)):
+        rows[name], calls = _measured_path(
+            kernels, lambda: inference.forward(b, clouds, mask), launches[name], cycles_per_ms,
+            reps=10, tag=f"{name}-kernels", levels=level_of(spec.capacities))
+        if name == "minkloc_lookup":
+            repeat = check_repeat(kernels, calls, "lookup_down", f"{name}-kernels")
 
     # the same weights on the CPU, 2 clouds, one shared quantization
     cpu = torch.device("cpu")
@@ -1022,7 +1152,107 @@ def phase_minkloc(kernels, inference, pyramid_mod, cycles_per_ms, device):
     rates = {name: statistics.median(r) for name, r in turns.items()}
     return rows, dict(launches=launches, capacity=report, spec_rel=spec_rel,
                       spec_bit_equal=spec_equal, card_vs_cpu_rel=cpu_rel, clouds_per_s=rates,
-                      clouds_per_s_turns=turns)
+                      clouds_per_s_turns=turns, lookup_repeat=repeat)
+
+
+# ---------------------------------------------------------------------------
+# ResNet14
+# ---------------------------------------------------------------------------
+
+def _resnet_features(quantizer, res) -> torch.Tensor:
+    """The stem's one feature per voxel: its centre's z (`dequantize` of the
+    voxel coords, as `_voxel_centres` places points), RESNET_Z_SCALE per
+    metre, zero on padding rows.  (B, C0, 1), so the stem's F_in = 1 runs
+    through the width plan."""
+    z = quantizer.dequantize(res.coords_t.transpose(-1, -2))[..., 2:3] * RESNET_Z_SCALE
+    return torch.where(res.mask[..., None], z, 0.0).contiguous()
+
+
+def resnet_spec(pyramid_mod):
+    """ResNet14's pyramid: self maps at L1-L4, no up maps, real stem features."""
+    return pyramid_mod.PyramidSpec(capacities=RESNET_CAPACITIES, conv0_kernel_size=5,
+                                   block_kernel_size=3, self_levels=(1, 2, 3, 4), up_levels=(),
+                                   conv0_ones=False, need_source_index=False)
+
+
+def phase_resnet(kernels, pyramid_mod, cycles_per_ms, device):
+    """ResNet14 (BasicBlock, planes 64-512, init_dim 64, in_channels 1, 5^3
+    stem), seeded weights, on phase 2's 8 clouds through MinkLoc's cartesian
+    0.3 m quantizer: capacity, launch counts, every kernel call against its
+    plain version and timed, the grouped lookup re-run bit-equal, card vs
+    CPU on 2 clouds from one shared quantization, clouds/s."""
+    from egonn_tpu_torch.models.resnet import ResNetBase
+
+    quantizer = _minkloc_params().quantizer
+    spec = resnet_spec(pyramid_mod)
+    model = ResNetBase(1, torch.Generator().manual_seed(SEED + 4), planes=RESNET_PLANES,
+                       layers=(1, 1, 1, 1), block="BasicBlock", conv0_kernel_size=5,
+                       init_dim=RESNET_INIT_DIM).eval()
+    model_cpu = copy.deepcopy(model)
+    model = model.to(device)
+
+    def forward(net, clouds, mask):
+        res = quantizer.quantize(clouds, mask, spec.capacities[0], need_index=False)
+        pyr = pyramid_mod.build_pyramid(res.coords_t, res.mask, spec, keys0=res.keys)
+        with torch.no_grad():
+            return net(pyr, _resnet_features(quantizer, res))
+
+    clouds, mask = make_inputs(device)
+    res = quantizer.quantize(clouds, mask, spec.capacities[0], need_index=False)
+    report = pyramid_mod.capacity_report(
+        pyramid_mod.build_pyramid(res.coords_t, res.mask, spec, keys0=res.keys), spec)
+    log(f"[resnet] capacity report: {report}")
+    if not all(ok for _, _, ok in report.values()):
+        raise AssertionError(f"capacity overflow: {report}")
+    y, launches = _path_launches(kernels, lambda: forward(model, clouds, mask), RESNET_LAUNCHES,
+                                 "ResNet14 forward", tag="resnet")
+    widths = dict(zip((1, 2, 3, 4), RESNET_PLANES))
+    for l, f in y.items():
+        if tuple(f.shape) != (B, RESNET_CAPACITIES[l], widths[l]) or not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"ResNet14 level {l}: shape {tuple(f.shape)} or non-finite")
+    log(f"[resnet] outputs { {l: tuple(f.shape) for l, f in y.items()} } finite")
+    rows, calls = _measured_path(kernels, lambda: forward(model, clouds, mask), launches,
+                                 cycles_per_ms, reps=10, tag="resnet-kernels",
+                                 levels=level_of(spec.capacities))
+    repeat = check_repeat(kernels, calls, "lookup_down", "resnet-kernels")
+
+    # the same weights on the CPU, 2 clouds, one shared quantization
+    c2, m2 = make_inputs(device, b=2, seed=SEED + 1)
+    res2 = quantizer.quantize(c2, m2, spec.capacities[0], need_index=False)
+    pg = pyramid_mod.build_pyramid(res2.coords_t, res2.mask, spec, keys0=res2.keys)
+    pc = pyramid_mod.build_pyramid(res2.coords_t.cpu(), res2.mask.cpu(), spec,
+                                   keys0=res2.keys.cpu())
+    for l in range(spec.num_levels + 1):
+        for field in ("coords", "mask", "kmap_self", "kmap_down"):
+            a, c = getattr(pg[l], field), getattr(pc[l], field)
+            if (a is None) != (c is None) or (a is not None and not torch.equal(a.cpu(), c)):
+                raise AssertionError(f"ResNet14 L{l} {field}: card and CPU pyramids differ")
+    feats2 = _resnet_features(quantizer, res2)
+    with torch.no_grad():
+        yg, yc = model(pg, feats2), model_cpu(pc, feats2.cpu())
+    cpu_rel = {l: _rel_err(yg[l], yc[l]) for l in yc}
+    log(f"[resnet] card vs CPU, 2 clouds, shared quantization: pyramids bit-equal; level "
+        f"outputs rel {cpu_rel}")
+    if not max(cpu_rel.values()) <= FLOAT_REL_TOL:
+        raise AssertionError("card and CPU ResNet14 forwards disagree beyond tolerance")
+
+    # throughput on varied inputs: RESNET_ROUNDS turns of 10 forwards
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    iters = 10
+    variants = [clouds + 0.01 * torch.randn(clouds.shape, generator=gen, device=device)
+                for _ in range(iters)]
+    turns = []
+    for _ in range(RESNET_ROUNDS):
+        forward(model, variants[0], mask)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for v in variants:
+            forward(model, v, mask)
+        torch.cuda.synchronize()
+        turns.append(B * iters / (time.perf_counter() - t0))
+    return rows, dict(launches=launches, capacity=report, card_vs_cpu_rel=cpu_rel,
+                      clouds_per_s=statistics.median(turns), clouds_per_s_turns=turns,
+                      lookup_repeat=repeat)
 
 
 def main() -> int:
@@ -1109,17 +1339,25 @@ def main() -> int:
         f"{MINKLOC_ROUNDS} turns of 10 forwards of {B} x {N_POINTS} points in alternation, "
         f"quartiles {quartiles}, the factory pyramid faster in {wins} of {MINKLOC_ROUNDS} "
         f"pairs (host clock) on {smi}")
-    paths = {"forward": rows, "train_step": train_rows, "val_step": val_rows,
-             "lookup_maps": maps_rows, **mink_rows}
-    all_rows = merged_rows(*paths.values())
     t0 = time.perf_counter()
     wide = phase_wide(kernels, cycles_per_ms, device)
     log(f"[wide] phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    resnet_rows, resnet = phase_resnet(kernels, pyramid_mod, cycles_per_ms, device)
+    log(f"[resnet] phase done in {time.perf_counter() - t0:.1f} s")
+    log(f"[resnet] {resnet['clouds_per_s']:.1f} clouds/s: median of {RESNET_ROUNDS} turns of 10 "
+        f"ResNet14 forwards of {B} x {N_POINTS} points, quantization included (host clock), "
+        f"turns {[round(t, 1) for t in resnet['clouds_per_s_turns']]} on {smi}")
+    paths = {"forward": rows, "train_step": train_rows, "val_step": val_rows,
+             "lookup_maps": maps_rows, **mink_rows, "resnet": resnet_rows}
+    all_rows = merged_rows(*paths.values())
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        dict(card=smi, slice=sl, train=tr, lookup_maps=maps, minkloc=mink, kernels=all_rows,
-             paths=paths, wide=wide, determinism=[*repeat_fwd, *repeat_train, repeat_val],
+        dict(card=smi, slice=sl, train=tr, lookup_maps=maps, minkloc=mink, resnet=resnet,
+             kernels=all_rows, paths=paths, wide=wide,
+             determinism=[*repeat_fwd, *repeat_train, repeat_val, maps["repeat"],
+                          mink["lookup_repeat"], resnet["lookup_repeat"]],
              seconds=time.perf_counter() - t_start), indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

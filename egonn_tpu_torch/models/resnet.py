@@ -4,9 +4,10 @@ ResNet14 ... ResNet101 table.
 
 The pyramid needs self maps at levels 1..len(layers) and, for the stem over
 real features, `conv0_ones=False`.  Its specs record no up maps, so every
-down conv runs over the lookup-built `kmap_down`.  At torchvision widths
-(64-512) the 3^3 convs are wider than the gather conv kernel takes
-(F_out 32 / 64 / 128), so those variants run on the CPU only.
+down conv runs over the lookup-built `kmap_down` (one lookup launch builds
+them all).  Every width runs on the card: the kernel wrappers pad and split
+widths the kernels do not take (`sparse/kernels.py::width_plan`), such as
+the stem's `in_channels` 1-3 or ResNet50's 1024-wide stage-4 down conv.
 """
 from __future__ import annotations
 

@@ -1,10 +1,11 @@
-"""Where the time of one EgoNN inference forward, one training step, or one
-MinkLoc forward goes on the card.
+"""Where the time of one EgoNN inference forward, one training step, one
+MinkLoc forward or one ResNet14 forward goes on the card.
 
     python -m egonn_tpu_torch.profile_forward            # EgoNN inference forward
     python -m egonn_tpu_torch.profile_forward --train    # EgoNN training step
     python -m egonn_tpu_torch.profile_forward --minkloc  # MinkLoc inference forward
     python -m egonn_tpu_torch.profile_forward --minkloc-lookup  # ... lookup-built down maps
+    python -m egonn_tpu_torch.profile_forward --resnet   # ResNet14, lookup-built down maps
 
 Runs the forward at full EgoNN width on 8 `lidar_sim` clouds (65,536 points
 each, cap0 16384, seeded random weights), the training step of
@@ -12,8 +13,11 @@ config/config_egonn.txt on a full-width synthetic batch (32 global clouds +
 8 pairs, `data/train_batch.py`), or the MinkFPN model of
 model_configs/minkloc3d_mulran.txt on the same 8 clouds at cap0 40960 (with
 `--minkloc-lookup` on a pyramid that records level 2's up map only, so the
-L1 and L2 down maps come from the lookup kernel), 3 times under
-`torch.profiler`, and prints the device kernels with the most
+L1 and L2 down maps come from the lookup kernel), or ResNet14 at torchvision
+widths (in_channels 1, the voxel centre's z as its feature) on the same
+clouds through the MinkLoc config's quantizer (`chip_smoke.py` phase 8's
+workload: quantization, the pyramid with L1-L4's down maps from one lookup
+launch, the model), 3 times under `torch.profiler`, and prints the device kernels with the most
 time, the summed kernel time (the port's own kernels apart), the wall time
 per iteration and the card's busy share over the profiled window.  The
 Chrome trace goes to build/<mode>_trace.json.  Needs a CUDA card.
@@ -67,6 +71,31 @@ def _forward_fn(mode: str):
             f"{mp.model} forward of {BATCH} x 65536 points")
 
 
+def _resnet_fn():
+    """ResNet14 at torchvision widths on the 8 clouds: capacities
+    max(256, 40960 >> min(l, 4)), no up maps, the stem over each voxel's
+    centre z / 4 m."""
+    from egonn_tpu_torch.config import ModelParams
+    from egonn_tpu_torch.models.resnet import ResNetBase
+    from egonn_tpu_torch.sparse.pyramid import PyramidSpec, build_pyramid
+
+    quantizer = ModelParams(str(ROOT / "model_configs" / "minkloc3d_mulran.txt")).quantizer
+    spec = PyramidSpec(capacities=(40960, 20480, 10240, 5120, 2560), conv0_kernel_size=5,
+                       block_kernel_size=3, self_levels=(1, 2, 3, 4), up_levels=(),
+                       conv0_ones=False, need_source_index=False)
+    model = ResNetBase(1, torch.Generator().manual_seed(0)).eval().to("cuda")
+    clouds = torch.from_numpy(lidar_scan_clouds(BATCH, 65536, seed=0)).to("cuda")
+    mask = torch.ones(clouds.shape[:2], dtype=torch.bool, device=clouds.device)
+
+    def run():
+        res = quantizer.quantize(clouds, mask, spec.capacities[0], need_index=False)
+        pyr = build_pyramid(res.coords_t, res.mask, spec, keys0=res.keys)
+        z = quantizer.dequantize(res.coords_t.transpose(-1, -2))[..., 2:3] * 0.25
+        with torch.no_grad():
+            return model(pyr, torch.where(res.mask[..., None], z, 0.0).contiguous())
+    return run, f"ResNet14 forward of {BATCH} x 65536 points"
+
+
 def _train_fn():
     from egonn_tpu_torch.config import TrainingParams
     from egonn_tpu_torch.data.train_batch import make_train_batch
@@ -88,11 +117,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_forward: CUDA is not available", file=sys.stderr)
         return 1
-    flags = [a[2:] for a in sys.argv[1:] if a in ("--train", "--minkloc", "--minkloc-lookup")]
+    flags = [a[2:] for a in sys.argv[1:]
+             if a in ("--train", "--minkloc", "--minkloc-lookup", "--resnet")]
     mode = flags[0] if flags else "forward"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    run, what = _train_fn() if mode == "train" else _forward_fn(mode)
+    run, what = {"train": _train_fn, "resnet": _resnet_fn}.get(mode, lambda: _forward_fn(mode))()
     for _ in range(2):  # build the kernels, warm the allocator
         run()
     torch.cuda.synchronize()

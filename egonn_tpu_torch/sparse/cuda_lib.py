@@ -46,8 +46,8 @@ SIGNATURES = {
     "gather_dw.cu": {
         "egonn_gather_dw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
-    "lookup.cu": {
-        "egonn_lookup": [_P, _P, _P, _I, _I, _I, _P],
+    "lookup.cu": {  # host arrays of per-level pointers and sizes, then scalars
+        "egonn_lookup": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     },
 }
 

@@ -42,10 +42,17 @@ the tiles, each tile's valid rows compacted along the MMA depth, and a
 second launch sums the chunks in order.  `zrun_presence` / `zrun_rank`
 copy the slice of the key table that a chunk of a row's (sorted) queries
 needs into shared memory and search there (`zrun_chunk` picks the chunk).
-Widths: gather_conv / tdown take F_out a multiple of 32 up to 512 and F_in a
-multiple of 4 up to 128 or of 32 up to 512 (`conv_widths_ok`); gather_dw
-takes multiples of 32 up to 512 (`dw_widths_ok`).  No float atomics
-anywhere: equal inputs give bit-equal outputs.
+`lookup` does the same per tile of a level's output rows, and in down mode
+(`lookup_down`) forms the child queries itself, for every lookup-built level
+of a pyramid in one launch.
+
+Widths: the kernels take F_out a multiple of 32 up to 512 and F_in a
+multiple of 4 up to 128 or of 32 up to 512 (gather_conv, tdown:
+`conv_widths_ok`), or multiples of 32 up to 512 (gather_dw: `dw_widths_ok`).
+The wrappers take any width: `width_plan` zero-pads each width up to the
+next one the kernel takes and splits widths above 512 into launches of at
+most 512 (exact: a split F_in's partial sums are added before the
+epilogue).  No float atomics anywhere: equal inputs give bit-equal outputs.
 
 Dispatch: a wrapper given CUDA tensors launches its kernel (building the
 kernels on first use) or raises; given CPU tensors it runs the plain version.
@@ -59,12 +66,20 @@ the eval-mode BatchNorm affine + ReLU + row mask fused into the conv's store:
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import ctypes
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from egonn_tpu_torch.sparse import cuda_lib
-from egonn_tpu_torch.sparse.packing import MAXKEY, lookup_sorted
+from egonn_tpu_torch.sparse.packing import (
+    MAXKEY,
+    PackSpec,
+    kmap_queries,
+    lookup_sorted,
+    unpack_keys,
+)
 
 _DW_BLOCKS = 8 * 132  # gather_dw's partial-pass blocks: eight per SM of an H100
 # gather_conv splits a tile's offsets over blocks (summed by a second launch)
@@ -77,8 +92,10 @@ _SPLIT_BLOCKS, _SPLIT_STAGES = 1280, 24
 # kernel launches per wrapper (CUDA tensors only; the plain versions do not count)
 LAUNCHES = {"zrun_presence": 0, "zrun_rank": 0, "gather_conv": 0, "tdown": 0, "gather_dw": 0,
             "lookup": 0}
-# per CUDA device: zrun blocks whose table slice did not fit (`zrun_overflow_blocks`)
+# per CUDA device: zrun and lookup blocks whose table slice did not fit
+# (`zrun_overflow_blocks`, `lookup_overflow_blocks`)
 _ZRUN_OVERFLOW: dict = {}
+_LOOKUP_OVERFLOW: dict = {}
 
 
 # ---------------------------------------------------------------------------
@@ -166,19 +183,23 @@ def zrun_chunk(n_row: int) -> int:
     return 1024 if n_row >= 8192 else 512
 
 
-def _zrun_overflow(device: torch.device) -> torch.Tensor:
+def _overflow(counters: dict, device: torch.device) -> torch.Tensor:
     device = _index_device(device)
-    if device not in _ZRUN_OVERFLOW:
-        _ZRUN_OVERFLOW[device] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _ZRUN_OVERFLOW[device]
+    if device not in counters:
+        counters[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return counters[device]
+
+
+def _overflow_count(counters: dict, device) -> int:
+    device = _index_device(device)
+    return int(counters[device].item()) if device in counters else 0
 
 
 def zrun_overflow_blocks(device) -> int:
     """zrun blocks on `device` whose table slice did not fit in shared memory
     (they searched the global table instead), since the first zrun launch
     there."""
-    device = _index_device(device)
-    return int(_ZRUN_OVERFLOW[device].item()) if device in _ZRUN_OVERFLOW else 0
+    return _overflow_count(_ZRUN_OVERFLOW, device)
 
 
 def _index_device(device) -> torch.device:
@@ -199,7 +220,7 @@ def _zrun_cuda(sorted_keys, q_lo, kz, with_rank: bool, q_chunk: Optional[int] = 
     _check(q_lo, "q_lo", torch.int32, q_lo.shape)
     n_xy, n_row = q_lo.shape[1], q_lo.shape[2]
     q_chunk = q_chunk or zrun_chunk(n_row)
-    overflow = _zrun_overflow(q_lo.device)
+    overflow = _overflow(_ZRUN_OVERFLOW, q_lo.device)
     bits = torch.empty_like(q_lo)
     if with_rank:
         rank = torch.empty_like(q_lo)
@@ -286,6 +307,97 @@ def _check_widths(f_in: int, f_out: int, name: str, c_in: int) -> None:
         raise ValueError(f"{name}: {c_in} input rows; the kernel takes fewer than 2^24")
 
 
+class WidthPlan(NamedTuple):
+    """How a wrapper runs a call of any width on a kernel: F_in and F_out
+    zero-padded to `f_in` / `f_out`, then cut into launches over the
+    [start, stop) ranges `in_chunks` x `out_chunks` of the padded widths."""
+    f_in: int
+    f_out: int
+    in_chunks: Tuple[Tuple[int, int], ...]
+    out_chunks: Tuple[Tuple[int, int], ...]
+
+
+_MAX_WIDTH = 512  # the widest F_in / F_out chunk of one launch
+
+
+def width_plan(f_in: int, f_out: int, dw: bool = False) -> WidthPlan:
+    """The launches of a call at widths (F_in, F_out).
+
+    F_out is padded to a multiple of 32; F_in to a multiple of 4 up to 128,
+    else of 32 (gather_conv, tdown), or of 32 (`dw`: gather_dw).  Widths
+    above 512 are cut into chunks of 512 and a remainder: F_out chunks are
+    separate columns of the output (of dW); F_in chunks of a conv are
+    partial sums, added before the epilogue is applied once, and of dW
+    separate rows.  Zero feature columns and zero weight rows / columns add
+    nothing, so the plan is exact."""
+    def up(f, m):
+        return max(m, -(-f // m) * m)
+
+    def chunks(f):
+        return tuple((s, min(s + _MAX_WIDTH, f)) for s in range(0, f, _MAX_WIDTH))
+
+    fi = up(f_in, 32) if dw or f_in > 128 else up(f_in, 4)
+    fo = up(f_out, 32)
+    return WidthPlan(fi, fo, chunks(fi), chunks(fo))
+
+
+def _pad_last(t: torch.Tensor, width: int) -> torch.Tensor:
+    return t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
+
+
+def planned_conv(launch: Callable, feats: torch.Tensor, kernel: torch.Tensor,
+                 epi: Optional[tuple], plan: WidthPlan) -> torch.Tensor:
+    """`launch(feats, kernel, epi)` of a conv (gather_conv, tdown) run over
+    `plan`: feats (..., F_in) and kernel (K, F_in, F_out) zero-padded, the
+    epilogue's scale and bias zero-padded, one launch per (F_in chunk, F_out
+    chunk), F_in chunks' outputs added in order and the epilogue applied to
+    the sum, F_out chunks concatenated, the padding cut off.  A plan of one
+    chunk at the given widths is one launch on the inputs as they are."""
+    f_in, f_out = kernel.shape[1], kernel.shape[2]
+    feats = _pad_last(feats, plan.f_in)
+    if (plan.f_in, plan.f_out) != (f_in, f_out):
+        kernel = F.pad(kernel, (0, plan.f_out - f_out, 0, plan.f_in - f_in))
+    if epi is not None:
+        epi = (_pad_last(epi[0], plan.f_out), _pad_last(epi[1], plan.f_out), epi[2], epi[3])
+    split_in = len(plan.in_chunks) > 1
+    feats_in = [feats[..., i0:i1].contiguous() if split_in else feats
+                for i0, i1 in plan.in_chunks]
+    cols = []
+    for o0, o1 in plan.out_chunks:
+        w = kernel[..., o0:o1] if len(plan.out_chunks) > 1 else kernel
+        e = None if epi is None else (epi[0][o0:o1], epi[1][o0:o1], epi[2], epi[3])
+        if not split_in:
+            cols.append(launch(feats_in[0], w.contiguous(), e))
+            continue
+        acc = None
+        for f, (i0, i1) in zip(feats_in, plan.in_chunks):
+            part = launch(f, w[:, i0:i1].contiguous(), None)
+            acc = part if acc is None else acc + part
+        cols.append(_apply_epi(acc, e))
+    out = cols[0] if len(cols) == 1 else torch.cat(cols, dim=-1)
+    return out if plan.f_out == f_out else out[..., :f_out].contiguous()
+
+
+def planned_dw(launch: Callable, feats: torch.Tensor, g: torch.Tensor, k_vol: int,
+               plan: WidthPlan) -> torch.Tensor:
+    """`launch(feats, g)` of gather_dw run over `plan`: feats (B, C_in, F_in)
+    and g (B, C_out, F_out) zero-padded, one launch per (F_in chunk, F_out
+    chunk), each an independent block of dW; the padding cut off."""
+    f_in, f_out = feats.shape[2], g.shape[2]
+    feats, g = _pad_last(feats, plan.f_in), _pad_last(g, plan.f_out)
+    if len(plan.in_chunks) == 1 and len(plan.out_chunks) == 1:
+        out = launch(feats, g)
+    else:
+        out = feats.new_empty((k_vol, plan.f_in, plan.f_out))
+        for i0, i1 in plan.in_chunks:
+            f = feats[..., i0:i1].contiguous()
+            for o0, o1 in plan.out_chunks:
+                out[:, i0:i1, o0:o1] = launch(f, g[..., o0:o1].contiguous())
+    if (plan.f_in, plan.f_out) == (f_in, f_out):
+        return out
+    return out[:, :f_in, :f_out].contiguous()
+
+
 def conv_cols(b: int, c_out: int, f_out: int, k_vol: int) -> int:
     """The output columns of a gather_conv block, 32 or 64.  64 halve the
     blocks that gather each row and stage W[k]; on an H100 they win for the
@@ -309,15 +421,8 @@ def offset_groups(b: int, c_out: int, f_in: int, f_out: int, k_vol: int) -> int:
     return max(1, min(3 if cols == 64 else 4, k_vol, stages // _SPLIT_STAGES))
 
 
-def gather_conv(feats: torch.Tensor, kmap: torch.Tensor, kernel: torch.Tensor,
-                epi: Optional[tuple] = None) -> torch.Tensor:
-    """Sparse conv over a gather map with the optional fused epilogue.
-
-    feats (B, C_in, F_in) f32; kmap (B, K, C_out) int32 (sentinel C_in);
-    kernel (K, F_in, F_out) f32.  Returns (B, C_out, F_out) f32."""
-    tensors = [feats, kmap, kernel] + ([epi[0], epi[1], epi[3]] if epi else [])
-    if not _on_cuda(*tensors):
-        return gather_conv_plain(feats, kmap, kernel, epi)
+def _gather_conv_cuda(feats, kmap, kernel, epi):
+    """One gather_conv launch at widths the kernel takes."""
     b, c_in, f_in = feats.shape
     k_vol, _, f_out = kernel.shape
     c_out = kmap.shape[2]
@@ -338,6 +443,23 @@ def gather_conv(feats: torch.Tensor, kmap: torch.Tensor, kernel: torch.Tensor,
     _raise_on(err, "gather_conv")
     LAUNCHES["gather_conv"] += 1
     return out
+
+
+def gather_conv(feats: torch.Tensor, kmap: torch.Tensor, kernel: torch.Tensor,
+                epi: Optional[tuple] = None) -> torch.Tensor:
+    """Sparse conv over a gather map with the optional fused epilogue.
+
+    feats (B, C_in, F_in) f32; kmap (B, K, C_out) int32 (sentinel C_in);
+    kernel (K, F_in, F_out) f32.  Returns (B, C_out, F_out) f32.  Any
+    widths: on the card through `width_plan`'s launches."""
+    tensors = [feats, kmap, kernel] + ([epi[0], epi[1], epi[3]] if epi else [])
+    if not _on_cuda(*tensors):
+        return gather_conv_plain(feats, kmap, kernel, epi)
+    if feats.dim() != 3 or kernel.dim() != 3 or feats.shape[2] != kernel.shape[1]:
+        raise ValueError(f"feats {tuple(feats.shape)} and kernel {tuple(kernel.shape)}: "
+                         "expected (B, C_in, F_in) and (K, F_in, F_out)")
+    return planned_conv(lambda f, w, e: _gather_conv_cuda(f, kmap, w, e), feats, kernel, epi,
+                        width_plan(kernel.shape[1], kernel.shape[2]))
 
 
 # ---------------------------------------------------------------------------
@@ -454,14 +576,20 @@ def tdown(feats: torch.Tensor, up_parent: torch.Tensor, up_koffset: torch.Tensor
     """k=2 s=2 down conv driven by the fine level's up map.
 
     feats (B, C_fine, F_in) f32; up_parent/up_koffset (B, C_fine) int32;
-    kernel (8, F_in, F_out) f32.  Returns (B, c_coarse, F_out) f32."""
+    kernel (8, F_in, F_out) f32.  Returns (B, c_coarse, F_out) f32.  Any
+    widths: on the card through `width_plan`'s launches."""
     tensors = [feats, up_parent, up_koffset, kernel] + ([epi[0], epi[1], epi[3]] if epi else [])
     if not _on_cuda(*tensors):
         return tdown_plain(feats, up_parent, up_koffset, kernel, c_coarse, epi)
-    tiling = tdown_tiling(*feats.shape)
-    out = _tdown_cuda(feats, up_parent, up_koffset, kernel, c_coarse, epi, *tiling)
-    LAUNCHES["tdown"] += 1
-    return out
+    if feats.dim() != 3 or kernel.dim() != 3 or feats.shape[2] != kernel.shape[1]:
+        raise ValueError(f"feats {tuple(feats.shape)} and kernel {tuple(kernel.shape)}: "
+                         "expected (B, C_fine, F_in) and (8, F_in, F_out)")
+
+    def launch(f, w, e):
+        out = _tdown_cuda(f, up_parent, up_koffset, w, c_coarse, e, *tdown_tiling(*f.shape))
+        LAUNCHES["tdown"] += 1
+        return out
+    return planned_conv(launch, feats, kernel, epi, width_plan(kernel.shape[1], kernel.shape[2]))
 
 
 # ---------------------------------------------------------------------------
@@ -494,13 +622,8 @@ def dw_tiling(b: int, c_out: int, f_in: int, f_out: int, k_vol: int):
     return mb, nb, n_chunks
 
 
-def gather_dw(feats: torch.Tensor, kmap: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Weight gradient of `gather_conv(feats, kmap, W)` for the cotangent g.
-
-    feats (B, C_in, F_in) f32; kmap (B, K, C_out) int32 (sentinel C_in);
-    g (B, C_out, F_out) f32.  Returns (K, F_in, F_out) f32."""
-    if not _on_cuda(feats, kmap, g):
-        return gather_dw_plain(feats, kmap, g)
+def _gather_dw_cuda(feats, kmap, g):
+    """One gather_dw launch at widths the kernel takes."""
     b, c_in, f_in = feats.shape
     k_vol, c_out = kmap.shape[1], kmap.shape[2]
     f_out = g.shape[2]
@@ -523,6 +646,21 @@ def gather_dw(feats: torch.Tensor, kmap: torch.Tensor, g: torch.Tensor) -> torch
     return out
 
 
+def gather_dw(feats: torch.Tensor, kmap: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Weight gradient of `gather_conv(feats, kmap, W)` for the cotangent g.
+
+    feats (B, C_in, F_in) f32; kmap (B, K, C_out) int32 (sentinel C_in);
+    g (B, C_out, F_out) f32.  Returns (K, F_in, F_out) f32.  Any widths: on
+    the card through `width_plan(dw=True)`'s launches."""
+    if not _on_cuda(feats, kmap, g):
+        return gather_dw_plain(feats, kmap, g)
+    if feats.dim() != 3 or g.dim() != 3 or kmap.dim() != 3:
+        raise ValueError(f"feats {tuple(feats.shape)}, kmap {tuple(kmap.shape)}, g "
+                         f"{tuple(g.shape)}: expected 3-D")
+    return planned_dw(lambda f, gg: _gather_dw_cuda(f, kmap, gg), feats, g, kmap.shape[1],
+                      width_plan(feats.shape[2], g.shape[2], dw=True))
+
+
 # ---------------------------------------------------------------------------
 # sorted-key lookup
 # ---------------------------------------------------------------------------
@@ -533,6 +671,93 @@ def lookup_plain(sorted_keys: torch.Tensor, queries: torch.Tensor) -> torch.Tens
     return lookup_sorted(sorted_keys, queries, sentinel=sorted_keys.shape[1])
 
 
+def down_queries(coarse_keys: torch.Tensor, coarse_pack: PackSpec, fine_pack: PackSpec
+                 ) -> torch.Tensor:
+    """(B, 8, C) child keys of a sorted coarse level's voxels under the fine
+    level's packing, MAXKEY for padding: `kmap_queries` with k = s = 2 on
+    the level's coords, which the dedup chain makes `unpack_keys(keys)`
+    where the key is valid."""
+    mask = coarse_keys != MAXKEY
+    coords = torch.where(mask[:, None, :], unpack_keys(coarse_keys, coarse_pack), 0)
+    return kmap_queries(coords.to(torch.int32), mask, 2, 2, fine_pack)
+
+
+def lookup_down_plain(keys: Sequence[torch.Tensor], packs: Sequence[PackSpec],
+                      levels: Sequence[int]) -> List[torch.Tensor]:
+    """Plain version of `lookup_down`: for each level l, the down queries
+    of keys[l] looked up in keys[l - 1]."""
+    return [lookup_plain(keys[l - 1], down_queries(keys[l], packs[l], packs[l - 1]))
+            for l in levels]
+
+
+# lookup: output rows of a block's tile, and the most table rows it copies
+# into shared memory (larger runs search the global table).  On an H100,
+# 256 x 4096 is the fastest of 32-256 rows x 1024-8192 slice rows on the
+# lookup-built levels of the EgoNN, MinkLoc and ResNet pyramids, or within
+# 1 us of it (`probe_kernels.py`): fewer, fuller blocks hide the probe and
+# slice round trips (32 rows take 1.4-1.6x as long); 1,024-row slices
+# overflow at 256 rows.
+_LOOKUP_ROWS, _LOOKUP_SLICE = 256, 4096
+_LOOKUP_MAX_LEVELS, _LOOKUP_TILE = 16, 2048  # levels of one launch; K x rows of a tile
+
+
+def lookup_rows(k: int) -> int:
+    """Output rows of a lookup block's tile for K offsets: 256, fewer where
+    K x 256 exceeds the 2,048 queries a block holds in registers."""
+    if not 1 <= k <= _LOOKUP_TILE:
+        raise ValueError(f"lookup: K={k}; the kernel takes 1 <= K <= {_LOOKUP_TILE}")
+    return min(_LOOKUP_ROWS, _LOOKUP_TILE // k)
+
+
+def lookup_overflow_blocks(device) -> int:
+    """lookup blocks on `device` whose table run did not fit in shared memory
+    (they searched the global table instead), since the first lookup launch
+    there."""
+    return _overflow_count(_LOOKUP_OVERFLOW, device)
+
+
+def _lookup_cuda(tables: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor],
+                 ks: Sequence[int], packs: Optional[Sequence[Tuple[PackSpec, PackSpec]]],
+                 rows: Optional[int] = None, slice_cap: int = _LOOKUP_SLICE
+                 ) -> List[torch.Tensor]:
+    """One launch of the lookup kernel over several levels: level i looks up
+    the queries srcs[i] (B, K, C_out), or with `packs` the children of the
+    coarse keys srcs[i] (B, C_out) under packs[i] = (coarse, fine), in the
+    sorted keys tables[i] (B, C_in).  Returns each level's (B, K, C_out).
+    `rows` (default `lookup_rows`) and `slice_cap` set the tiling."""
+    n = len(tables)
+    if not 1 <= n <= _LOOKUP_MAX_LEVELS:
+        raise ValueError(f"lookup: {n} levels; one launch takes 1 to {_LOOKUP_MAX_LEVELS}")
+    rows = rows or lookup_rows(max(ks))
+    b = tables[0].shape[0]
+    c_outs = []
+    for t, q, k in zip(tables, srcs, ks):
+        if t.dim() != 2 or t.shape[0] != b:
+            raise ValueError(f"sorted_keys: shape {tuple(t.shape)}, expected (B={b}, C_in)")
+        _check(t, "sorted_keys", torch.int32, t.shape)
+        want = (b, q.shape[-1]) if packs else (b, k, q.shape[-1])
+        if q.dim() != len(want) or q.shape[0] != b:
+            raise ValueError(f"queries: shape {tuple(q.shape)}, expected {want}")
+        _check(q, "queries", torch.int32, want)
+        c_outs.append(q.shape[-1])
+    sizes = [b * k * c for k, c in zip(ks, c_outs)]
+    flat = torch.empty(sum(sizes), dtype=torch.int32, device=tables[0].device)
+    outs = [part.view(b, k, c) for part, k, c in zip(flat.split(sizes), ks, c_outs)]
+    pack_ints = [0] * (12 * n)
+    for i, (coarse, fine) in enumerate(packs or ()):
+        pack_ints[12 * i:12 * i + 12] = [*coarse.bits, *coarse.offsets, *fine.bits,
+                                         *fine.offsets]
+    ptrs, ints = ctypes.c_void_p * n, ctypes.c_int * n
+    fn = cuda_lib.function("lookup.cu", "egonn_lookup")
+    err = fn(ptrs(*[t.data_ptr() for t in tables]), ptrs(*[q.data_ptr() for q in srcs]),
+             ptrs(*[o.data_ptr() for o in outs]), ints(*[t.shape[1] for t in tables]),
+             ints(*c_outs), ints(*ks), (ctypes.c_int * (12 * n))(*pack_ints), n, b, rows,
+             slice_cap, int(packs is not None),
+             _overflow(_LOOKUP_OVERFLOW, tables[0].device).data_ptr(), _stream(tables[0]))
+    _raise_on(err, "lookup")
+    return outs
+
+
 def lookup(sorted_keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     """Position of each query key in its cloud's sorted key table.
 
@@ -541,18 +766,34 @@ def lookup(sorted_keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     positions, C_in where the key is absent or the query invalid."""
     if not _on_cuda(sorted_keys, queries):
         return lookup_plain(sorted_keys, queries)
-    b, c_in = sorted_keys.shape
-    _check(sorted_keys, "sorted_keys", torch.int32, (b, c_in))
-    if queries.dim() != 3 or queries.shape[0] != b:
-        raise ValueError(f"queries: shape {tuple(queries.shape)}, expected (B={b}, K, C_out)")
-    _check(queries, "queries", torch.int32, queries.shape)
-    pos = torch.empty_like(queries)
-    fn = cuda_lib.function("lookup.cu", "egonn_lookup")
-    err = fn(sorted_keys.data_ptr(), queries.data_ptr(), pos.data_ptr(), b, c_in,
-             queries.shape[1] * queries.shape[2], _stream(queries))
-    _raise_on(err, "lookup")
+    if queries.dim() != 3:
+        raise ValueError(f"queries: shape {tuple(queries.shape)}, expected (B, K, C_out)")
+    pos = _lookup_cuda([sorted_keys], [queries], [queries.shape[1]], None)[0]
     LAUNCHES["lookup"] += 1
     return pos
+
+
+def lookup_down(keys: Sequence[torch.Tensor], packs: Sequence[PackSpec],
+                levels: Sequence[int]) -> List[torch.Tensor]:
+    """The k=2 s=2 down maps of `levels`, in one launch of the lookup kernel.
+
+    keys[l] (B, C_l) int32: level l's sorted keys (MAXKEY padded), packed
+    under packs[l].  For each l in `levels` (>= 1) returns the (B, 8, C_l)
+    positions in keys[l - 1] of the 8 children 2 * coord + d of each voxel
+    (C order over (dx, dy, dz), dz fastest), C_{l-1} where the child is
+    absent, out of range or the voxel padding: `lookup_down_plain`, with the
+    queries formed in the kernel."""
+    levels = list(levels)
+    if not levels:
+        return []
+    if not _on_cuda(*[keys[l] for l in levels], *[keys[l - 1] for l in levels]):
+        return lookup_down_plain(keys, packs, levels)
+    if min(levels) < 1:
+        raise ValueError(f"levels {levels}: a down map needs a finer level")
+    outs = _lookup_cuda([keys[l - 1] for l in levels], [keys[l] for l in levels],
+                        [8] * len(levels), [(packs[l], packs[l - 1]) for l in levels])
+    LAUNCHES["lookup"] += 1
+    return outs
 
 
 KERNELS = (zrun_presence, zrun_rank, gather_conv, tdown, gather_dw, lookup)

@@ -75,6 +75,38 @@ def halved_spec(spec: PackSpec) -> PackSpec:
     return PackSpec(spec.bits, tuple(o // 2 for o in spec.offsets))
 
 
+def offset_range(kernel_size: int) -> range:
+    """Per-axis kernel offsets: centred for odd kernels, [0, k) for even ones."""
+    if kernel_size % 2 == 1:
+        return range(-(kernel_size // 2), kernel_size // 2 + 1)
+    return range(0, kernel_size)
+
+
+def kmap_queries(coords_t: torch.Tensor, mask: torch.Tensor, kernel_size: int, scale: int,
+                 pack: PackSpec) -> torch.Tensor:
+    """Query keys of a kernel map: for every output voxel o and offset d of
+    `pyramid.kernel_offsets(kernel_size)` (C order over (dx, dy, dz), dz
+    fastest), the packed key of scale * o + d under `pack`; MAXKEY where it
+    is out of range or o is padding.
+
+    coords_t (B, 3, C), mask (B, C).  Returns (B, k^3, C) int32."""
+    bx, by, bz = pack.bits
+    ox, oy, oz = pack.offsets
+    k = kernel_size
+    lo = offset_range(k)[0]
+    rng = torch.arange(lo, lo + k, dtype=torch.int32, device=coords_t.device)
+    dxs = rng.repeat_interleave(k * k)[None, :, None]
+    dys = rng.repeat_interleave(k).repeat(k)[None, :, None]
+    dzs = rng.repeat(k * k)[None, :, None]
+    x = scale * coords_t[:, None, 0] + dxs + ox             # (B, k^3, C)
+    y = scale * coords_t[:, None, 1] + dys + oy
+    z = scale * coords_t[:, None, 2] + dzs + oz
+    ok = ((x >= 0) & (x < (1 << bx)) & (y >= 0) & (y < (1 << by)) & (z >= 0)
+          & (z < (1 << bz)) & mask[:, None, :])
+    key = (x << (by + bz)) | (y << bz) | z
+    return torch.where(ok, key, MAXKEY).to(torch.int32).contiguous()
+
+
 def run_starts(sorted_keys: torch.Tensor) -> torch.Tensor:
     """(..., n) sorted keys -> bool mask of the first entry of every run of
     equal non-MAXKEY keys."""

@@ -16,9 +16,10 @@ For each level l (tensor stride 2^l) `build_pyramid` computes:
 
 * `kmap_down`: the k=2 s=2 down conv's (B, 8, C_l) gather map into level
   l-1, for l >= 1.  Where level l-1 records no up map it is always built, by
-  the lookup kernel (`sparse/kernels.py::lookup`) of the 8 child keys
-  2 * coord + d of every voxel in level l-1's sorted keys: the only way to
-  run that level's down conv.  Where the up map exists it is built only with
+  the lookup kernel in down mode (`sparse/kernels.py::lookup_down`: the 8
+  child keys 2 * coord + d of every voxel, looked up in level l-1's sorted
+  keys), one launch for all such levels: the only way to run their down
+  convs.  Where the up map exists it is built only with
   `with_kmap_down=True` (the training forward), as the up map inverted
   (`sparse/kernels.py::invert_up`); the eval down convs run in transposed
   form from the up map instead (`sparse/kernels.py::tdown`).  Both give the
@@ -45,6 +46,7 @@ from egonn_tpu_torch.sparse.packing import (
     compact_first,
     halve_keys,
     halved_spec,
+    offset_range,
     run_starts,
     sorted_unique,
     unpack_keys,
@@ -52,15 +54,8 @@ from egonn_tpu_torch.sparse.packing import (
 from egonn_tpu_torch.sparse.types import Level, Pyramid
 
 
-def _offset_range(kernel_size: int) -> range:
-    """Per-axis offsets: centred for odd kernels, [0, k) for even ones."""
-    if kernel_size % 2 == 1:
-        return range(-(kernel_size // 2), kernel_size // 2 + 1)
-    return range(0, kernel_size)
-
-
 def _offsets(kernel_size: int, dims: int) -> np.ndarray:
-    return np.array(list(itertools.product(_offset_range(kernel_size), repeat=dims)),
+    return np.array(list(itertools.product(offset_range(kernel_size), repeat=dims)),
                     dtype=np.int32)
 
 
@@ -121,7 +116,7 @@ def _zrun_queries(coords_t: torch.Tensor, mask: torch.Tensor, k: int, pack: Pack
     (dz = -(k // 2) + s) is bit s of `(bits & top_mask) << jshift`."""
     bx, by, bz = pack.bits
     ox, oy, oz = pack.offsets
-    z_start = _offset_range(k)[0]
+    z_start = offset_range(k)[0]
     # built on the device: a host-to-device copy would synchronize the stream
     rng = torch.arange(z_start, z_start + k, dtype=torch.int32, device=coords_t.device)
     dxs = rng.repeat_interleave(k)[None, :, None]
@@ -138,30 +133,6 @@ def _zrun_queries(coords_t: torch.Tensor, mask: torch.Tensor, k: int, pack: Pack
     q_lo = torch.where(xyok & mask[:, None, :], key, MAXKEY)
     return (q_lo.to(torch.int32).contiguous(), jshift.to(torch.int32),
             top_mask.to(torch.int32))
-
-
-def _kmap_queries(coords_t: torch.Tensor, mask: torch.Tensor, kernel_size: int, scale: int,
-                  pack: PackSpec) -> torch.Tensor:
-    """Query keys of a kernel map: for every output voxel o and offset d of
-    `kernel_offsets(kernel_size)` (C order), the packed key of scale * o + d
-    under `pack`; MAXKEY where it is out of range or o is padding.
-
-    coords_t (B, 3, C), mask (B, C).  Returns (B, k^3, C) int32."""
-    bx, by, bz = pack.bits
-    ox, oy, oz = pack.offsets
-    k = kernel_size
-    lo = _offset_range(k)[0]
-    rng = torch.arange(lo, lo + k, dtype=torch.int32, device=coords_t.device)
-    dxs = rng.repeat_interleave(k * k)[None, :, None]
-    dys = rng.repeat_interleave(k).repeat(k)[None, :, None]
-    dzs = rng.repeat(k * k)[None, :, None]
-    x = scale * coords_t[:, None, 0] + dxs + ox             # (B, k^3, C)
-    y = scale * coords_t[:, None, 1] + dys + oy
-    z = scale * coords_t[:, None, 2] + dzs + oz
-    ok = ((x >= 0) & (x < (1 << bx)) & (y >= 0) & (y < (1 << by)) & (z >= 0)
-          & (z < (1 << bz)) & mask[:, None, :])
-    key = (x << (by + bz)) | (y << bz) | z
-    return torch.where(ok, key, MAXKEY).to(torch.int32).contiguous()
 
 
 def _self_kmap(keys: torch.Tensor, coords_t: torch.Tensor, mask: torch.Tensor, k: int,
@@ -237,6 +208,14 @@ def build_pyramid(coords0_t: torch.Tensor, mask0: torch.Tensor, spec: PyramidSpe
     coords, masks, keys = [coords0_t] + coords, [mask0] + masks, [keys0] + keys
     n_uniques = [n_unique0.to(torch.int32)] + n_uniques
 
+    # the down maps of levels whose finer level records no up map: one
+    # launch (they need only the dedup chain's keys)
+    down_levels = [l for l in range(1, spec.num_levels + 1) if l - 1 not in spec.up_levels]
+    looked_up = {}
+    if down_levels:
+        looked_up = dict(zip(down_levels, kernels.lookup_down(
+            keys, [spec.pack_at(l) for l in range(spec.num_levels + 1)], down_levels)))
+
     levels = []
     for l in range(spec.num_levels + 1):
         kmap_self = None
@@ -251,11 +230,8 @@ def build_pyramid(coords0_t: torch.Tensor, mask0: torch.Tensor, spec: PyramidSpe
             kbits = coords[l] - 2 * (coords[l] // 2)  # (B, 3, C) in {0, 1}
             up_koffset = (4 * kbits[:, 0] + 2 * kbits[:, 1] + kbits[:, 2]).to(torch.int32)
             up_parent = up_parents[l]
-        kmap_down = None
-        if l >= 1 and l - 1 not in spec.up_levels:
-            q = _kmap_queries(coords[l], masks[l], 2, 2, spec.pack_at(l - 1))
-            kmap_down = kernels.lookup(keys[l - 1], q)
-        elif l >= 1 and with_kmap_down:
+        kmap_down = looked_up.get(l)
+        if kmap_down is None and l >= 1 and with_kmap_down:
             kmap_down = kernels.invert_up(levels[l - 1].up_parent, levels[l - 1].up_koffset,
                                           spec.capacities[l])
         levels.append(Level(
@@ -278,12 +254,14 @@ def capacity_report(pyramid: Pyramid, spec: PyramidSpec) -> dict:
     return out
 
 
-def egonn_pyramid_spec(cap0: int = 16384, num_levels: int = 7,
+def egonn_pyramid_spec(cap0: int = 16384, num_levels: int = 7, min_out_level: int = 3,
                        decay: Sequence[float] = (1.0, 0.6, 0.4, 0.25, 0.15, 0.1, 0.08, 0.06),
                        ) -> PyramidSpec:
     """The published EgoNN pyramid: 7 stride-2 levels with ResNet blocks at
     1..7; capacities decay geometrically from cap0, rounded up to multiples
-    of 128 with a floor of 256."""
+    of 128 with a floor of 256.  `min_out_level` is accepted and ignored, as
+    the JAX package's signature has it (every level is built)."""
+    del min_out_level
     caps = []
     for l in range(num_levels + 1):
         caps.append(max(256, int(np.ceil(cap0 * decay[min(l, len(decay) - 1)] / 128)) * 128))

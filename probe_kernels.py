@@ -10,7 +10,14 @@ the rules in `egonn_tpu_torch/sparse/kernels.py` that choose them:
   tile (32, 64, 128) by fine rows of a stage (32, 64, 128) (`tdown_tiling`),
   and its hull launch alone;
 - zrun_presence / zrun_rank: the queries of a block (256, 512, 1024,
-  `zrun_chunk`).
+  `zrun_chunk`);
+- lookup (the grouped down-map launch, `lookup_down`): the coarse rows of a
+  block's tile (32, 64, 128, 256, `lookup_rows`) by the table rows its
+  shared-memory slice holds (1,024 to 8,192, `_LOOKUP_SLICE`), with the
+  blocks that overflowed the slice at each setting; and the device kernels
+  and device time (`torch.profiler`) of building the lookup-built down maps
+  in one grouped launch against the per-level form they replace (each
+  level's queries formed by torch ops, then one lookup launch per level).
 
     python3 probe_kernels.py     # from the repository root; one CUDA card, nvcc
 
@@ -18,8 +25,10 @@ The calls are those of one EgoNN forward and one training step at full width
 (recorded as `chip_smoke.py` records them: 8 x 65,536 points, cap0 16384; the
 train step of config/config_egonn.txt), the tdown calls of its validation
 step (32 + 8 + 8 clouds), one MinkLoc forward
-(model_configs/minkloc3d_mulran.txt, cap0 40960, as chip_smoke's phase 6)
-and phase 7's synthetic ResNet-width calls.  Each distinct call shape
+(model_configs/minkloc3d_mulran.txt, cap0 40960, as chip_smoke's phase 6),
+phase 7's synthetic ResNet-width calls that the kernels take as they are,
+and the lookup-built down maps of phase 6's EgoNN pyramid without up maps
+and MinkLoc pyramid with level 2's alone and of phase 8's ResNet14.  Each distinct call shape
 prints one line per kernel: every setting's device time (median of 10 runs
 between CUDA events, as `chip_smoke.device_ms` times them), the rule's
 choice and the fastest setting.  Every setting's output is held against the
@@ -28,6 +37,7 @@ first; the whole sweep goes to build/probe_kernels.json.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import sys
@@ -86,8 +96,19 @@ def _zrun_setting(kernels, name, args, q_chunk: int):
     return lambda: kernels._zrun_cuda(keys, q_lo, kz, name == "zrun_rank", q_chunk)
 
 
+def _lookup_setting(kernels, args, rows: int, cap: int):
+    keys, packs, levels = args
+    return lambda: kernels._lookup_cuda([keys[l - 1] for l in levels], [keys[l] for l in levels],
+                                        [8] * len(levels), [(packs[l], packs[l - 1]) for l in levels],
+                                        rows=rows, slice_cap=cap)
+
+
 def _settings(name, args, kwargs, kernels, cuda_lib):
     """(description, the rule's setting, every setting, setting -> run)."""
+    if name == "lookup_down":
+        settings = list(itertools.product((32, 64, 128, 256), (1024, 2048, 4096, 8192)))
+        return (chip_smoke.call_desc(name, args), (kernels.lookup_rows(8), kernels._LOOKUP_SLICE),
+                settings, lambda s: _lookup_setting(kernels, args, *s))
     if name in ("zrun_presence", "zrun_rank"):
         q_lo = args[1]
         valid = float((q_lo != 2**31 - 1).float().mean())
@@ -123,13 +144,18 @@ def sweep(tag, name, args, kwargs, kernels, cuda_lib, cycles_per_ms) -> dict:
     """Every setting of one call: times, the rule's choice, the fastest."""
     want = getattr(kernels, name)(*args, **kwargs)
     desc, rule, settings, make = _settings(name, args, kwargs, kernels, cuda_lib)
-    times = {}
+    times, overflow = {}, {}
     for s in settings:
         run = make(s)
+        before = kernels.lookup_overflow_blocks(want[0].device) if name == "lookup_down" else 0
         chip_smoke.compare(name, run(), want)
+        if name == "lookup_down":
+            overflow[str(s)] = kernels.lookup_overflow_blocks(want[0].device) - before
         times[str(s)] = chip_smoke.device_ms(run, cycles_per_ms, reps=10)
     best = min(times, key=times.get)
     hull = ""
+    if overflow:
+        hull = "; overflow blocks " + ", ".join(f"{s} {v}" for s, v in overflow.items() if v)
     if name == "tdown":  # its first launch alone, at each tile height
         hull_ms = {r: chip_smoke.device_ms(
             lambda r=r: kernels._tdown_hulls_cuda(args[1], args[4], r), cycles_per_ms, reps=10)
@@ -140,7 +166,38 @@ def sweep(tag, name, args, kwargs, kernels, cuda_lib, cycles_per_ms) -> dict:
                                                           for s in settings)
                    + f" ms; rule {rule} {times[str(rule)]:.4f}, best {best} {times[best]:.4f}"
                    + hull)
-    return dict(tag=tag, name=name, call=desc, times=times, rule=str(rule), best=best)
+    return dict(tag=tag, name=name, call=desc, times=times, rule=str(rule), best=best,
+                overflow=overflow)
+
+
+def map_build_kernels(tag, kernels, args) -> dict:
+    """Device kernels and device ms of one build of a path's lookup-built
+    down maps: the grouped launch (`lookup_down`) against the per-level form
+    (`down_queries` in torch ops + one `lookup` launch per level)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    keys, packs, levels = args
+    forms = {"grouped": lambda: kernels.lookup_down(keys, packs, levels),
+             "per_level": lambda: [kernels.lookup(keys[l - 1],
+                                                  kernels.down_queries(keys[l], packs[l],
+                                                                       packs[l - 1]))
+                                   for l in levels]}
+    out = {}
+    for form, run in forms.items():
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+                 for e in events)
+        out[form] = dict(kernels=sum(e.count for e in events), device_ms=us / 1e3)
+    chip_smoke.log(f"[map-build] {tag} {chip_smoke.call_desc('lookup_down', args)}: "
+                   + "; ".join(f"{f} {v['kernels']} device kernels, {v['device_ms']:.4f} ms"
+                               for f, v in out.items()))
+    return dict(tag=tag, **out)
 
 
 def main() -> int:
@@ -153,6 +210,7 @@ def main() -> int:
     from egonn_tpu_torch.models.factory import create_egonn_model, model_factory
     from egonn_tpu_torch.ops.quantization import PolarQuantizer
     from egonn_tpu_torch.sparse import cuda_lib, kernels
+    from egonn_tpu_torch.sparse import pyramid as pyramid_mod
     from egonn_tpu_torch.train.state import make_lr_schedule
     from egonn_tpu_torch.train.trainer import make_train_step
 
@@ -186,15 +244,30 @@ def main() -> int:
         kernels, lambda: inference.forward(mink, clouds, mask))
     rng = np.random.default_rng(chip_smoke.SEED)
     paths["wide"] = [(name, chip_smoke._wide_call(rng, name, k_vol, f_in, f_out, device), {},
-                      None) for name, k_vol, f_in, f_out in chip_smoke.WIDE_CALLS]
+                      None) for name, k_vol, f_in, f_out in chip_smoke.WIDE_CALLS
+                     if name != "tdown" and kernels.width_plan(f_in, f_out) == kernels.WidthPlan(
+                         f_in, f_out, ((0, f_in),), ((0, f_out),))]
+    # the lookup-built down maps: EgoNN without up maps, MinkLoc with level
+    # 2's alone, ResNet14's spec on MinkLoc's quantizer
+    res_spec = chip_smoke.resnet_spec(pyramid_mod)
+    for tag, q, spec in (("maps", built.quantizer,
+                          dataclasses.replace(built.pyramid_spec, up_levels=())),
+                         ("minkloc_lookup", mink.quantizer,
+                          dataclasses.replace(mink.pyramid_spec, up_levels=(2,))),
+                         ("resnet", mink.quantizer, res_spec)):
+        res = q.quantize(clouds, mask, spec.capacities[0], need_index=False)
+        paths[tag] = [c for c in chip_smoke.record_calls(kernels, lambda: pyramid_mod.build_pyramid(
+            res.coords_t, res.mask, spec, keys0=res.keys)) if c[0] == "lookup_down"]
 
+    builds = [map_build_kernels(tag, kernels, paths[tag][0][1])
+              for tag in ("maps", "minkloc_lookup", "resnet")]
     rows, seen = [], set()
     with torch.no_grad():
         for tag, calls in paths.items():
             for name, args, kwargs, _ in calls:
                 if name == "lookup" or (tag == "val" and name != "tdown"):
                     continue
-                shapes = [tuple(a.shape) if torch.is_tensor(a) else a for a in args]
+                shapes = chip_smoke._shape(args)
                 key = (tag, name, str(shapes), kwargs.get("epi") is not None)
                 if key not in seen:
                     seen.add(key)
@@ -202,7 +275,7 @@ def main() -> int:
                                       cycles_per_ms))
     chip_smoke.OUT_DIR.mkdir(exist_ok=True)
     (chip_smoke.OUT_DIR / "probe_kernels.json").write_text(
-        json.dumps(dict(card=smi, rows=rows), indent=1))
+        json.dumps(dict(card=smi, rows=rows, map_builds=builds), indent=1))
     chip_smoke.log(f"card: {smi}")
     return 0
 

@@ -1,12 +1,16 @@
 """The port's kernel wrappers (egonn_tpu_torch.sparse.kernels) on random data.
 
 CPU cases check the plain versions against brute force and the dispatch
-rules: the width rules of the conv kernels, and the split-TF32 arithmetic
-of gather_conv / tdown / gather_dw emulated in numpy.  Cases marked `cuda`
-hold each CUDA kernel against its plain version on odd shapes and edge cases
-(ragged tiles, all-sentinel maps, a deep level's single occupied tile,
-widths to 512, F_in != F_out at K = 8 and 27), check that repeats are
-bit-equal and that bad inputs raise; they skip without a card.  This module
+rules: the width rules of the conv kernels, the width plan that pads and
+splits any other width (run with the plain versions as the launches), and
+the split-TF32 arithmetic of gather_conv / tdown / gather_dw emulated in
+numpy.  Cases marked `cuda` hold each CUDA kernel against its plain version
+on odd shapes and edge cases (ragged tiles, all-sentinel maps, a deep
+level's single occupied tile, widths to 512, F_in != F_out at K = 8 and 27,
+widths the kernels take only through the plan: 1, 3, 48, 1024; the grouped
+lookup over empty clouds, single voxels, dropped children and a forced
+overflow), check that repeats are bit-equal and that bad inputs raise; they
+skip without a card.  This module
 imports no JAX, so on a machine with only torch they run with
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -p no:cacheprovider
@@ -180,6 +184,100 @@ def test_dw_width_rule():
         assert kernels.dw_widths_ok(64, f) == (f in ok)
     for f_in, f_out in [(48, 32), (32, 48), (520, 32), (32, 520), (36, 64)]:
         assert not kernels.dw_widths_ok(f_in, f_out)
+
+
+# (F_in, F_out) -> padded widths and chunks: gather_conv / tdown, gather_dw
+_PLANS = {
+    (1, 48): ((4, 64, ((0, 4),), ((0, 64),)), (32, 64, ((0, 32),), ((0, 64),))),
+    (3, 32): ((4, 32, ((0, 4),), ((0, 32),)), (32, 32, ((0, 32),), ((0, 32),))),
+    (48, 512): ((48, 512, ((0, 48),), ((0, 512),)), (64, 512, ((0, 64),), ((0, 512),))),
+    (512, 1024): ((512, 1024, ((0, 512),), ((0, 512), (512, 1024))),
+                  (512, 1024, ((0, 512),), ((0, 512), (512, 1024)))),
+    (1024, 1024): ((1024, 1024, ((0, 512), (512, 1024)), ((0, 512), (512, 1024))),) * 2,
+    (2048, 3): ((2048, 32, ((0, 512), (512, 1024), (1024, 1536), (1536, 2048)), ((0, 32),)),
+                (2048, 32, ((0, 512), (512, 1024), (1024, 1536), (1536, 2048)), ((0, 32),))),
+    (130, 600): ((160, 608, ((0, 160),), ((0, 512), (512, 608))),
+                 (160, 608, ((0, 160),), ((0, 512), (512, 608)))),
+}
+
+
+@pytest.mark.parametrize("f_in,f_out", list(_PLANS))
+def test_width_plan(f_in, f_out):
+    """Padding and splits of `width_plan`; every launch is one the kernel
+    takes, and the chunks tile the padded widths."""
+    for dw, want in zip((False, True), _PLANS[(f_in, f_out)]):
+        plan = kernels.width_plan(f_in, f_out, dw=dw)
+        assert tuple(plan) == want, (dw, plan)
+        ok = kernels.dw_widths_ok if dw else kernels.conv_widths_ok
+        for (i0, i1), (o0, o1) in itertools.product(plan.in_chunks, plan.out_chunks):
+            assert ok(i1 - i0, o1 - o0)
+        assert plan.f_in >= f_in and plan.f_out >= f_out
+
+
+def _plan_inputs(gen, b, c_in, c_out, k_vol, f_in, f_out):
+    feats = torch.from_numpy(gen.standard_normal((b, c_in, f_in)).astype(np.float32))
+    kmap = torch.from_numpy(np.where(gen.random((b, k_vol, c_out)) < 0.5, c_in,
+                                     gen.integers(0, c_in, (b, k_vol, c_out))).astype(np.int32))
+    kernel = torch.from_numpy(gen.standard_normal((k_vol, f_in, f_out)).astype(np.float32))
+    return feats, kmap, kernel
+
+
+def _launches(calls, kind):
+    """A plain launch that records its widths and refuses any the kernel
+    does not take."""
+    def conv(f, w, e, kmap):
+        assert kernels.conv_widths_ok(w.shape[1], w.shape[2]) and f.shape[2] == w.shape[1]
+        calls.append((w.shape[1], w.shape[2]))
+        return kernels.gather_conv_plain(f, kmap, w, e)
+
+    def dw(f, g, kmap):
+        assert kernels.dw_widths_ok(f.shape[2], g.shape[2])
+        calls.append((f.shape[2], g.shape[2]))
+        return kernels.gather_dw_plain(f, kmap, g)
+    return conv if kind == "conv" else dw
+
+
+@pytest.mark.parametrize("f_in,f_out", [(1, 48), (3, 32), (1024, 1024), (130, 600)])
+@pytest.mark.parametrize("with_epi", [False, True])
+def test_planned_conv_equals_plain(f_in, f_out, with_epi):
+    """A gather conv run over the width plan (padded, split, the split F_in's
+    sums added before the epilogue) equals the unpadded plain conv."""
+    gen = np.random.default_rng(f_in + f_out)
+    b, c_in, c_out, k_vol = 2, 40, 30, 8
+    feats, kmap, kernel = _plan_inputs(gen, b, c_in, c_out, k_vol, f_in, f_out)
+    epi = None
+    if with_epi:
+        epi = (torch.from_numpy(gen.uniform(0.5, 1.5, f_out).astype(np.float32)),
+               torch.from_numpy(gen.normal(0, 0.3, f_out).astype(np.float32)), True,
+               torch.from_numpy(gen.random((b, c_out)) < 0.8))
+    calls = []
+    launch = _launches(calls, "conv")
+    plan = kernels.width_plan(f_in, f_out)
+    got = kernels.planned_conv(lambda f, w, e: launch(f, w, e, kmap), feats, kernel, epi, plan)
+    want = kernels.gather_conv_plain(feats, kmap, kernel, epi)
+    assert got.shape == want.shape and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    assert len(calls) == len(plan.in_chunks) * len(plan.out_chunks)
+
+
+@pytest.mark.parametrize("f_in,f_out", [(1, 48), (3, 1024), (1024, 32), (600, 600)])
+def test_planned_dw_equals_plain(f_in, f_out):
+    """gather_dw run over the width plan (padded, split into independent
+    blocks of dW) equals the unpadded plain dW."""
+    gen = np.random.default_rng(f_in * f_out)
+    b, c_in, c_out, k_vol = 2, 40, 30, 8
+    feats, kmap, _ = _plan_inputs(gen, b, c_in, c_out, k_vol, f_in, 1)
+    g = torch.from_numpy(gen.standard_normal((b, c_out, f_out)).astype(np.float32))
+    calls = []
+    launch = _launches(calls, "dw")
+    plan = kernels.width_plan(f_in, f_out, dw=True)
+    got = kernels.planned_dw(lambda f, gg: launch(f, gg, kmap), feats, g, k_vol, plan)
+    want = kernels.gather_dw_plain(feats, kmap, g)
+    assert got.shape == want.shape and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    assert len(calls) == len(plan.in_chunks) * len(plan.out_chunks)
 
 
 def _tf32_rna(x: np.ndarray) -> np.ndarray:
@@ -592,13 +690,13 @@ def test_cuda_wrappers_raise_on_bad_inputs(cuda):
         kernels.gather_conv(feats.double(), kmap, kernel.double())
     with pytest.raises(ValueError, match="contiguous"):
         kernels.gather_conv(feats.transpose(1, 2).contiguous().transpose(1, 2), kmap, kernel)
-    with pytest.raises(ValueError, match="F_out"):
-        kernels.gather_conv(feats, kmap, torch.zeros(27, 32, 48, device=cuda))
+    with pytest.raises(ValueError, match="F_in"):  # feats and kernel disagree
+        kernels.gather_conv(feats, kmap, torch.zeros(27, 16, 48, device=cuda))
     with pytest.raises(ValueError, match="expected all on CUDA or all on the CPU"):
         kernels.gather_conv(feats, kmap.cpu(), kernel)
-    with pytest.raises(ValueError, match="gather_dw"):
-        kernels.gather_dw(torch.zeros(1, 64, 16, device=cuda), kmap,
-                          torch.zeros(1, 64, 32, device=cuda))
+    with pytest.raises(ValueError, match="gather_dw"):  # the kernel alone takes 32-multiples
+        kernels._gather_dw_cuda(torch.zeros(1, 64, 16, device=cuda), kmap,
+                                torch.zeros(1, 64, 32, device=cuda))
     with pytest.raises(ValueError, match="kz"):
         kernels.zrun_rank(torch.zeros(1, 8, dtype=torch.int32, device=cuda),
                           torch.zeros(1, 1, 8, dtype=torch.int32, device=cuda), 9)
@@ -607,3 +705,135 @@ def test_cuda_wrappers_raise_on_bad_inputs(cuda):
         kernels.lookup(keys, torch.zeros(1, 8, dtype=torch.int32, device=cuda))
     with pytest.raises(TypeError):
         kernels.lookup(keys.long(), torch.zeros(1, 2, 8, dtype=torch.int64, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f_in,f_out,k_vol", [(1, 64, 125), (3, 64, 27), (32, 48, 27),
+                                              (1024, 1024, 8), (600, 40, 8)])
+def test_conv_cuda_planned_widths(cuda, f_in, f_out, k_vol):
+    """gather_conv and tdown at widths the kernels take only through the
+    width plan (F_in 1 and 3 padded, F_out 48 padded, 1024 split both ways),
+    with and without the epilogue: within rel 1e-5 of the plain versions,
+    one launch per chunk pair, bit-equal on repeat."""
+    gen = np.random.default_rng(f_in * 7 + f_out + k_vol)
+    b, c_in, c_out = 2, 900, 700
+    plan = kernels.width_plan(f_in, f_out)
+    n_launch = len(plan.in_chunks) * len(plan.out_chunks)
+    feats = torch.from_numpy(gen.standard_normal((b, c_in, f_in)).astype(np.float32)).to(cuda)
+    kmap = torch.from_numpy(_sparse_kmap(gen, b, k_vol, c_in, c_out, 600)).to(cuda)
+    kernel = torch.from_numpy((gen.standard_normal((k_vol, f_in, f_out)) / np.sqrt(f_in))
+                              .astype(np.float32)).to(cuda)
+    for epi in (None, _epi(gen, f_out, b, c_out, cuda)):
+        before = kernels.launch_counts()["gather_conv"]
+        got = kernels.gather_conv(feats, kmap, kernel, epi=epi)
+        assert kernels.launch_counts()["gather_conv"] == before + n_launch
+        assert got.shape == (b, c_out, f_out) and got.is_contiguous()
+        assert _rel_err(got, kernels.gather_conv_plain(feats, kmap, kernel, epi=epi)) <= REL_TOL
+        assert torch.equal(kernels.gather_conv(feats, kmap, kernel, epi=epi), got)
+    if k_vol != 8:
+        return
+    parent = np.full((b, c_in), c_out, np.int32)
+    slot = gen.integers(0, 8, size=(b, c_in)).astype(np.int32)
+    for i in range(b):
+        cells = gen.choice(8 * c_out, 800, replace=False)
+        rows = gen.choice(c_in, 800, replace=False)
+        parent[i, rows], slot[i, rows] = cells % c_out, cells // c_out
+    args = (feats, torch.from_numpy(parent).to(cuda), torch.from_numpy(slot).to(cuda), kernel,
+            c_out)
+    for epi in (None, _epi(gen, f_out, b, c_out, cuda)):
+        before = kernels.launch_counts()["tdown"]
+        got = kernels.tdown(*args, epi=epi)
+        assert kernels.launch_counts()["tdown"] == before + n_launch
+        assert _rel_err(got, kernels.tdown_plain(*args, epi=epi)) <= REL_TOL
+        assert torch.equal(kernels.tdown(*args, epi=epi), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f_in,f_out", [(1, 64), (3, 48), (1024, 1024), (48, 600)])
+def test_gather_dw_cuda_planned_widths(cuda, f_in, f_out):
+    """gather_dw at widths it takes only through the plan: within 1e-4 x
+    max |plain| and bit-equal on repeat."""
+    gen = np.random.default_rng(f_in + 3 * f_out)
+    b, c_in, c_out, k_vol = 2, 900, 700, 8
+    feats = torch.from_numpy(gen.standard_normal((b, c_in, f_in)).astype(np.float32)).to(cuda)
+    kmap = torch.from_numpy(_sparse_kmap(gen, b, k_vol, c_in, c_out, 600)).to(cuda)
+    g = torch.from_numpy(gen.standard_normal((b, c_out, f_out)).astype(np.float32)).to(cuda)
+    got = kernels.gather_dw(feats, kmap, g)
+    assert got.shape == (k_vol, f_in, f_out) and got.is_contiguous()
+    assert _rel_err(got, kernels.gather_dw_plain(feats, kmap, g)) <= DW_REL_TOL
+    assert torch.equal(kernels.gather_dw(feats, kmap, g), got)
+
+
+def _down_pyramid(gen, case, b=3, n=3000, caps=(2048, 1024, 512)):
+    """Sorted keys of three levels (fine to coarse) under the default
+    packing and its halvings, each level the unique halved keys of the one
+    below capped at its capacity: cloud 0 empty, cloud 1 a single voxel,
+    cloud 2 n random points.  `dropped`: each coarse level is built from the
+    uncapped finer set, so children past the finer capacity are absent."""
+    from egonn_tpu_torch.sparse.packing import DEFAULT_PACK, halved_spec, pack_keys
+
+    packs = [DEFAULT_PACK]
+    for _ in caps[1:]:
+        packs.append(halved_spec(packs[-1]))
+    keys = [np.full((b, c), MAXKEY, np.int64) for c in caps]
+    for i, n_pts in enumerate((0, 1, n)):
+        pts = np.stack([gen.integers(-60, 60, n_pts), gen.integers(-60, 60, n_pts),
+                        gen.integers(-8, 8, n_pts)])
+        coords = torch.from_numpy(pts.astype(np.int32))
+        full = np.unique(pack_keys(coords, torch.ones(n_pts, dtype=torch.bool),
+                                   packs[0]).numpy())
+        for l, cap in enumerate(caps):
+            keys[l][i, :min(cap, full.size)] = full[:cap]
+            src = full if case == "dropped" else keys[l][i][keys[l][i] != MAXKEY]
+            if l + 1 < len(caps):
+                half = np.stack([(np.asarray(src) >> s) & ((1 << w) - 1) for s, w in
+                                 ((21, 10), (11, 10), (0, 11))])
+                half = half >> 1
+                full = np.unique((half[0] << 21) | (half[1] << 11) | half[2])
+    return [torch.from_numpy(k.astype(np.int32)) for k in keys], packs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["capped", "dropped"])
+def test_lookup_down_cuda_matches_plain(cuda, case):
+    """The grouped lookup (levels 1 and 2 in one launch) against
+    `lookup_down_plain`: an empty cloud, a single voxel, children dropped by
+    the finer capacity; bit-equal on repeat, no overflow at the rule's
+    slice, and with a 16-row slice every occupied block overflows (counted)
+    and the result stays exact."""
+    gen = np.random.default_rng(len(case))
+    keys, packs = _down_pyramid(gen, case)
+    keys = [k.to(cuda) for k in keys]
+    want = kernels.lookup_down_plain(keys, packs, [1, 2])
+    before, over = kernels.launch_counts()["lookup"], kernels.lookup_overflow_blocks(cuda)
+    got = kernels.lookup_down(keys, packs, [1, 2])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["lookup"] == before + 1
+    assert kernels.lookup_overflow_blocks(cuda) == over
+    for g, w, c in zip(got, want, (2048, 1024)):
+        assert g.shape == w.shape and torch.equal(g, w)
+        assert int((g < c).sum()) > 0 and int((g[0] < c).sum()) == 0
+        assert int((g[1] < c).sum()) == 1
+    assert all(torch.equal(a, g) for a, g in zip(kernels.lookup_down(keys, packs, [1, 2]), got))
+    src = [keys[1], keys[2]]
+    tight = kernels._lookup_cuda([keys[0], keys[1]], src, [8, 8],
+                                 [(packs[1], packs[0]), (packs[2], packs[1])], slice_cap=16)
+    torch.cuda.synchronize()
+    assert kernels.lookup_overflow_blocks(cuda) > over
+    assert all(torch.equal(a, g) for a, g in zip(tight, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [32, 128, 256])
+def test_lookup_cuda_unsorted_queries(cuda, rows):
+    """Mode (a) on shuffled queries at several tile heights: exact, and
+    spread tiles overflow a small slice (counted) without changing the
+    result."""
+    gen = np.random.default_rng(rows)
+    keys = _sorted_keys(gen, 2, 5000, 4200, 40000)
+    q = _queries(gen, keys, (2, 8, 3000), 40000)
+    keys_t, q_t = torch.from_numpy(keys).to(cuda), torch.from_numpy(q).to(cuda)
+    want = kernels.lookup_plain(keys_t, q_t)
+    for cap in (4096, 64):
+        got = kernels._lookup_cuda([keys_t], [q_t], [8], None, rows=rows, slice_cap=cap)[0]
+        assert torch.equal(got, want), cap

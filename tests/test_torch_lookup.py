@@ -126,7 +126,7 @@ def test_kmap_queries_match_jax(level, k, scale):
     lo = -(k // 2) if k % 2 else 0
     want = jax.vmap(lambda c, m: jpyr._kmap_queries(c, m, jpyr._xy_offsets(k), k, lo, scale,
                                                     pack))(jp[level].coords, jp[level].mask)
-    got = tpyr._kmap_queries(tp[level].coords, tp[level].mask, k, scale, pack)
+    got = tpacking.kmap_queries(tp[level].coords, tp[level].mask, k, scale, pack)
     assert got.dtype == torch.int32 and got.is_contiguous()
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert int((got != MAXKEY).sum()) > 0
@@ -185,3 +185,80 @@ def test_lookup_kmap_down_matches_jax_and_invert_up(seed, cap0, canonical):
         report = tpyr.capacity_report(tp, tspec)
         assert not all(ok for _, _, ok in report.values()), report
 
+
+
+def _raw_pyramids(up_levels):
+    """JAX and port pyramids of raw integer coords (not canonical), 4
+    levels: cloud 0 spread over [-20, 20)^3, cloud 1 inside [0, 8)^3, so its
+    level 3 and 4 hold one voxel each."""
+    rng = np.random.default_rng(5)
+    cap = 512
+    coords = np.concatenate([rng.integers(-20, 20, size=(1, 3, cap)),
+                             rng.integers(0, 8, size=(1, 3, cap))]).astype(np.int32)
+    mask = np.ones((2, cap), bool)
+    mask[1, 300:] = False
+    kw = dict(capacities=(cap, 384, 256, 256, 256), conv0_kernel_size=3,
+              self_levels=(1, 2, 3, 4), up_levels=tuple(up_levels))
+    jspec, tspec = jpyr.PyramidSpec(**kw), tpyr.PyramidSpec(**kw)
+    jp = jax.jit(lambda c, m: jpyr.build_pyramid(c, m, jspec))(jnp.asarray(coords),
+                                                               jnp.asarray(mask))
+    tp = tpyr.build_pyramid(torch.from_numpy(coords), torch.from_numpy(mask), tspec)
+    return jp, tp, jspec, tspec
+
+
+def _port_keys(tp, tspec):
+    return [tpacking.pack_keys(tp[l].coords, tp[l].mask, tspec.pack_at(l))
+            for l in range(tspec.num_levels + 1)]
+
+
+@pytest.mark.parametrize("up_levels", [(), (1, 3), (0, 2)])
+def test_lookup_down_plain_matches_jax(up_levels):
+    """`lookup_down_plain` (the CPU path of the grouped lookup) at every level
+    whose finer level records no up map, several in one call, against JAX's
+    `_kmap_queries` + `lookup_sorted` on JAX's own pyramid, and against the
+    kmap_down of both pyramids; specs with no, alternate and other
+    recorded up maps; one cloud's levels 3 and 4 hold a single voxel."""
+    jp, tp, jspec, tspec = _raw_pyramids(up_levels)
+    levels = [l for l in range(1, 5) if l - 1 not in up_levels]
+    assert int(tp[3].mask[1].sum()) == 1 and int(tp[4].mask[1].sum()) == 1
+    keys = _port_keys(tp, tspec)
+    got = kernels.lookup_down_plain(keys, [tspec.pack_at(l) for l in range(5)], levels)
+    assert len(got) == len(levels)
+    offsets = jpyr._xy_offsets(2)
+    for l, g in zip(levels, got):
+        pack = jspec.pack_at(l - 1)
+        jkeys = jax.vmap(lambda c, m: jpacking.pack_keys(c, m, pack))(jp[l - 1].coords,
+                                                                      jp[l - 1].mask)
+        q = jax.vmap(lambda c, m: jpyr._kmap_queries(c, m, offsets, 2, 0, 2, pack))(
+            jp[l].coords, jp[l].mask)
+        want = _j_lookup(np.asarray(jkeys), np.asarray(q))
+        assert g.dtype == torch.int32 and g.shape == want.shape
+        np.testing.assert_array_equal(g.numpy(), want, err_msg=f"L{l}")
+        np.testing.assert_array_equal(g.numpy(), np.asarray(jp[l].kmap_down), err_msg=f"L{l}")
+        assert torch.equal(g, tp[l].kmap_down), f"L{l}"
+        assert int((g[1] < tspec.capacities[l - 1]).sum()) >= int(tp[l].mask[1].sum())
+    for l in range(1, 5):
+        if l not in levels:
+            assert tp[l].kmap_down is None
+
+
+@pytest.mark.parametrize("seed,cap0", [(0, 1024), (1, 512)])
+def test_down_queries_sorted_per_offset(seed, cap0):
+    """The invariant the lookup kernel's speed rests on: for each offset, the
+    down-map queries of a sorted coarse level are non-decreasing over its
+    valid rows (doubling a packed key keeps its order), every valid row's
+    children are in range, and padding rows give MAXKEY.  So a tile of rows
+    needs one run of the finer table."""
+    _, tp, _, tspec = _pyramids(seed, (), cap0=cap0)
+    keys = _port_keys(tp, tspec)
+    for l in range(1, tspec.num_levels + 1):
+        q = kernels.down_queries(keys[l], tspec.pack_at(l), tspec.pack_at(l - 1))
+        np.testing.assert_array_equal(
+            q.numpy(), tpacking.kmap_queries(tp[l].coords, tp[l].mask, 2, 2,
+                                             tspec.pack_at(l - 1)).numpy())
+        for b in range(q.shape[0]):
+            n = int(tp[l].mask[b].sum())
+            valid = q[b, :, :n].long()
+            assert bool((valid != MAXKEY).all()), f"L{l}"
+            assert bool((valid[:, 1:] >= valid[:, :-1]).all()), f"L{l} cloud {b}"
+            assert bool((q[b, :, n:] == MAXKEY).all())

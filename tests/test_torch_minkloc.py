@@ -179,16 +179,16 @@ def test_model_factory_dispatch_and_defaults():
         model_factory(_params(q, pooling="GeMx"), device="cpu")
 
 
-@pytest.mark.parametrize("block", ["BasicBlock", "Bottleneck", "SEBottleneck"])
-def test_resnet_matches_jax(block):
-    """The spec and shapes of tests/test_resnet.py: no up maps, so every down
-    conv gathers over a lookup-built kmap_down; real 4-channel level-0
-    features, so the stem map holds positions (conv0_ones False)."""
+def _resnet_case(block, in_channels, k0):
+    """ResNetBase (narrow widths) on JAX and on the port from the same flax
+    variables, BN perturbed, over one pyramid with no up maps (every down
+    conv gathers over a lookup-built kmap_down) and real level-0 features
+    (the stem map holds positions: conv0_ones False)."""
     rng = np.random.default_rng(0)
     cap = 128
     coords = rng.integers(-4, 5, size=(1, 3, cap)).astype(np.int32)
     mask = np.ones((1, cap), bool)
-    kw = dict(capacities=(cap,) * 5, conv0_kernel_size=3, self_levels=(1, 2, 3, 4),
+    kw = dict(capacities=(cap,) * 5, conv0_kernel_size=k0, self_levels=(1, 2, 3, 4),
               up_levels=())
     jspec, tspec = jpyr.PyramidSpec(**kw), tpyr.PyramidSpec(**kw)
     pyr = jax.jit(lambda c, m: jpyr.build_pyramid(c, m, jspec))(jnp.asarray(coords),
@@ -198,17 +198,17 @@ def test_resnet_matches_jax(block):
         np.testing.assert_array_equal(tp[l].kmap_self.numpy(), np.asarray(pyr[l].kmap_self))
         if l:
             np.testing.assert_array_equal(tp[l].kmap_down.numpy(), np.asarray(pyr[l].kmap_down))
-    feats0 = (rng.standard_normal((1, cap, 4)) * np.asarray(pyr[0].mask)[..., None]
+    feats0 = (rng.standard_normal((1, cap, in_channels)) * np.asarray(pyr[0].mask)[..., None]
               ).astype(np.float32)
-    net = JResNetBase(in_channels=4, planes=(8, 16, 16, 32), layers=(1, 1, 1, 1), block=block,
-                      conv0_kernel_size=3, init_dim=8)
+    net = JResNetBase(in_channels=in_channels, planes=(8, 16, 16, 32), layers=(1, 1, 1, 1),
+                      block=block, conv0_kernel_size=k0, init_dim=8)
     variables = jax.jit(lambda k, p, f: net.init(k, p, f, False))(
         jax.random.PRNGKey(0), pyr, jnp.asarray(feats0))
     variables = _perturb_bn(variables, np.random.default_rng(1))
     want = jax.jit(lambda v, p, f: net.apply(v, p, f, False))(variables, pyr,
                                                                jnp.asarray(feats0))
-    model = ResNetBase(4, torch.Generator().manual_seed(0), planes=(8, 16, 16, 32),
-                       layers=(1, 1, 1, 1), block=block, conv0_kernel_size=3,
+    model = ResNetBase(in_channels, torch.Generator().manual_seed(0), planes=(8, 16, 16, 32),
+                       layers=(1, 1, 1, 1), block=block, conv0_kernel_size=k0,
                        init_dim=8).eval()
     load_flax_variables(model, variables)
     with torch.no_grad():
@@ -219,3 +219,18 @@ def test_resnet_matches_jax(block):
         assert got[l].shape == w.shape
         assert _rel(got[l].numpy(), w) <= REL_TOL, (l, _rel(got[l].numpy(), w))
     assert np.abs(np.asarray(want[4])).max() > 1e-3
+
+
+@pytest.mark.parametrize("block", ["BasicBlock", "Bottleneck", "SEBottleneck"])
+def test_resnet_matches_jax(block):
+    """The spec and shapes of tests/test_resnet.py: 4-channel features, a
+    3^3 stem."""
+    _resnet_case(block, 4, 3)
+
+
+@pytest.mark.parametrize("block", ["BasicBlock", "Bottleneck"])
+def test_resnet_one_channel_matches_jax(block):
+    """in_channels 1 and the 5^3 stem of chip_smoke's ResNet14: the stem's
+    F_in = 1, which the card's gather conv takes only through its width
+    plan (zero-padded to 4)."""
+    _resnet_case(block, 1, 5)

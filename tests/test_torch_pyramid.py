@@ -98,6 +98,20 @@ def test_kernel_offsets_and_spec():
             assert t.pack_at(l).offsets == j.pack_at(l).offsets
 
 
+@pytest.mark.parametrize("args,kwargs", [((16384, 7, 3), {}), ((2048, 4, 1), {}),
+                                         ((8192,), dict(num_levels=5, min_out_level=2)),
+                                         ((4096, 3, 3, (1.0, 0.5, 0.3, 0.2)), {})])
+def test_egonn_pyramid_spec_signature(args, kwargs):
+    """`egonn_pyramid_spec` takes JAX's arguments, positional ones included:
+    (cap0, num_levels, min_out_level, decay), min_out_level ignored."""
+    j, t = jpyr.egonn_pyramid_spec(*args, **kwargs), tpyr.egonn_pyramid_spec(*args, **kwargs)
+    assert (t.capacities, t.self_levels, t.up_levels, t.conv0_ones) == \
+        (j.capacities, j.self_levels, j.up_levels, j.conv0_ones)
+    assert t == tpyr.egonn_pyramid_spec(*args[:2], **{k: v for k, v in kwargs.items()
+                                                       if k == "num_levels"},
+                                        **({"decay": args[3]} if len(args) > 3 else {}))
+
+
 @pytest.mark.parametrize("level,kz", [(0, 5), (1, 3), (2, 3)])
 def test_zrun_plain_matches_pallas_interpret(level, kz):
     """The port's plain zrun_presence / zrun_rank against the Pallas kernels in
