@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Runs the PyTorch / CUDA port of EgoNN (inference and training), of
-MinkLoc (inference) and of ResNet14 (inference) on one NVIDIA GPU.
+"""Runs the PyTorch / CUDA port of EgoNN (inference, training and
+evaluation), of MinkLoc (inference) and of ResNet14 (inference) on one
+NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
 
@@ -107,11 +108,35 @@ Phases, each printing its lines:
    each level's output within rel 1e-5; clouds/s (host clock, median of
    RESNET_ROUNDS turns of 10 forwards on varied inputs, quantization
    included).
+9. eval: the JAX package's synthetic dataset (64 scans, seed 0: 32 map and
+   32 query scans of ~6k points after ground removal, padded to 65,536),
+   written into build/eval_synth by the port's generator; EgoNN from
+   model_configs/egonn.txt (cap0 16384), seeded weights with seeded
+   BatchNorm statistics.  GLEvaluator (n_k 128 and 256, 1,024 hypotheses):
+   launches of the whole evaluation (each embedding batch 1/7/14/7, plus the
+   capacity check's pyramid), the recall at 5 and 20 m, the 6DoF metrics,
+   t_ransac; one embedding batch's launches and every kernel call of it
+   against its plain version and timed (the `eval` path); embedding
+   clouds/s (host clock, loading and padding included).  The global-only
+   Evaluator (same top1_ndx) and RotationEvaluator at 0 / 90 / 180 deg (0
+   gives the Evaluator's recall).  Card vs CPU on the debug subset (4 + 4
+   scans): embeddings within tests/test_torch_model.py's tolerances after
+   aligning near-tie swaps of the sigma order, top1_ndx equal, RANSAC from
+   one set of draws (transforms within 1e-4, counts equal); clouds whose
+   level-0 voxels differ are reported and excluded.  RANSAC on 32
+   known-transform pairs (K 256, 128-d, a quarter outliers, yaw to 180 deg,
+   10 m) at 1,024 and 10,240 hypotheses: RTE < 0.1 m and RRE < 0.5 deg,
+   card vs CPU from one set of draws, CUDA-event times and the batched 3x3
+   SVD's alone.  Capacity calibration on the evaluator's 16-scan sample,
+   card equal to CPU.  topk_l2 on 4,096 x 2,048 256-d embeddings against a
+   float64 brute force (near-ties counted), timed.  Numbers under "eval" in
+   build/chip_smoke.json.
 
 The last three lines are the card's name and power limit, one JSON object
 with every kernel's numbers (summed over the calls of all the paths: the
 inference forward, the training step, the validation step, the pyramid
-without up maps, the two MinkLoc forwards and the ResNet14 forward;
+without up maps, the two MinkLoc forwards, the ResNet14 forward and one
+embedding batch of the evaluation;
 `launches` is the paths' launch counts added) and
 `{"ok": true, "device": {...}}`.  Details (every call shape's times and
 `tc_bound_ms`, each path apart and summed) go to build/chip_smoke.json.
@@ -210,6 +235,17 @@ FLOAT_REL_TOL = 1e-5
 DW_REL_TOL = 1e-4
 N_PLACES, TRAIN_STEPS = 16, 5
 OUT_DIR = pathlib.Path("build")
+# Phase 9: the evaluation on the JAX package's synthetic set (64 scans, seed
+# 0: 32 map, 32 query), written by the port's generator into EVAL_DIR
+EVAL_DIR = OUT_DIR / "eval_synth"
+EVAL_SCANS, EVAL_N_K, EVAL_HYPOTHESES = 64, (128, 256), 1024
+EVAL_THETAS = (0.0, 90.0, 180.0)
+EVAL_BATCH_LAUNCHES = dict(EXPECTED_LAUNCHES)  # each embedding batch: one eval forward
+# known-transform RANSAC pairs at evaluation sizes; 10240 hypotheses is the
+# reference's Open3D budget (evaluate.py --ransac_hypotheses)
+RANSAC_PAIRS, RANSAC_K, RANSAC_DIM, RANSAC_HYPOTHESES = 32, 256, 128, (1024, 10240)
+# device top-k above the evaluator's 4 M-entry host threshold
+TOPK_MAP, TOPK_QUERY, TOPK_DIM = 4096, 2048, 256
 ROOT = pathlib.Path(__file__).resolve().parent
 
 
@@ -1255,6 +1291,388 @@ def phase_resnet(kernels, pyramid_mod, cycles_per_ms, device):
                       lookup_repeat=repeat)
 
 
+# ---------------------------------------------------------------------------
+# evaluation
+# ---------------------------------------------------------------------------
+
+def _eval_set_launches(n_batches: int) -> dict:
+    """Launches of an evaluation over n_batches embedding batches: each an
+    eval forward, plus the capacity check's pyramid on the first batch."""
+    out = {k: n_batches * v for k, v in EVAL_BATCH_LAUNCHES.items()}
+    out["zrun_presence"] += 1
+    out["zrun_rank"] += 7
+    return out
+
+
+@torch.no_grad()
+def _perturb_bn(model, seed: int) -> None:
+    """Seeded random statistics and affines for every BatchNorm (as the CPU
+    tests do): at its initial statistics the random model's local
+    descriptors are almost equal, so mutual matching would turn on
+    nearest-neighbour gaps at f32 rounding."""
+    from egonn_tpu_torch.sparse.norm import SparseBatchNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    for bn in (m for m in model.modules() if isinstance(m, SparseBatchNorm)):
+        f = bn.scale.shape[0]
+
+        def draw(lo, hi):
+            return (lo + (hi - lo) * torch.rand(f, generator=gen)).to(bn.scale.device)
+
+        bn.scale.copy_(draw(0.5, 1.5))
+        bn.bias.copy_(0.2 * torch.randn(f, generator=gen).to(bn.scale.device))
+        bn.mean.copy_(0.2 * torch.randn(f, generator=gen).to(bn.scale.device))
+        bn.var.copy_(draw(0.5, 2.0))
+
+
+def _known_transform_pairs(gen, n_pairs: int):
+    """tests/test_ransac.py's make_pair at evaluation sizes: K keypoints with
+    unit descriptors shared by matched pairs, a quarter of cloud 2's
+    descriptors random (outliers), yaw up to 180 deg, translation up to 10 m,
+    noise 0.05 m; four padding rows per cloud 1 far away."""
+    import numpy as np
+
+    from egonn_tpu_torch.ops.geometry import rotz
+
+    k, n_out = RANSAC_K, RANSAC_K // 4
+    kp1 = gen.uniform(-40, 40, (n_pairs, k, 3)).astype(np.float32)
+    t = np.stack([rotz(a) for a in gen.uniform(0, np.pi, n_pairs)]).astype(np.float32)
+    t[:, :3, 3] = gen.uniform(-10, 10, (n_pairs, 3))
+    kp2 = (np.einsum("pkj,pij->pki", kp1, t[:, :3, :3]) + t[:, None, :3, 3]
+           + gen.normal(0, 0.05, kp1.shape)).astype(np.float32)
+    d1 = gen.standard_normal((n_pairs, k, RANSAC_DIM)).astype(np.float32)
+    d1 /= np.linalg.norm(d1, axis=-1, keepdims=True)
+    d2 = d1.copy()
+    d2[:, :n_out] = gen.standard_normal((n_pairs, n_out, RANSAC_DIM))
+    d2[:, :n_out] /= np.linalg.norm(d2[:, :n_out], axis=-1, keepdims=True)
+    m1 = np.ones((n_pairs, k), bool)
+    m1[:, -4:] = False
+    kp1[:, -4:] = 1e6
+    return kp1, d1, m1, kp2, d2, np.ones((n_pairs, k), bool), t
+
+
+def _ransac_card_vs_cpu(ransac, args_cpu, device, n_hyp: int, samples) -> dict:
+    """ransac_6dof on the card and on the CPU from the same draws."""
+    got = ransac.ransac_6dof(*(a.to(device) for a in args_cpu), n_hypotheses=n_hyp,
+                             samples=samples.to(device))
+    want = ransac.ransac_6dof(*args_cpu, n_hypotheses=n_hyp, samples=samples)
+    err = float((got.transform.cpu() - want.transform).abs().max())
+    same = (torch.equal(got.n_inliers.cpu(), want.n_inliers)
+            and torch.equal(got.n_matches.cpu(), want.n_matches))
+    if not (err <= 1e-4 and same):
+        raise AssertionError(f"RANSAC card vs CPU at H {n_hyp}: transform err {err}, counts "
+                             f"equal {same}")
+    return dict(transform_abs=err, counts_equal=same, card=got)
+
+
+def _align_keypoints(got: dict, want: dict, sigma_tol: float = 1e-4) -> tuple:
+    """Card (got) against CPU (want) selected keypoints: per cloud the card
+    rank of each CPU keypoint (matched by position within 1e-3 m).  A
+    keypoint at another rank must be a near-tie: the CPU sigmas at the two
+    ranks within sigma_tol relative.  Returns (perm, near-tie swaps,
+    clouds whose keypoints could not be matched)."""
+    import numpy as np
+
+    b, k = want["kp_valid"].shape
+    perm = np.tile(np.arange(k), (b, 1))
+    swaps, unmatched = 0, []
+    for i in range(b):
+        for r in np.nonzero(want["kp_valid"][i])[0]:
+            d = np.linalg.norm(got["keypoints"][i] - want["keypoints"][i, r], axis=1)
+            d[~got["kp_valid"][i]] = np.inf
+            r2 = int(np.argmin(d))
+            if d[r2] > 1e-3:
+                unmatched.append(i)
+                break
+            if r2 != r:
+                swaps += 1
+                if not abs(want["sigma"][i, r2] - want["sigma"][i, r]) <= \
+                        sigma_tol * want["sigma"][i, r]:
+                    raise AssertionError(f"cloud {i}: keypoint rank {r} -> {r2} is no near-tie")
+            perm[i, r] = r2
+    return perm, swaps, unmatched
+
+
+def _host_syncs(fn) -> list:
+    """The source lines (file:line) of the operations of one fn() call that
+    synchronize the host with the card (PyTorch's sync debug mode warns on
+    each)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return [f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def _l0_keys(built, clouds, mask):
+    spec = built.pyramid_spec
+    return built.quantizer.quantize(clouds, mask, spec.capacities[0], need_index=False).keys
+
+
+def _eval_card_vs_cpu(ev_cls, built, ransac, device) -> dict:
+    """The debug subset (4 map + 4 query scans) on the card and on the CPU,
+    same weights: global embeddings (rel 1e-4), the selected keypoints
+    (1e-3 m), descriptors (1e-4) and sigma (rel 1e-4) after aligning near-tie
+    swaps of the sigma order, top1_ndx equal; RANSAC on the CPU's selection
+    from one set of draws on both.  Clouds whose level-0 voxels differ
+    between the devices (an atan2 ulp) are reported and excluded."""
+    import numpy as np
+
+    cpu = torch.device("cpu")
+    built_cpu = dataclasses.replace(built, model=copy.deepcopy(built.model).to(cpu), device=cpu)
+    evs = [ev_cls(str(EVAL_DIR), "synthetic", "test_synthetic.pickle", b, num_points=N_POINTS,
+                  batch_size=4, debug=True, n_k=EVAL_N_K, n_hypotheses=EVAL_HYPOTHESES)
+           for b in (built, built_cpu)]
+    out = dict(excluded=[], near_tie_swaps=0)
+    emb = {}
+    for name, subset in (("map", evs[1].eval_set.map_set), ("query", evs[1].eval_set.query_set)):
+        clouds, mask = evs[1].load_clouds(subset, len(subset))
+        c, m = torch.from_numpy(clouds), torch.from_numpy(mask)
+        differ = [i for i, same in enumerate(
+            (_l0_keys(built, c.to(device), m.to(device)).cpu() == _l0_keys(built_cpu, c, m))
+            .all(1).tolist()) if not same]
+        out["excluded"] += [f"{name} {i}" for i in differ]
+        got, want = (ev.compute_embeddings(subset, with_local=True, n_k=max(EVAL_N_K))
+                     for ev in evs)
+        emb[name] = (got, want)
+        keep = np.array([i not in differ for i in range(len(subset))])
+        g_rel = float(np.abs(got["global"][keep] - want["global"][keep]).max()
+                      / np.abs(want["global"][keep]).max())
+        sub = {k: v[keep] for k, v in got.items()}
+        wsub = {k: v[keep] for k, v in want.items()}
+        if not np.array_equal(sub["kp_valid"], wsub["kp_valid"]):
+            raise AssertionError(f"{name}: selected keypoint validity differs card vs CPU")
+        perm, swaps, unmatched = _align_keypoints(sub, wsub)
+        if unmatched:
+            raise AssertionError(f"{name}: CPU keypoints the card did not select in clouds "
+                                 f"{unmatched}")
+        v = wsub["kp_valid"]
+
+        def aligned(key):
+            return np.take_along_axis(sub[key], perm[..., None] if sub[key].ndim == 3 else perm,
+                                      1)
+
+        errs = dict(global_rel=g_rel,
+                    keypoints_abs=float(np.abs(aligned("keypoints")[v] - wsub["keypoints"][v])
+                                        .max()),
+                    descriptors_abs=float(np.abs(aligned("descriptors")[v]
+                                                 - wsub["descriptors"][v]).max()),
+                    sigma_rel=float((np.abs(aligned("sigma")[v] - wsub["sigma"][v])
+                                     / wsub["sigma"][v]).max()))
+        out[name] = errs
+        out["near_tie_swaps"] += swaps
+        log(f"[eval] card vs CPU, debug {name} set: {errs}, near-tie swaps of the sigma order "
+            f"{swaps}, clouds with differing voxels {differ}")
+        if not (g_rel <= 1e-4 and errs["keypoints_abs"] <= 1e-3
+                and errs["descriptors_abs"] <= 1e-4 and errs["sigma_rel"] <= 1e-4):
+            raise AssertionError(f"{name}: card and CPU embeddings disagree beyond tolerance")
+    tops = [evs[i].compute_recall(emb["map"][i]["global"], emb["query"][i]["global"])["top1_ndx"]
+            for i in (0, 1)]
+    if not np.array_equal(*tops):
+        raise AssertionError(f"top1_ndx card {tops[0]} vs CPU {tops[1]}")
+    out["top1_ndx"] = tops[1].tolist()
+    # RANSAC on the CPU's selection of every query and its top-1, one set of draws
+    (_, wq), (_, wm) = emb["query"], emb["map"]
+    top1 = tops[1]
+    for n_k in EVAL_N_K:
+        args = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+                (wq["keypoints"][:, :n_k], wq["descriptors"][:, :n_k], wq["kp_valid"][:, :n_k],
+                 wm["keypoints"][top1, :n_k], wm["descriptors"][top1, :n_k],
+                 wm["kp_valid"][top1, :n_k])]
+        valid = ransac.mutual_matches(args[1], args[2], args[4], args[5])[1]
+        samples = ransac.draw_samples(valid, EVAL_HYPOTHESES, torch.Generator().manual_seed(0))
+        r = _ransac_card_vs_cpu(ransac, args, device, EVAL_HYPOTHESES, samples)
+        out[f"ransac_n_k_{n_k}"] = dict(transform_abs=r["transform_abs"],
+                                        n_inliers=r["card"].n_inliers.tolist())
+        log(f"[eval] card vs CPU, RANSAC n_k {n_k} on the debug pairs from the same draws: "
+            f"transform abs err {r['transform_abs']:.3g}, n_inliers / n_matches equal "
+            f"{r['counts_equal']}")
+    return out
+
+
+def phase_eval(kernels, cycles_per_ms, device, smi):
+    """Phase 9: the evaluation path on the card (see the module docstring)."""
+    import numpy as np
+
+    from egonn_tpu_torch.config import ModelParams
+    from egonn_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from egonn_tpu_torch.eval.evaluator import Evaluator, GLEvaluator
+    from egonn_tpu_torch.eval.rotations import RotationEvaluator
+    from egonn_tpu_torch import inference
+    from egonn_tpu_torch.models.factory import create_egonn_model
+    from egonn_tpu_torch.ops import knn, ransac
+    from egonn_tpu_torch.ops.geometry import rotation_error_deg
+    from egonn_tpu_torch.sparse.calibrate import calibrate_capacities
+
+    t0 = time.perf_counter()
+    names = generate_synthetic_dataset(str(EVAL_DIR), n_scans=EVAL_SCANS, seed=SEED)
+    out = dict(dataset_s=time.perf_counter() - t0)
+    mp = ModelParams(str(ROOT / "model_configs" / "egonn.txt"))
+    if (mp.model, mp.cap0, mp.num_points) != ("egonn", CAP0, N_POINTS):
+        raise AssertionError(f"unexpected EgoNN parameters {(mp.model, mp.cap0, mp.num_points)}")
+    built = create_egonn_model(mp, cap0=CAP0, device=device, seed=SEED + 5)
+    _perturb_bn(built.model, SEED + 5)
+    kw = dict(num_points=N_POINTS, batch_size=B)
+    ev = GLEvaluator(str(EVAL_DIR), "synthetic", names[2], built, n_k=EVAL_N_K,
+                     n_hypotheses=EVAL_HYPOTHESES, **kw)
+    n_map, n_query = len(ev.eval_set.map_set), len(ev.eval_set.query_set)
+    log(f"[eval] synthetic set: {EVAL_SCANS} scans ({n_map} map, {n_query} query) in "
+        f"{out['dataset_s']:.1f} s, points per scan after ground removal "
+        f"{[len(ev.pc_loader(str(EVAL_DIR / e.rel_scan_filepath))) for e in ev.eval_set.map_set[:4]]}"
+        f"... padded to {N_POINTS}")
+    n_batches = -(-n_map // B) + -(-n_query // B)
+
+    # the GL evaluation, every launch counted
+    (g, local), launches = _path_launches(kernels, ev.evaluate, _eval_set_launches(n_batches),
+                                          "GL evaluation", tag="eval")
+    log(f"[eval] capacity report {ev.capacity_ok}, band_ok {ev.band_ok}")
+    if not all(ok for _, _, ok in ev.capacity_ok.values()):
+        raise AssertionError(f"capacity overflow: {ev.capacity_ok}")
+    recall = {r: [round(float(x), 4) for x in rec[:5]] for r, rec in g["recall"].items()}
+    log(f"[eval] Recall@1..5 {recall}, Recall@1% {g['one_percent_recall']}")
+    for n_k, st in local.items():
+        if st["n_pairs"] == 0:
+            raise AssertionError(f"n_k {n_k}: no pair eligible for the local evaluation")
+        if not all(math.isfinite(st[k]) for k in ("rte_all", "rre_all", "mean_inliers")):
+            raise AssertionError(f"n_k {n_k}: non-finite local metrics {st}")
+        log(f"[eval] n_k {n_k}: n_pairs {st['n_pairs']} success_rate {st['success_rate']:.4f} "
+            f"rte {st['rte']:.4f} m rre {st['rre']:.4f} deg (rte_all {st['rte_all']:.3f}, "
+            f"rre_all {st['rre_all']:.3f}) repeatability {st['repeatability']:.4f} "
+            f"mean_inliers {st['mean_inliers']:.2f} mean_matches {st['mean_matches']:.2f} "
+            f"t_ransac {st['t_ransac'] * 1e3:.3f} ms per pair (host clock, H "
+            f"{EVAL_HYPOTHESES})")
+    out.update(gl_launches=launches, recall={str(r): v.tolist() for r, v in g["recall"].items()},
+               one_percent_recall={str(r): v for r, v in g["one_percent_recall"].items()},
+               local={str(n_k): st for n_k, st in local.items()}, capacity=ev.capacity_ok)
+
+    # one embedding batch: launches, then every kernel call against its plain version
+    first = ev.eval_set.map_set[:B]
+    _, batch_launches = _path_launches(
+        kernels, lambda: ev.compute_embeddings(first, with_local=True, n_k=max(EVAL_N_K)),
+        EVAL_BATCH_LAUNCHES, "embedding batch", tag="eval")
+    clouds, mask = ev.load_clouds(first, B)
+    clouds, mask = torch.from_numpy(clouds).to(device), torch.from_numpy(mask).to(device)
+    eval_rows, _ = _measured_path(kernels, lambda: inference.forward(built, clouds, mask),
+                                  batch_launches, cycles_per_ms, reps=10, tag="eval-kernels",
+                                  levels=level_of(built.pyramid_spec.capacities))
+    t0 = time.perf_counter()
+    ev.compute_embeddings(ev.eval_set.map_set, with_local=True, n_k=max(EVAL_N_K))
+    sec = time.perf_counter() - t0
+    out["embed_clouds_per_s"] = n_map / sec
+    log(f"[eval] embeddings: {out['embed_clouds_per_s']:.1f} clouds/s over the {n_map} map "
+        f"scans, loading and padding included (host clock) on {smi}")
+
+    # the global-only evaluator and the rotation sweep
+    evg = Evaluator(str(EVAL_DIR), "synthetic", names[2], built, **kw)
+    gm, launches_g = _path_launches(kernels, evg.evaluate, _eval_set_launches(n_batches),
+                                    "global-only evaluation", tag="eval")
+    if not np.array_equal(gm["top1_ndx"], g["top1_ndx"]):
+        raise AssertionError("the global-only and GL evaluators retrieve differently")
+    rot = RotationEvaluator(str(EVAL_DIR), "synthetic", names[2], built,
+                            thetas_deg=EVAL_THETAS, **kw)
+    rot_res = rot.evaluate()
+    for r in gm["recall"]:
+        if not np.array_equal(rot_res[0.0]["recall"][r], gm["recall"][r]):
+            raise AssertionError(f"rotation 0: recall at {r} m differs from the Evaluator's")
+    rot_r1 = {theta: {str(r): float(rec[0]) for r, rec in m["recall"].items()}
+              for theta, m in rot_res.items()}
+    log(f"[eval] global-only evaluation: top1_ndx equal to the GL run's; rotation sweep "
+        f"Recall@1 {rot_r1} (theta 0 equal to the Evaluator's)")
+    out.update(global_launches=launches_g, rotation_recall_at_1=rot_r1)
+
+    # card vs CPU on the debug subset
+    t0 = time.perf_counter()
+    out["card_vs_cpu"] = _eval_card_vs_cpu(GLEvaluator, built, ransac, device)
+    log(f"[eval] card vs CPU done in {time.perf_counter() - t0:.1f} s")
+
+    # RANSAC at evaluation sizes on known-transform pairs
+    gen = np.random.default_rng(SEED)
+    kp1, d1, m1, kp2, d2, m2, t_gt = _known_transform_pairs(gen, RANSAC_PAIRS)
+    args_cpu = [torch.from_numpy(a) for a in (kp1, d1, m1, kp2, d2, m2)]
+    args = [a.to(device) for a in args_cpu]
+    valid = ransac.mutual_matches(args_cpu[1], args_cpu[2], args_cpu[4], args_cpu[5])[1]
+    out["ransac"] = {}
+    for n_hyp in RANSAC_HYPOTHESES:
+        samples = ransac.draw_samples(valid, n_hyp, torch.Generator().manual_seed(0))
+        r = _ransac_card_vs_cpu(ransac, args_cpu, device, n_hyp, samples)
+        est = r["card"].transform.cpu()
+        rte = (est[:, :3, 3] - torch.from_numpy(t_gt[:, :3, 3])).norm(dim=1)
+        rre = rotation_error_deg(est[:, :3, :3], torch.from_numpy(t_gt[:, :3, :3]))
+        s_dev = samples.to(device)
+        syncs = _host_syncs(lambda: ransac.ransac_6dof(*args, n_hypotheses=n_hyp,
+                                                       samples=s_dev))
+        ms = device_ms(lambda: ransac.ransac_6dof(*args, n_hypotheses=n_hyp, samples=s_dev),
+                       cycles_per_ms, reps=5)
+        h = torch.randn(RANSAC_PAIRS * n_hyp, 3, 3, generator=_gen(device, SEED), device=device)
+        svd_ms = device_ms(lambda: torch.linalg.svd(h), cycles_per_ms, reps=5)
+        out["ransac"][n_hyp] = dict(rte_max=float(rte.max()), rre_max=float(rre.max()),
+                                    ms_per_pair=ms / RANSAC_PAIRS, ms=ms, svd_ms=svd_ms,
+                                    transform_abs_card_vs_cpu=r["transform_abs"],
+                                    min_inliers=int(r["card"].n_inliers.min()),
+                                    host_syncs=syncs)
+        log(f"[eval] RANSAC {RANSAC_PAIRS} known-transform pairs (K {RANSAC_K}, {RANSAC_DIM}-d, "
+            f"1/4 outliers) at H {n_hyp}: RTE max {float(rte.max()):.4f} m, RRE max "
+            f"{float(rre.max()):.4f} deg, min inliers {int(r['card'].n_inliers.min())}; card vs "
+            f"CPU from the same draws: transform abs err {r['transform_abs']:.3g}, counts equal; "
+            f"{ms:.3f} ms per call = {ms / RANSAC_PAIRS:.4f} ms per pair (CUDA events; "
+            f"synchronizing ops of a call at {syncs}), the "
+            f"batched 3x3 SVD of {RANSAC_PAIRS * n_hyp} matrices alone {svd_ms:.3f} ms, on {smi}")
+        if not (float(rte.max()) < 0.1 and float(rre.max()) < 0.5):
+            raise AssertionError(f"RANSAC at H {n_hyp} missed a known transform: RTE "
+                                 f"{rte.tolist()}, RRE {rre.tolist()}")
+
+    # capacity calibration on the evaluator's sample, card against CPU
+    sample = ev.eval_set.map_set[::max(1, n_map // 16)][:16]
+    c16, m16 = ev.load_clouds(sample, len(sample))
+    t0 = time.perf_counter()
+    fit_card = calibrate_capacities(c16, m16, built.quantizer, built.pyramid_spec, device=device)
+    card_s = time.perf_counter() - t0
+    fit_cpu = calibrate_capacities(c16, m16, built.quantizer, built.pyramid_spec,
+                                   device=torch.device("cpu"))
+    log(f"[eval] capacity calibration on {len(sample)} scans: {built.pyramid_spec.capacities} -> "
+        f"{fit_card} on the card ({card_s:.2f} s), CPU {fit_cpu}")
+    if fit_card != fit_cpu:
+        raise AssertionError(f"calibration card {fit_card} vs CPU {fit_cpu}")
+    out["calibration"] = dict(capacities=fit_card, card_s=card_s)
+
+    # device top-k above the host brute force's threshold
+    emb_m = gen.standard_normal((TOPK_MAP, TOPK_DIM)).astype(np.float32)
+    emb_q = gen.standard_normal((TOPK_QUERY, TOPK_DIM)).astype(np.float32)
+    kk = max(ev.k, round(TOPK_MAP / 100))
+    t0 = time.perf_counter()
+    idx = knn.topk_l2(emb_m, emb_q, kk, device=device)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    m64, q64 = emb_m.astype(np.float64), emb_q.astype(np.float64)
+    d64 = (q64 ** 2).sum(1)[:, None] + (m64 ** 2).sum(1)[None] - 2 * q64 @ m64.T
+    want = np.argsort(d64, axis=1)[:, :kk]
+    diff = idx != want
+    # a difference must be a near-tie: the two candidates' distances within f32 rounding
+    ri, ci = np.nonzero(diff)
+    gap = np.abs(d64[ri, idx[ri, ci]] - d64[ri, want[ri, ci]])
+    if not (gap <= 1e-4 * np.abs(d64[ri, want[ri, ci]])).all():
+        raise AssertionError(f"topk_l2: {int(diff.sum())} indices differ beyond near-ties")
+    qd = torch.from_numpy(emb_q).to(device)
+    md = torch.from_numpy(emb_m).to(device)
+
+    def dev_topk():
+        d = (qd * qd).sum(1)[:, None] + (md * md).sum(1)[None] - 2.0 * (qd @ md.T)
+        return torch.topk(-d, kk, dim=1)
+
+    topk_ms = device_ms(dev_topk, cycles_per_ms, reps=10)
+    log(f"[eval] topk_l2 {TOPK_MAP} map x {TOPK_QUERY} query x {TOPK_DIM}-d, k {kk}: indices "
+        f"equal the float64 brute force except {int(diff.sum())} near-ties; {host_ms:.2f} ms "
+        f"host clock with copies, {topk_ms:.4f} ms device (product + top-k, CUDA events)")
+    out["topk"] = dict(near_ties=int(diff.sum()), host_ms=host_ms, device_ms=topk_ms, k=kk)
+    return eval_rows, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1348,14 +1766,17 @@ def main() -> int:
     log(f"[resnet] {resnet['clouds_per_s']:.1f} clouds/s: median of {RESNET_ROUNDS} turns of 10 "
         f"ResNet14 forwards of {B} x {N_POINTS} points, quantization included (host clock), "
         f"turns {[round(t, 1) for t in resnet['clouds_per_s_turns']]} on {smi}")
+    t0 = time.perf_counter()
+    eval_rows, ev = phase_eval(kernels, cycles_per_ms, device, smi)
+    log(f"[eval] phase done in {time.perf_counter() - t0:.1f} s")
     paths = {"forward": rows, "train_step": train_rows, "val_step": val_rows,
-             "lookup_maps": maps_rows, **mink_rows, "resnet": resnet_rows}
+             "lookup_maps": maps_rows, **mink_rows, "resnet": resnet_rows, "eval": eval_rows}
     all_rows = merged_rows(*paths.values())
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, slice=sl, train=tr, lookup_maps=maps, minkloc=mink, resnet=resnet,
-             kernels=all_rows, paths=paths, wide=wide,
+             eval=ev, kernels=all_rows, paths=paths, wide=wide,
              determinism=[*repeat_fwd, *repeat_train, repeat_val, maps["repeat"],
                           mink["lookup_repeat"], resnet["lookup_repeat"]],
              seconds=time.perf_counter() - t_start), indent=1))

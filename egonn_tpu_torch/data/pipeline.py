@@ -1,6 +1,6 @@
-"""Input pipeline pieces of the training step (port of
-`egonn_tpu/data/pipeline.py`): host-side padding of raw clouds, and the
-on-device preprocess (augment -> quantize -> dedup -> coordinate pyramid)."""
+"""Input pipeline pieces (port of `egonn_tpu/data/pipeline.py`): the point
+budget per dataset, host-side padding of raw clouds, and the on-device
+preprocess (augment -> quantize -> dedup -> coordinate pyramid)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -24,6 +24,19 @@ _DROP_STATS = {"clouds_truncated": 0, "points_dropped": 0, "warned": False}
 
 def pad_cloud_drop_stats() -> dict:
     return dict(_DROP_STATS)
+
+
+def default_num_points(dataset_type: str) -> int:
+    """Points per cloud: KITTI's velodyne scans hold ~120-130k points before
+    ground and zero removal; MulRan and SouthBay fit in 65,536."""
+    return 131072 if dataset_type.lower() == "kitti" else 65536
+
+
+def resolve_num_points(model_params, dataset_type: str) -> int:
+    """A num_points set in the config wins; otherwise the dataset's default."""
+    if getattr(model_params, "num_points_explicit", True):
+        return model_params.num_points
+    return default_num_points(dataset_type)
 
 
 def pad_cloud(pc: np.ndarray, n: int) -> tuple[np.ndarray, np.ndarray]:

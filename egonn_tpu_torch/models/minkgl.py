@@ -9,6 +9,9 @@
 * MinkGL: global head -> DescriptorDecoder -> GeM = `global` (B, 256);
   local head -> L2-normalised `descriptors`, tanh keypoint offsets decoded
   by the quantizer into `keypoints`, softplus `sigma`, and `kp_mask`.
+  Either head can be switched off per call (its keys are then absent);
+  `ignore_keypoint_regressor` puts the keypoints at the supervoxel centres
+  (the reference's ablation).
 """
 from __future__ import annotations
 
@@ -110,8 +113,10 @@ class MinkGL(nn.Module):
                  global_map_channels: int = 128, global_descriptor_size: int = 256,
                  global_pool_method: str = "GeM", global_normalize: bool = False,
                  local_in_levels: Tuple[int, ...] = (3, 4), local_map_channels: int = 64,
-                 local_descriptor_size: int = 128, local_normalize: bool = True):
+                 local_descriptor_size: int = 128, local_normalize: bool = True,
+                 ignore_keypoint_regressor: bool = False):
         super().__init__()
+        self.ignore_keypoint_regressor = ignore_keypoint_regressor
         self.global_in_levels = tuple(global_in_levels)
         self.local_in_levels = tuple(local_in_levels)
         self.global_normalize = global_normalize
@@ -134,21 +139,24 @@ class MinkGL(nn.Module):
             self.local_keypoint_regressor = MLPRegressor(local_map_channels, 3, "tanh", gen)
             self.local_sigma_regressor = MLPRegressor(local_map_channels, 1, "softplus", gen)
 
-    def forward(self, pyramid: Pyramid, quantizer) -> Dict[str, torch.Tensor]:
+    def forward(self, pyramid: Pyramid, quantizer, disable_global_head: bool = False,
+                disable_local_head: bool = False) -> Dict[str, torch.Tensor]:
         trunk_out = self.trunk(pyramid)
         y: Dict[str, torch.Tensor] = {}
-        if self.global_in_levels:
+        if self.global_in_levels and not disable_global_head:
             xg = self.global_descriptor_decoder(self.global_head(pyramid, trunk_out))
             if self.global_normalize:
                 xg = l2_normalize(xg)
             g_mask = pyramid[min(self.global_in_levels)].mask
             y["global"] = self.global_pooling(masked(xg, g_mask), g_mask)
-        if self.local_in_levels:
+        if self.local_in_levels and not disable_local_head:
             xl = self.local_head(pyramid, trunk_out)
             l_level = min(self.local_in_levels)
             lvl = pyramid[l_level]
             y["descriptors"] = masked(self.local_descriptor_decoder(xl), lvl.mask)
             kp_offset = self.local_keypoint_regressor(xl)
+            if self.ignore_keypoint_regressor:
+                kp_offset = torch.zeros_like(kp_offset)
             # absolute level-0 voxel units (multiples of the stride), as ME's .C
             stride = 2 ** l_level
             kp_pos = quantizer.keypoint_position(

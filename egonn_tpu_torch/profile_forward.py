@@ -1,11 +1,12 @@
 """Where the time of one EgoNN inference forward, one training step, one
-MinkLoc forward or one ResNet14 forward goes on the card.
+MinkLoc forward, one ResNet14 forward or one GL evaluation goes on the card.
 
     python -m egonn_tpu_torch.profile_forward            # EgoNN inference forward
     python -m egonn_tpu_torch.profile_forward --train    # EgoNN training step
     python -m egonn_tpu_torch.profile_forward --minkloc  # MinkLoc inference forward
     python -m egonn_tpu_torch.profile_forward --minkloc-lookup  # ... lookup-built down maps
     python -m egonn_tpu_torch.profile_forward --resnet   # ResNet14, lookup-built down maps
+    python -m egonn_tpu_torch.profile_forward --eval     # GLEvaluator.evaluate
 
 Runs the forward at full EgoNN width on 8 `lidar_sim` clouds (65,536 points
 each, cap0 16384, seeded random weights), the training step of
@@ -17,7 +18,10 @@ L1 and L2 down maps come from the lookup kernel), or ResNet14 at torchvision
 widths (in_channels 1, the voxel centre's z as its feature) on the same
 clouds through the MinkLoc config's quantizer (`chip_smoke.py` phase 8's
 workload: quantization, the pyramid with L1-L4's down maps from one lookup
-launch, the model), 3 times under `torch.profiler`, and prints the device kernels with the most
+launch, the model), or one evaluation of `GLEvaluator` (n_k 128 and 256,
+1,024 hypotheses) on `chip_smoke.py` phase 9's synthetic set (64 scans, seed
+0, written into build/eval_synth when absent) with EgoNN from
+model_configs/egonn.txt, 3 times under `torch.profiler`, and prints the device kernels with the most
 time, the summed kernel time (the port's own kernels apart), the wall time
 per iteration and the card's busy share over the profiled window.  The
 Chrome trace goes to build/<mode>_trace.json.  Needs a CUDA card.
@@ -113,16 +117,33 @@ def _train_fn():
     return lambda: step(g, l, gen, lr, True), f"train step of {n} clouds x 65536 points"
 
 
+def _eval_fn():
+    from egonn_tpu_torch.config import ModelParams
+    from egonn_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from egonn_tpu_torch.eval.evaluator import GLEvaluator
+
+    root = pathlib.Path("build") / "eval_synth"
+    if not (root / "test_synthetic.pickle").exists():
+        generate_synthetic_dataset(str(root), seed=0)
+    mp = ModelParams(str(ROOT / "model_configs" / "egonn.txt"))
+    built = create_egonn_model(mp, device="cuda", seed=0)
+    ev = GLEvaluator(str(root), "synthetic", "test_synthetic.pickle", built,
+                     num_points=mp.num_points)
+    n = len(ev.eval_set.map_set) + len(ev.eval_set.query_set)
+    return ev.evaluate, f"GL evaluation of {n} scans x {mp.num_points} points"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_forward: CUDA is not available", file=sys.stderr)
         return 1
     flags = [a[2:] for a in sys.argv[1:]
-             if a in ("--train", "--minkloc", "--minkloc-lookup", "--resnet")]
+             if a in ("--train", "--minkloc", "--minkloc-lookup", "--resnet", "--eval")]
     mode = flags[0] if flags else "forward"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    run, what = {"train": _train_fn, "resnet": _resnet_fn}.get(mode, lambda: _forward_fn(mode))()
+    run, what = {"train": _train_fn, "resnet": _resnet_fn, "eval": _eval_fn}.get(
+        mode, lambda: _forward_fn(mode))()
     for _ in range(2):  # build the kernels, warm the allocator
         run()
     torch.cuda.synchronize()

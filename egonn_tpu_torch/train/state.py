@@ -100,18 +100,32 @@ def load_checkpoint_meta(ckpt_dir: str, step: int) -> dict:
         return json.load(f)
 
 
-def load_checkpoint(ckpt_dir: str, state: TrainState, step: Optional[int] = None) -> int:
-    """Restore `state` (model, optimizer, epoch) in place from step `step`
-    (default: the latest) and return the step.  Tensors land on the model's
-    device."""
+def _load(ckpt_dir: str, model: nn.Module, step: Optional[int]) -> tuple:
+    """(step, the saved dict) of step `step` (default: the latest), its
+    tensors on the model's device."""
     steps = sorted(int(m.group(1)) for name in os.listdir(ckpt_dir)
                    if (m := re.fullmatch(r"step_(\d+)\.pt", name)))
     if not steps:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
     step = steps[-1] if step is None else step
-    device = next(state.model.parameters()).device
-    saved = torch.load(_step_path(ckpt_dir, step), map_location=device, weights_only=True)
+    device = next(model.parameters()).device
+    return step, torch.load(_step_path(ckpt_dir, step), map_location=device, weights_only=True)
+
+
+def load_checkpoint(ckpt_dir: str, state: TrainState, step: Optional[int] = None) -> int:
+    """Restore `state` (model, optimizer, epoch) in place from step `step`
+    (default: the latest) and return the step.  Tensors land on the model's
+    device."""
+    step, saved = _load(ckpt_dir, state.model, step)
     state.model.load_state_dict(saved["model"])
     state.optimizer.load_state_dict(saved["optimizer"])
     state.epoch = int(saved["epoch"])
+    return step
+
+
+def load_model_weights(ckpt_dir: str, model: nn.Module, step: Optional[int] = None) -> int:
+    """Restore only the model's parameters and BatchNorm statistics (for
+    evaluation) from step `step` (default: the latest); returns the step."""
+    step, saved = _load(ckpt_dir, model, step)
+    model.load_state_dict(saved["model"])
     return step

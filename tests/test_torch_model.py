@@ -141,3 +141,72 @@ def test_load_flax_variables_uses_every_leaf(both):
     wrong["params"]["trunk"]["bn0"]["scale"] = np.zeros(3, np.float32)
     with pytest.raises(ValueError, match="shape"):
         load_flax_variables(built_t.model, wrong)
+
+
+@pytest.fixture(scope="module")
+def head_options(both):
+    """The JAX model's head options on the fixture's clouds and variables:
+    keypoints at the supervoxel centres with the global head off, and the
+    local head off (one jit each)."""
+    _, _, variables, built_t = both
+    built_j = j_create(_MP(JPolar(STEPS)), cap0=512)
+    spec, q = built_j.pyramid_spec, built_j.quantizer
+    rng = np.random.default_rng(0)
+    clouds = np.stack([_synth_cloud(rng) for _ in range(2)])
+    mask = np.ones(clouds.shape[:2], bool)
+
+    def run(model, **flags):
+        def fwd(v, c, m):
+            res = jax.vmap(lambda pc, mm: q.quantize(pc, mm, spec.capacities[0],
+                                                     need_index=False))(c, m)
+            pyr = j_build_pyramid(res.coords_t, res.mask, spec, keys0=res.keys)
+            return model.apply(v, pyr, q, train=False, **flags)
+        return fwd
+
+    args = (variables, jnp.asarray(clouds), jnp.asarray(mask))
+    no_regressor = built_j.model.clone(ignore_keypoint_regressor=True)
+    y_kp = jax.jit(run(no_regressor, disable_global_head=True))(*args)
+    y_gl = jax.jit(run(built_j.model, disable_local_head=True))(*args)
+    y_none = jax.eval_shape(run(built_j.model, disable_global_head=True,
+                                disable_local_head=True), *args)
+    return ({k: np.asarray(v) for k, v in y_kp.items()},
+            {k: np.asarray(v) for k, v in y_gl.items()}, y_none, clouds, mask)
+
+
+def test_head_options_match_jax(both, head_options):
+    """ignore_keypoint_regressor and disable_global_head / disable_local_head
+    against JAX, with the tolerances above; a disabled head's keys are
+    absent, and both disabled return {} on both sides."""
+    _, y_t_full, _, built_t = both
+    y_kp, y_gl, y_none, clouds, mask = head_options
+    model, quantizer = built_t.model, built_t.quantizer
+    c, m = torch.from_numpy(clouds), torch.from_numpy(mask)
+    spec = built_t.pyramid_spec
+    res = quantizer.quantize(c, m, spec.capacities[0], need_index=False)
+    from egonn_tpu_torch.sparse.pyramid import build_pyramid as t_build_pyramid
+
+    pyr = t_build_pyramid(res.coords_t, res.mask, spec, keys0=res.keys)
+    model.ignore_keypoint_regressor = True
+    try:
+        with torch.no_grad():
+            t_kp = {k: v.numpy() for k, v in
+                    model(pyr, quantizer, disable_global_head=True).items()}
+    finally:
+        model.ignore_keypoint_regressor = False
+    assert set(t_kp) == set(y_kp) == {"descriptors", "keypoints", "sigma", "kp_mask"}
+    np.testing.assert_array_equal(t_kp["kp_mask"], y_kp["kp_mask"])
+    np.testing.assert_allclose(t_kp["descriptors"], y_kp["descriptors"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(t_kp["keypoints"], y_kp["keypoints"], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(t_kp["sigma"], y_kp["sigma"], rtol=1e-4, atol=0)
+    # zero offsets: the keypoints moved off the regressed positions to the centres
+    assert np.abs(t_kp["keypoints"] - y_t_full["keypoints"]).max() > 1e-2
+
+    t_gl = inference.forward(built_t, c, m, with_local=False)
+    assert set(t_gl) == set(y_gl) == {"global"}
+    rel = np.abs(t_gl["global"].numpy() - y_gl["global"]).max() / np.abs(y_gl["global"]).max()
+    assert rel <= 1e-4, rel
+    np.testing.assert_array_equal(t_gl["global"].numpy(), y_t_full["global"])
+
+    with torch.no_grad():
+        assert model(pyr, quantizer, disable_global_head=True, disable_local_head=True) == {}
+    assert y_none == {}
