@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Runs the PyTorch / CUDA port of EgoNN (inference, training and
-evaluation), of MinkLoc (inference) and of ResNet14 (inference) on one
+"""Runs the PyTorch / CUDA port of EgoNN (inference, the training step and
+loop, evaluation), of MinkLoc (inference) and of ResNet14 (inference) on one
 NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
@@ -131,12 +131,42 @@ Phases, each printing its lines:
    card equal to CPU.  topk_l2 on 4,096 x 2,048 256-d embeddings against a
    float64 brute force (near-ties counted), timed.  Numbers under "eval" in
    build/chip_smoke.json.
+10. train loop: `do_train` (`train/trainer.py`, the training entry point)
+   with config/config_egonn.txt + model_configs/egonn.txt at full width
+   (batch 32, local batch 8, aug_mode 2, cap0 16384, 65,536 points) on a
+   synthetic set of LOOP_SCANS scans (144 train, 48 validation, ~6k
+   points a scan) written by the port's generator into build/train_synth,
+   with test_file set.  First one train step each at bucket 32 and at
+   bucket 128 (the largest of batch expansion: 128 global clouds + 8
+   pairs): launches TRAIN_STEP_LAUNCHES and the peak device memory; on
+   the bucket-32 batch the host's batch assembly alone and a step's host
+   time alone and beside a thread assembling batches (the Prefetcher's
+   competition for the interpreter), and the same step twice from one
+   state: gradients bit-equal, and every aten op's inputs and outputs
+   checksummed to name the ops whose outputs differ from equal inputs
+   (where the steps differ, again under torch.use_deterministic_algorithms).
+   Run (a): LOOP_EPOCHS epochs, checkpoints every LOOP_SAVE_FREQ, every
+   launch counter zeroed before and read after (each kernel of the loop
+   launched); the loop's first train and validation steps (the validation
+   batch has 52 clouds in a bucket of 61: padding rows) launch exactly
+   TRAIN_STEP_LAUNCHES and VAL_STEP_LAUNCHES and every kernel call of the
+   two is held against its plain version and timed (the `train_loop`
+   path); every epoch's stats finite, checkpoints at 5 and 10, 10 epoch
+   lines and one in-training evaluation (epoch 10, its Recall@1) in the
+   metrics JSONL; steps/s and clouds/s of the train phases of epochs 2-10
+   (host clock, loading included) beside phase 5's bare step, the loop's
+   wait for the Prefetcher and copy time per step, seconds per epoch, the
+   evaluation's seconds.  Run (b): resumed from a copy of (a)'s epoch-5
+   checkpoint in a fresh directory to epoch 10: parameters, BatchNorm
+   statistics and Adam's state bit-equal to (a)'s.  Numbers under
+   "train_loop".
 
 The last three lines are the card's name and power limit, one JSON object
 with every kernel's numbers (summed over the calls of all the paths: the
 inference forward, the training step, the validation step, the pyramid
-without up maps, the two MinkLoc forwards, the ResNet14 forward and one
-embedding batch of the evaluation;
+without up maps, the two MinkLoc forwards, the ResNet14 forward, one
+embedding batch of the evaluation and the training loop's first train and
+validation steps;
 `launches` is the paths' launch counts added) and
 `{"ok": true, "device": {...}}`.  Details (every call shape's times and
 `tc_bound_ms`, each path apart and summed) go to build/chip_smoke.json.
@@ -152,11 +182,13 @@ import json
 import math
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 import types
+import warnings
 
 import torch
 
@@ -246,6 +278,14 @@ EVAL_BATCH_LAUNCHES = dict(EXPECTED_LAUNCHES)  # each embedding batch: one eval 
 RANSAC_PAIRS, RANSAC_K, RANSAC_DIM, RANSAC_HYPOTHESES = 32, 256, 128, (1024, 10240)
 # device top-k above the evaluator's 4 M-entry host threshold
 TOPK_MAP, TOPK_QUERY, TOPK_DIM = 4096, 2048, 256
+# Phase 10: do_train for LOOP_EPOCHS epochs on a synthetic set of LOOP_SCANS
+# scans (144 train, 48 validation) written by the port's generator into
+# LOOP_DATA, checkpoints every LOOP_SAVE_FREQ epochs, runs under LOOP_DIR
+LOOP_DATA, LOOP_DIR = OUT_DIR / "train_synth", OUT_DIR / "train_loop"
+LOOP_SCANS, LOOP_EPOCHS, LOOP_SAVE_FREQ = 192, 10, 5
+LOOP_BUCKET = 128  # config_egonn.txt's batch_size_limit: the largest bucket
+# the kernels a loop step launches (lookup builds no EgoNN map)
+LOOP_KERNELS = ("zrun_presence", "zrun_rank", "gather_conv", "tdown", "gather_dw")
 ROOT = pathlib.Path(__file__).resolve().parent
 
 
@@ -1673,6 +1713,433 @@ def phase_eval(kernels, cycles_per_ms, device, smi):
     return eval_rows, out
 
 
+# ---------------------------------------------------------------------------
+# the training loop
+# ---------------------------------------------------------------------------
+
+def _loop_params(names, epochs: int):
+    """config_egonn.txt + model_configs/egonn.txt at full width on the
+    synthetic set: its folder, type and files instead of MulRan's."""
+    from egonn_tpu_torch.config import TrainingParams
+
+    tp = TrainingParams(str(ROOT / "config" / "config_egonn.txt"),
+                        str(ROOT / "model_configs" / "egonn.txt"), require_dataset=False)
+    tp.dataset, tp.dataset_folder = "synthetic", str(LOOP_DATA)
+    tp.train_file, tp.val_file, tp.test_file = names
+    tp.epochs, tp.save_freq = epochs, LOOP_SAVE_FREQ
+    got = (tp.batch_size, tp.batch_size_limit, tp.local_batch_size, tp.aug_mode,
+           tp.model_params.cap0, tp.model_params.num_points)
+    if got != (2 * N_PLACES, LOOP_BUCKET, 8, 2, CAP0, N_POINTS):
+        raise AssertionError(f"unexpected training parameters {got}")
+    return tp
+
+
+class _LoopWatch:
+    """While active, every `TrainStep` call of the loop is noted (epoch,
+    train, clouds); the first train step's and the first validation step's
+    kernel calls are recorded and their launches counted."""
+
+    def __init__(self, trainer, kernels):
+        self.trainer, self.kernels = trainer, kernels
+        self.orig = trainer.TrainStep.__call__
+        self.steps, self.calls, self.launches = [], {}, {}
+
+    def __enter__(self):
+        watch, kernels = self, self.kernels
+
+        def call(step, g, l, gen, lr, train):
+            watch.steps.append(dict(epoch=step.state.epoch + 1, train=train,
+                                    rows=g["clouds"].shape[0],
+                                    clouds=g["clouds"].shape[0] + 2 * l["anc_clouds"].shape[0]))
+            if train in watch.calls:
+                return watch.orig(step, g, l, gen, lr, train)
+            before, out = kernels.launch_counts(), []
+            watch.calls[train] = record_calls(
+                kernels, lambda: out.append(watch.orig(step, g, l, gen, lr, train)))
+            after = kernels.launch_counts()
+            watch.launches[train] = {k: after[k] - before[k] for k in after}
+            return out[0]
+
+        self.trainer.TrainStep.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer.TrainStep.__call__ = self.orig
+
+
+def _loop_state(state) -> dict:
+    """A TrainState's tensors: the model's state dict and Adam's moments."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    for i, st in state.optimizer.state_dict()["state"].items():
+        out.update({f"adam.{i}.{k}": torch.as_tensor(v) for k, v in st.items()})
+    return out
+
+
+def _state_diff(x: dict, y: dict) -> dict:
+    """Leaves that differ, and the l2 norm of the parameters' difference
+    relative to theirs (float model tensors)."""
+    unequal = [k for k in x if not torch.equal(x[k], y[k])]
+    num = den = 0.0
+    for k in x:
+        if k.startswith("model.") and x[k].dtype.is_floating_point:
+            num += float((x[k].double() - y[k].double()).pow(2).sum())
+            den += float(x[k].double().pow(2).sum())
+    return dict(unequal=len(unequal), leaves=len(x), first=unequal[:5],
+                rel_l2=math.sqrt(num / max(den, 1e-300)))
+
+
+def _read_metrics(path: pathlib.Path) -> list:
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def _bucket_step(tp, built, kernels, ds, lds, ids, lids, device) -> tuple:
+    """One train step on the elements `ids` (padded to their bucket) and
+    the pairs `lids`: (launches, peak device memory in GiB, rows, inputs)."""
+    from egonn_tpu_torch.data.local_dataset import make_local_batch
+    from egonn_tpu_torch.data.pipeline import make_global_batch
+    from egonn_tpu_torch.train.trainer import expansion_buckets, make_train_step
+
+    buckets = expansion_buckets(tp.batch_size, tp.batch_size_limit, tp.batch_expansion_rate)
+    g = make_global_batch(ds, ids, N_POINTS, buckets)
+    l = make_local_batch(lds, lids, N_POINTS)
+    as_t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    gd = dict(clouds=as_t(g.clouds), point_mask=as_t(g.point_mask),
+              positives_mask=as_t(g.positives_mask), negatives_mask=as_t(g.negatives_mask))
+    ld = dict(anc_clouds=as_t(l.anc_clouds), anc_mask=as_t(l.anc_mask),
+              pos_clouds=as_t(l.pos_clouds), pos_mask=as_t(l.pos_mask), t_gt=as_t(l.t_gt))
+    step = make_train_step(built, tp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = kernels.launch_counts()
+    _finite_stats(step(gd, ld, _gen(device, SEED), 1e-3, True), f"step at {len(g.clouds)} rows")
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    return ({k: after[k] - before[k] for k in after}, torch.cuda.max_memory_allocated() / 2**30,
+            len(g.clouds), (gd, ld))
+
+
+def _host_contention(tp, built, ds, lds, ids, lids, g, l, device, n: int = 5) -> dict:
+    """Host ms of one batch's assembly alone (make_global_batch +
+    make_local_batch, one thread), and ms per train step on one device
+    batch (n steps ending in a synchronize) alone and with a thread
+    assembling batches beside it, as the Prefetcher's does."""
+    import threading
+
+    from egonn_tpu_torch.data.local_dataset import make_local_batch
+    from egonn_tpu_torch.data.pipeline import make_global_batch
+    from egonn_tpu_torch.train.trainer import expansion_buckets, make_train_step
+
+    buckets = expansion_buckets(tp.batch_size, tp.batch_size_limit, tp.batch_expansion_rate)
+    step = make_train_step(built, tp)
+
+    def assemble():
+        t0 = time.perf_counter()
+        make_global_batch(ds, ids, N_POINTS, buckets)
+        t1 = time.perf_counter()
+        make_local_batch(lds, lids, N_POINTS)
+        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+    def steps_ms():
+        step(g, l, _gen(device, SEED), 1e-3, True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            step(g, l, _gen(device, SEED + i), 1e-3, True)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    times = [assemble() for _ in range(3)]
+    alone = steps_ms()
+    stop = threading.Event()
+    built_batches = []
+
+    def loader():
+        while not stop.is_set():
+            assemble()
+            built_batches.append(1)
+
+    th = threading.Thread(target=loader, daemon=True)
+    th.start()
+    try:
+        busy = steps_ms()
+    finally:
+        stop.set()
+        th.join()
+    return dict(global_batch_ms=statistics.median(t[0] for t in times),
+                local_batch_ms=statistics.median(t[1] for t in times),
+                step_ms_alone=alone, step_ms_with_loader=busy,
+                batches_during=len(built_batches))
+
+
+def _op_checksums(run) -> list:
+    """run() under a dispatch mode that notes every aten op in order (the
+    backward's too) with exact checksums of its tensor inputs (as it is
+    called) and outputs: the sum of each tensor's bytes as int64 (device
+    tensors, read at the end); none for views.  The `empty` ops' memory is
+    zeroed, so that both runs start from the same bytes."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    def sums(tree):
+        s = [t.detach().contiguous().view(-1).view(torch.uint8).to(torch.int64).sum()
+             for t in tree_leaves(tree) if torch.is_tensor(t) and t.numel()]
+        return torch.stack(s) if s else None
+
+    ops = []
+
+    class Trace(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.is_view:
+                ops.append((str(func), None, None))
+                return func(*args, **(kwargs or {}))
+            ins = sums((args, kwargs))
+            out = func(*args, **(kwargs or {}))
+            if "empty" in str(func):
+                out.zero_()  # the same bytes in both runs
+            ops.append((str(func), ins, sums(out)))
+            return out
+
+    with Trace():
+        run()
+    return [(name, None if i is None else i.tolist(), None if o is None else o.tolist())
+            for name, i, o in ops]
+
+
+def _divergence(a: list, b: list) -> dict:
+    """Two runs' op traces: the ops whose outputs differ from equal inputs
+    (nondeterministic ops) before the first op whose inputs differ (where a
+    difference reached the computation), by name with counts."""
+    sources, first_input = {}, None
+    for i, ((name, in_a, out_a), (_, in_b, out_b)) in enumerate(zip(a, b)):
+        if in_a != in_b:
+            first_input = dict(op=name, index=i)
+            break
+        if out_a != out_b:
+            sources.setdefault(name, []).append(i)
+    return dict(ops=len(a), first_differing_input=first_input,
+                sources={k: dict(count=len(v), first=v[0]) for k, v in sources.items()})
+
+
+def _determinism_probe(tp, device, g, l) -> dict:
+    """One train step twice from one state on one batch with one generator:
+    the gradients that differ, the nondeterministic aten ops (`_divergence`)
+    and host ms per step; where the two differ, the same again under
+    torch.use_deterministic_algorithms(True, warn_only=True), with the
+    warnings it gave."""
+    from egonn_tpu_torch.models.factory import create_egonn_model
+    from egonn_tpu_torch.train.trainer import make_train_step
+
+    built = create_egonn_model(tp.model_params, device=device, seed=SEED + 7)
+    step = make_train_step(built, tp)
+    model, opt = step.state.model, step.state.optimizer
+    snap = copy.deepcopy(model.state_dict()), copy.deepcopy(opt.state_dict())
+
+    def restore():
+        model.load_state_dict(snap[0])
+        opt.load_state_dict(snap[1])
+
+    def one_step():
+        restore()
+        step(g, l, _gen(device, SEED), 1e-3, True)
+
+    def traced_step():
+        restore()
+        return _op_checksums(lambda: step(g, l, _gen(device, SEED), 1e-3, True))
+
+    def grads():
+        one_step()
+        return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+    def step_ms(n=3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            one_step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    def first_divergence():
+        return _divergence(traced_step(), traced_step())
+
+    out = {}
+    for mode in ("default", "deterministic"):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(mode == "deterministic", warn_only=True)
+            try:
+                a, b = grads(), grads()
+                diverges = first_divergence()
+                ms = step_ms()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        out[mode] = dict(leaves=sorted(n for n in a if not torch.equal(a[n], b[n])),
+                         first_op=diverges, step_ms=ms,
+                         warnings=sorted({str(w.message)[:160] for w in caught}))
+        if not out[mode]["leaves"] and diverges["first_differing_input"] is None:
+            break  # repeatable: the deterministic algorithms are not needed
+    out["grads"] = len(a)
+    return out
+
+
+def phase_train_loop(kernels, cycles_per_ms, device, smi, bare_steps_per_s):
+    """Phase 10: do_train on the card (see the module docstring)."""
+    from egonn_tpu_torch.data.base import TrainingDataset
+    from egonn_tpu_torch.data.local_dataset import Training6DOFDataset
+    from egonn_tpu_torch.data.samplers import BatchSampler
+    from egonn_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from egonn_tpu_torch.models.factory import create_egonn_model
+    from egonn_tpu_torch.sparse.pyramid import egonn_pyramid_spec
+    from egonn_tpu_torch.train import trainer
+
+    t0 = time.perf_counter()
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    names = generate_synthetic_dataset(str(LOOP_DATA), n_scans=LOOP_SCANS, seed=SEED)
+    tp = _loop_params(names, LOOP_EPOCHS)
+    ds = TrainingDataset(str(LOOP_DATA), "synthetic", names[0])
+    lds = Training6DOFDataset(str(LOOP_DATA), "synthetic", names[0], tp.model_params.quantizer,
+                              rot_max=tp.rot_max, trans_max=tp.trans_max)
+    if len(ds) < LOOP_BUCKET:
+        raise AssertionError(f"{len(ds)} train elements, fewer than bucket {LOOP_BUCKET}")
+    out = dict(dataset_s=time.perf_counter() - t0, train_elements=len(ds), bucket={})
+
+    # one step each at buckets 32 and 128 (launches, peak memory); on the
+    # bucket-32 batch the host's batch assembly against a step, and whether
+    # two steps from one state are bit-equal
+    sampler = BatchSampler(ds, batch_size=LOOP_BUCKET, seed=0)
+    sampler.set_epoch(1)
+    big = next(iter(sampler))
+    built = create_egonn_model(tp.model_params, device=device, seed=SEED + 6)
+    lids = lds.valid_ids[:tp.local_batch_size]
+    for ids in (big[:2 * N_PLACES], big):
+        step_launches, peak, b_rows, inputs = _bucket_step(tp, built, kernels, ds, lds, ids,
+                                                           lids, device)
+        log(f"[loop] one train step at bucket {b_rows} ({len(ids)} global clouds + "
+            f"{len(lids)} pairs): launches {step_launches}, peak memory {peak:.2f} GiB on {smi}")
+        if step_launches != TRAIN_STEP_LAUNCHES:
+            raise AssertionError(f"bucket {b_rows}: launches {step_launches}")
+        out["bucket"][b_rows] = dict(launches=step_launches, peak_gb=peak)
+        if b_rows != 2 * N_PLACES:
+            continue
+        host = out["host"] = _host_contention(tp, built, ds, lds, ids, lids, *inputs, device)
+        log(f"[loop] host: one batch's assembly alone {host['global_batch_ms']:.1f} ms "
+            f"global + {host['local_batch_ms']:.1f} ms local (one thread); a train step on "
+            f"one device batch {host['step_ms_alone']:.1f} ms alone, "
+            f"{host['step_ms_with_loader']:.1f} ms with a thread assembling batches beside "
+            f"it ({host['batches_during']} batches meanwhile; host clock) on {smi}")
+        probe = out["determinism"] = _determinism_probe(tp, device, *inputs)
+        for mode in ("default", "deterministic"):
+            if mode in probe:
+                pm = probe[mode]
+                log(f"[loop] determinism ({mode} algorithms), one train step twice from one "
+                    f"state: {len(pm['leaves'])} of {probe['grads']} gradients differ "
+                    f"{pm['leaves'][:6]}; ops whose outputs differ from equal inputs before "
+                    f"the first differing input {pm['first_op']}; {pm['step_ms']:.1f} ms per "
+                    f"step; warnings {pm['warnings']}")
+    del inputs
+    if sorted(out["bucket"]) != [2 * N_PLACES, LOOP_BUCKET]:
+        raise AssertionError(f"buckets {sorted(out['bucket'])}")
+    torch.cuda.empty_cache()
+
+    # (a) LOOP_EPOCHS epochs, every launch counted
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _LoopWatch(trainer, kernels) as watch:
+        state_a, stats_a, name = trainer.do_train(tp, weights_path=str(LOOP_DIR / "a"),
+                                                  device=device)
+    torch.cuda.synchronize()
+    out["run_a_s"] = time.perf_counter() - t0
+    out["run_a_peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    launches = out["launches"] = kernels.launch_counts()
+    log(f"[loop] run (a): {LOOP_EPOCHS} epochs in {out['run_a_s']:.1f} s, launches {launches}")
+    missing = [k for k in LOOP_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the loop launched no {missing}")
+    for train, want in ((True, TRAIN_STEP_LAUNCHES), (False, VAL_STEP_LAUNCHES)):
+        what = "train" if train else "validation"
+        log(f"[loop] first {what} step of the loop: launches {watch.launches[train]}")
+        if watch.launches[train] != want:
+            raise AssertionError(f"first loop {what} step: launches {watch.launches[train]}, "
+                                 f"expected {want}")
+    for phase in ("train", "val"):
+        if len(stats_a[phase]) != LOOP_EPOCHS:
+            raise AssertionError(f"{len(stats_a[phase])} {phase} epochs of {LOOP_EPOCHS}")
+        for e, st in enumerate(stats_a[phase], 1):
+            _finite_stats(st, f"epoch {e} {phase}")
+    ckpt_a = LOOP_DIR / "a" / name
+    for e in (LOOP_SAVE_FREQ, LOOP_EPOCHS):
+        if not (ckpt_a / f"step_{e}.pt").exists():
+            raise AssertionError(f"no checkpoint at epoch {e} in {ckpt_a}")
+    records = _read_metrics(LOOP_DIR / "a" / f"{name}.metrics.jsonl")
+    epochs = [r for r in records if "train" in r]
+    tests = [r for r in records if "test" in r]
+    if [r["epoch"] for r in epochs] != list(range(1, LOOP_EPOCHS + 1)):
+        raise AssertionError(f"metrics epochs {[r['epoch'] for r in epochs]}")
+    if [r["epoch"] for r in tests] != [LOOP_EPOCHS] or not all(
+            math.isfinite(v) for v in tests[0]["test"]["recall@1"].values()):
+        raise AssertionError(f"in-training evaluation records {tests}")
+    out["test"] = tests[0]["test"]
+    out["eval_s"] = tests[0]["seconds"]
+    ts = [records[0]["_ts"]] + [r["_ts"] for r in epochs]
+    out["epoch_s"] = [b - a for a, b in zip(ts, ts[1:])]
+    steady = [r for r in epochs if r["epoch"] > 1]
+    clouds = {(s["epoch"], s["train"]): 0 for s in watch.steps}
+    for s in watch.steps:
+        clouds[(s["epoch"], s["train"])] += s["clouds"]
+    for phase, train in (("train", True), ("val", False)):
+        sec = sum(r["seconds"][phase] for r in steady)
+        out[f"{phase}_steps_per_s"] = sum(r["steps"][phase] for r in steady) / sec
+        out[f"{phase}_clouds_per_s"] = sum(clouds[(r["epoch"], train)] for r in steady) / sec
+    n_train = sum(r["steps"]["train"] for r in steady)
+    out["train_wait_ms"] = sum(r["input_wait_s"]["train"] for r in steady) / n_train * 1e3
+    out["train_copy_ms"] = sum(r["copy_s"]["train"] for r in steady) / n_train * 1e3
+    out["stats_last"] = dict(train=stats_a["train"][-1], val=stats_a["val"][-1])
+    out["rows"] = sorted({(s["train"], s["rows"]) for s in watch.steps})
+    log(f"[loop] epoch {LOOP_EPOCHS} train loss {stats_a['train'][-1]['loss']:.6g}, val loss "
+        f"{stats_a['val'][-1]['loss']:.6g}; global rows per step (train, rows) {out['rows']}; "
+        f"in-training evaluation at epoch {LOOP_EPOCHS}: Recall@1 {out['test']['recall@1']} in "
+        f"{out['eval_s']:.2f} s")
+    log(f"[loop] {out['train_steps_per_s']:.3f} train steps/s, {out['train_clouds_per_s']:.1f} "
+        f"clouds/s over epochs 2-{LOOP_EPOCHS}'s train phases (host clock, loading included), "
+        f"against phase 5's bare step {bare_steps_per_s:.3f} steps/s; per train step "
+        f"{out['train_wait_ms']:.1f} ms waiting for the Prefetcher and "
+        f"{out['train_copy_ms']:.1f} ms copying to the card; validation "
+        f"{out['val_steps_per_s']:.3f} steps/s; seconds per epoch "
+        f"{[round(x, 2) for x in out['epoch_s']]} (epoch {LOOP_EPOCHS} with the evaluation); "
+        f"run (a) peak memory {out['run_a_peak_gb']:.2f} GiB (recorded calls and the "
+        f"evaluation included) on {smi}")
+
+    # the first train and validation steps' kernel calls against their plain versions
+    rows = new_rows(kernels)
+    measure_calls(rows, watch.calls[True] + watch.calls[False], kernels, cycles_per_ms,
+                  reps=10, tag="loop-kernels", levels=level_of(egonn_pyramid_spec(CAP0).capacities))
+    for k, row in rows.items():
+        row["launches"] = watch.launches[True][k] + watch.launches[False][k]
+    del watch
+    torch.cuda.empty_cache()
+
+    # (b) resumed from a copy of (a)'s epoch-5 checkpoint in a fresh directory
+    (LOOP_DIR / "b" / name).mkdir(parents=True)
+    for f in (f"step_{LOOP_SAVE_FREQ}.pt", f"step_{LOOP_SAVE_FREQ}.meta.json"):
+        shutil.copy(ckpt_a / f, LOOP_DIR / "b" / name / f)
+    t0 = time.perf_counter()
+    state_b, stats_b, _ = trainer.do_train(tp, resume_from=str(LOOP_DIR / "b" / name),
+                                           device=device)
+    xa, xb = _loop_state(state_a), _loop_state(state_b)
+    diff_ab = _state_diff(xa, xb)
+    loss_ab = max(abs(a["loss"] - b["loss"]) for a, b in
+                  zip(stats_a["train"][LOOP_SAVE_FREQ:], stats_b["train"]))
+    out["resume"] = dict(diff=diff_ab, train_loss_abs=loss_ab, run_b_s=time.perf_counter() - t0)
+    log(f"[loop] run (b), resumed at epoch {LOOP_SAVE_FREQ} in {out['resume']['run_b_s']:.1f} "
+        f"s: {diff_ab['unequal']} of {diff_ab['leaves']} state tensors (parameters, BatchNorm "
+        f"statistics, Adam's moments and steps) differ from (a)'s, parameters' rel l2 "
+        f"{diff_ab['rel_l2']:.3g}, epochs {LOOP_SAVE_FREQ + 1}-{LOOP_EPOCHS} train loss max abs "
+        f"diff {loss_ab:.3g}")
+    if diff_ab["unequal"]:
+        raise AssertionError(f"the resumed run differs from the uninterrupted one: {diff_ab}")
+    return rows, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1769,14 +2236,18 @@ def main() -> int:
     t0 = time.perf_counter()
     eval_rows, ev = phase_eval(kernels, cycles_per_ms, device, smi)
     log(f"[eval] phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    loop_rows, loop = phase_train_loop(kernels, cycles_per_ms, device, smi, tr["steps_per_s"])
+    log(f"[loop] phase done in {time.perf_counter() - t0:.1f} s")
     paths = {"forward": rows, "train_step": train_rows, "val_step": val_rows,
-             "lookup_maps": maps_rows, **mink_rows, "resnet": resnet_rows, "eval": eval_rows}
+             "lookup_maps": maps_rows, **mink_rows, "resnet": resnet_rows, "eval": eval_rows,
+             "train_loop": loop_rows}
     all_rows = merged_rows(*paths.values())
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, slice=sl, train=tr, lookup_maps=maps, minkloc=mink, resnet=resnet,
-             eval=ev, kernels=all_rows, paths=paths, wide=wide,
+             eval=ev, train_loop=loop, kernels=all_rows, paths=paths, wide=wide,
              determinism=[*repeat_fwd, *repeat_train, repeat_val, maps["repeat"],
                           mink["lookup_repeat"], resnet["lookup_repeat"]],
              seconds=time.perf_counter() - t_start), indent=1))

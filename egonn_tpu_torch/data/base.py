@@ -5,7 +5,9 @@ An evaluation-set pickle holds plain tuples `[query_list, map_list]` of
 `(timestamp, rel_scan_filepath, position, pose)`, so the port reads the
 pickles written by the JAX package and by the reference without importing
 either.  A training-tuple pickle holds `TrainingTuple` objects, pickled
-under their class's module path: the port writes its own.
+under their class's module path: the port writes its own, and
+`load_training_tuples` maps the JAX package's and the reference's class
+paths to it, so that reading their pickles imports neither.
 """
 from __future__ import annotations
 
@@ -31,6 +33,29 @@ class TrainingTuple:
         self.non_negatives = non_negatives
         self.pose = pose
         self.positives_poses = positives_poses
+
+
+# the class paths a training-tuple pickle may name, all read as the port's
+# TrainingTuple: the JAX package's and the reference's
+# (datasets/base_datasets.py)
+TUPLE_CLASS_PATHS = (("egonn_tpu.data.base", "TrainingTuple"),
+                     ("datasets.base_datasets", "TrainingTuple"))
+
+
+class _TupleUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) in TUPLE_CLASS_PATHS:
+            return TrainingTuple
+        if module.split(".")[0] == "egonn_tpu":
+            raise pickle.UnpicklingError(f"{module}.{name}: not a training tuple")
+        return super().find_class(module, name)
+
+
+def load_training_tuples(path: str) -> Dict[int, TrainingTuple]:
+    """A training-tuple pickle {id: TrainingTuple}, written by the port, the
+    JAX package or the reference."""
+    with open(path, "rb") as f:
+        return _TupleUnpickler(f).load()
 
 
 class EvaluationTuple:
@@ -74,6 +99,35 @@ class EvaluationSet:
 
     def get_query_positions(self) -> np.ndarray:
         return np.stack([e.position for e in self.query_set])
+
+
+class TrainingDataset:
+    """The scans of a training-tuple pickle: item `ndx` is (its raw (N, 3)
+    float32 cloud, ndx); augmentation and quantization run on the device."""
+
+    def __init__(self, dataset_path: str, dataset_type: str, query_filename: str):
+        if not os.path.exists(dataset_path):
+            raise FileNotFoundError(f"Cannot access dataset path: {dataset_path}")
+        self.dataset_path = dataset_path
+        self.dataset_type = dataset_type
+        self.query_filepath = os.path.join(dataset_path, query_filename)
+        if not os.path.exists(self.query_filepath):
+            raise FileNotFoundError(f"Cannot access query file: {self.query_filepath}")
+        self.queries: Dict[int, TrainingTuple] = load_training_tuples(self.query_filepath)
+        self.pc_loader = get_pointcloud_loader(self.dataset_type)
+
+    def __len__(self):
+        return len(self.queries)
+
+    def __getitem__(self, ndx):
+        return self.pc_loader(os.path.join(self.dataset_path,
+                                           self.queries[ndx].rel_scan_filepath)), ndx
+
+    def get_positives(self, ndx):
+        return self.queries[ndx].positives
+
+    def get_non_negatives(self, ndx):
+        return self.queries[ndx].non_negatives
 
 
 def get_pointcloud_loader(dataset_type: str) -> Callable[[str], np.ndarray]:
@@ -127,9 +181,10 @@ class PointCloudLoader:
         raise NotImplementedError
 
 
-def in_sorted_array(e: int, array: np.ndarray) -> bool:
-    """Whether e is in the sorted array."""
-    pos = np.searchsorted(array, e)
-    if pos == len(array) or pos == -1:
-        return False
-    return bool(array[pos] == e)
+def in_sorted(values: np.ndarray, array: np.ndarray) -> np.ndarray:
+    """Whether each value is in the sorted array (one search for all)."""
+    array = np.asarray(array)
+    if len(array) == 0:
+        return np.zeros(len(values), dtype=bool)
+    pos = np.searchsorted(array, values)
+    return (pos < len(array)) & (array[np.minimum(pos, len(array) - 1)] == values)

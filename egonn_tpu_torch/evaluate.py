@@ -41,12 +41,13 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
 
 
 def resolve_device(args) -> torch.device:
-    """The device asked for; stops on --dp and on cuda without a card."""
-    if args.dp:
+    """The device asked for; stops on --dp (where the CLI has it) and on cuda
+    without a card."""
+    if getattr(args, "dp", False):
         raise SystemExit("--dp: data-parallel evaluation is not ported yet (ROADMAP A.9)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA card: pass --device cpu to evaluate on the CPU")
+        raise SystemExit("no CUDA card: pass --device cpu to run on the CPU")
     return device
 
 

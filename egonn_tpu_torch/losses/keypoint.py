@@ -20,7 +20,7 @@ from egonn_tpu_torch.losses.triplet import (
     batch_hard_triplet_loss,
     pairwise_l2,
 )
-from egonn_tpu_torch.ops.geometry import apply_transform
+from egonn_tpu_torch.ops.geometry import apply_transform, true_f32
 
 BIG = 1e9
 _CLOUD_CHUNK = 8192  # points per block of the keypoint-to-cloud distance search
@@ -60,6 +60,28 @@ def _nearest_point_dist(kp: torch.Tensor, pc: torch.Tensor, pc_mask: torch.Tenso
     return torch.where(pc_mask.any(1)[:, None], d, BIG)
 
 
+class _GatherRows(torch.autograd.Function):
+    """x.gather(1, idx) for x (B, N) and idx (B, K), whose backward adds each
+    row's gradients with a matmul by the one-hot of idx, in true f32: the
+    card's scatter_add (torch.gather's backward) adds a row's duplicates
+    with atomics in any order, so two train steps from one state would
+    differ in the last bits.  The (B, K, N) one-hot is the size of the
+    loss's distance matrix."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = x.shape[1]
+        return torch.gather(x, 1, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        onehot = (idx[..., None] == torch.arange(ctx.n, device=idx.device)).to(g.dtype)
+        with true_f32():
+            return torch.bmm(g[:, None, :], onehot)[:, 0], None
+
+
 def keypoint_loss_single(pc1, pc1_mask, kp1, sigma1, kp1_mask, pc2, pc2_mask, kp2, sigma2,
                          kp2_mask, dist12, gamma_chamfer=1.0, gamma_p2p=1.0,
                          repeatability_dist_th=0.5):
@@ -73,9 +95,9 @@ def keypoint_loss_single(pc1, pc1_mask, kp1, sigma1, kp1_mask, pc2, pc2_mask, kp
     min_ndx2 = dist12.argmin(-2)
 
     # probabilistic chamfer: log(s12) + d / s12, s12 = (sigma1 + sigma2[match]) / 2
-    s12 = torch.clamp_min((sigma1 + torch.gather(sigma2, 1, min_ndx1)) / 2.0, 1e-12)
+    s12 = torch.clamp_min((sigma1 + _GatherRows.apply(sigma2, min_ndx1)) / 2.0, 1e-12)
     loss1 = _masked_mean(torch.log(s12) + torch.clamp_max(min_dist1, BIG) / s12, kp1_mask)
-    s21 = torch.clamp_min((sigma2 + torch.gather(sigma1, 1, min_ndx2)) / 2.0, 1e-12)
+    s21 = torch.clamp_min((sigma2 + _GatherRows.apply(sigma1, min_ndx2)) / 2.0, 1e-12)
     loss2 = _masked_mean(torch.log(s21) + torch.clamp_max(min_dist2, BIG) / s21, kp2_mask)
 
     metrics: Dict[str, torch.Tensor] = {}

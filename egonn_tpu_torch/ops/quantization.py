@@ -12,6 +12,7 @@
 `quantize(pc, mask, capacity)` takes clouds `(..., N, 3)` with masks
 `(..., N)` and returns a fixed-capacity, key-sorted `SortedUnique`.
 Float32 throughout; floor semantics for negative coordinates.
+`quantize_np` is the host numpy dedup of the local training dataset.
 """
 from __future__ import annotations
 
@@ -104,3 +105,37 @@ class CartesianQuantizer:
 
 
 AnyQuantizer = Union[PolarQuantizer, CartesianQuantizer]
+
+
+def quantize_np(quantizer: AnyQuantizer, pc: np.ndarray):
+    """Host numpy dedup, one point per voxel (the first, in source order), as
+    the local training dataset prepares each cloud.  Returns (voxel coords
+    int32 (M, 3), indices of the kept source points (M,), ascending): the
+    JAX package's result, from a 1-D unique over one int64 key per voxel
+    where the coordinates' spans fit one (its row-wise unique sorts 12-byte
+    records, ~20x slower)."""
+    if isinstance(quantizer, PolarQuantizer):
+        theta = 180.0 + np.arctan2(pc[:, 1], pc[:, 0]) * 180.0 / np.pi
+        dist = np.sqrt(pc[:, 0] ** 2 + pc[:, 1] ** 2)
+        scaled = np.stack([theta, dist, pc[:, 2]], axis=1) / quantizer.quant_step
+    else:
+        scaled = pc / quantizer.quant_step
+    coords = np.floor(scaled).astype(np.int32)
+    keys = _voxel_keys(coords)
+    _, index = np.unique(keys, axis=0 if keys.ndim == 2 else None, return_index=True)
+    index = np.sort(index)
+    return coords[index], index
+
+
+def _voxel_keys(coords: np.ndarray) -> np.ndarray:
+    """(M,) int64 keys, equal exactly where the (M, 3) coords' rows are, or
+    the coords themselves when there are none or their spans do not fit 63
+    bits."""
+    if len(coords) == 0:
+        return coords
+    lo = coords.min(axis=0).astype(np.int64)
+    span = coords.max(axis=0).astype(np.int64) - lo + 1
+    if int(span[0]) * int(span[1]) * int(span[2]) >= 2**63:
+        return coords
+    c = coords.astype(np.int64) - lo
+    return (c[:, 0] * span[1] + c[:, 1]) * span[2] + c[:, 2]

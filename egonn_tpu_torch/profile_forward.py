@@ -1,5 +1,6 @@
 """Where the time of one EgoNN inference forward, one training step, one
-MinkLoc forward, one ResNet14 forward or one GL evaluation goes on the card.
+MinkLoc forward, one ResNet14 forward, one GL evaluation or one epoch of
+the training loop goes on the card.
 
     python -m egonn_tpu_torch.profile_forward            # EgoNN inference forward
     python -m egonn_tpu_torch.profile_forward --train    # EgoNN training step
@@ -7,6 +8,7 @@ MinkLoc forward, one ResNet14 forward or one GL evaluation goes on the card.
     python -m egonn_tpu_torch.profile_forward --minkloc-lookup  # ... lookup-built down maps
     python -m egonn_tpu_torch.profile_forward --resnet   # ResNet14, lookup-built down maps
     python -m egonn_tpu_torch.profile_forward --eval     # GLEvaluator.evaluate
+    python -m egonn_tpu_torch.profile_forward --loop     # do_train, one epoch
 
 Runs the forward at full EgoNN width on 8 `lidar_sim` clouds (65,536 points
 each, cap0 16384, seeded random weights), the training step of
@@ -21,7 +23,10 @@ workload: quantization, the pyramid with L1-L4's down maps from one lookup
 launch, the model), or one evaluation of `GLEvaluator` (n_k 128 and 256,
 1,024 hypotheses) on `chip_smoke.py` phase 9's synthetic set (64 scans, seed
 0, written into build/eval_synth when absent) with EgoNN from
-model_configs/egonn.txt, 3 times under `torch.profiler`, and prints the device kernels with the most
+model_configs/egonn.txt, or `do_train` for one epoch (config_egonn.txt at
+full width, loading, checkpoint and capacity audit included) on
+`chip_smoke.py` phase 10's synthetic set (192 scans, seed 0, written into
+build/train_synth when absent), 3 times under `torch.profiler`, and prints the device kernels with the most
 time, the summed kernel time (the port's own kernels apart), the wall time
 per iteration and the card's busy share over the profiled window.  The
 Chrome trace goes to build/<mode>_trace.json.  Needs a CUDA card.
@@ -133,16 +138,36 @@ def _eval_fn():
     return ev.evaluate, f"GL evaluation of {n} scans x {mp.num_points} points"
 
 
+def _loop_fn():
+    from egonn_tpu_torch.config import TrainingParams
+    from egonn_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from egonn_tpu_torch.train.trainer import do_train
+
+    root = pathlib.Path("build") / "train_synth"
+    names = ("train_synthetic.pickle", "val_synthetic.pickle", "test_synthetic.pickle")
+    if not (root / names[0]).exists():
+        names = generate_synthetic_dataset(str(root), n_scans=192, seed=0)
+    tp = TrainingParams(str(ROOT / "config" / "config_egonn.txt"),
+                        str(ROOT / "model_configs" / "egonn.txt"), require_dataset=False)
+    tp.dataset, tp.dataset_folder, tp.epochs = "synthetic", str(root), 1
+    tp.train_file, tp.val_file, tp.test_file = names[0], names[1], None
+    weights = str(pathlib.Path("build") / "loop_profile")
+    return (lambda: do_train(tp, weights_path=weights, log_fn=lambda m: None),
+            f"training epoch ({tp.batch_size} global clouds + {tp.local_batch_size} pairs a "
+            "step, from the entry point)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_forward: CUDA is not available", file=sys.stderr)
         return 1
     flags = [a[2:] for a in sys.argv[1:]
-             if a in ("--train", "--minkloc", "--minkloc-lookup", "--resnet", "--eval")]
+             if a in ("--train", "--minkloc", "--minkloc-lookup", "--resnet", "--eval", "--loop")]
     mode = flags[0] if flags else "forward"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    run, what = {"train": _train_fn, "resnet": _resnet_fn, "eval": _eval_fn}.get(
+    run, what = {"train": _train_fn, "resnet": _resnet_fn, "eval": _eval_fn,
+                 "loop": _loop_fn}.get(
         mode, lambda: _forward_fn(mode))()
     for _ in range(2):  # build the kernels, warm the allocator
         run()

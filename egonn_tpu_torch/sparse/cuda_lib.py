@@ -7,7 +7,8 @@ package, under a name that carries a hash of the sources and flags, so a
 changed source is rebuilt and an unchanged one is reused.  All sources are
 compiled in parallel, one `nvcc` each, and nvcc's `-Xptxas -v` report (registers
 and spills per kernel) is kept beside each library as `<name>.ptxas.txt`, so a
-cached build still reports it.  Nothing here runs at import time.
+cached build still reports it.  The entry points only queue launches and
+hold the GIL while they do.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -109,7 +110,10 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     for src in SOURCES:
         path = _library_path(src)
-        lib = ctypes.CDLL(str(path))
+        # PyDLL keeps the GIL through a call: each entry point only queues
+        # launches, and a CDLL call's release and re-acquire would hand the
+        # GIL to the training loop's prefetch thread at every launch
+        lib = ctypes.PyDLL(str(path))
         for name, argtypes in SIGNATURES[src].items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

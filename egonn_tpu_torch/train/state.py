@@ -100,23 +100,24 @@ def load_checkpoint_meta(ckpt_dir: str, step: int) -> dict:
         return json.load(f)
 
 
-def _load(ckpt_dir: str, model: nn.Module, step: Optional[int]) -> tuple:
-    """(step, the saved dict) of step `step` (default: the latest), its
-    tensors on the model's device."""
+def _load(ckpt_dir: str, step: Optional[int]) -> tuple:
+    """(step, the saved dict) of step `step` (default: the latest), read onto
+    the CPU: `load_state_dict` copies the model's tensors to its device and
+    moves Adam's moments to their parameters', and Adam's step counts stay
+    on the CPU, where the optimizer keeps them (on the card they would take
+    another code path, and a resumed run would differ)."""
     steps = sorted(int(m.group(1)) for name in os.listdir(ckpt_dir)
                    if (m := re.fullmatch(r"step_(\d+)\.pt", name)))
     if not steps:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
     step = steps[-1] if step is None else step
-    device = next(model.parameters()).device
-    return step, torch.load(_step_path(ckpt_dir, step), map_location=device, weights_only=True)
+    return step, torch.load(_step_path(ckpt_dir, step), map_location="cpu", weights_only=True)
 
 
 def load_checkpoint(ckpt_dir: str, state: TrainState, step: Optional[int] = None) -> int:
     """Restore `state` (model, optimizer, epoch) in place from step `step`
-    (default: the latest) and return the step.  Tensors land on the model's
-    device."""
-    step, saved = _load(ckpt_dir, state.model, step)
+    (default: the latest) and return the step."""
+    step, saved = _load(ckpt_dir, step)
     state.model.load_state_dict(saved["model"])
     state.optimizer.load_state_dict(saved["optimizer"])
     state.epoch = int(saved["epoch"])
@@ -126,6 +127,6 @@ def load_checkpoint(ckpt_dir: str, state: TrainState, step: Optional[int] = None
 def load_model_weights(ckpt_dir: str, model: nn.Module, step: Optional[int] = None) -> int:
     """Restore only the model's parameters and BatchNorm statistics (for
     evaluation) from step `step` (default: the latest); returns the step."""
-    step, saved = _load(ckpt_dir, model, step)
+    step, saved = _load(ckpt_dir, step)
     model.load_state_dict(saved["model"])
     return step

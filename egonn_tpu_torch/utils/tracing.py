@@ -4,9 +4,12 @@
 Off unless EGONN_TRACE_DIR=<dir> is set.  Then `capture(subdir)` records
 a profiler trace (host and CUDA activity) into <dir>/<subdir>/trace.json,
 viewable in Perfetto or chrome://tracing, and `annotate(name)` labels a
-host range (`record_function`: eval_embed, eval_ransac) so that the viewer
-separates the input pipeline from device work.  A capture inside an active
-one is a no-op: the profiler does not nest.
+host range (`record_function`: batch_prep, eval_embed, eval_ransac) so that
+the viewer separates the input pipeline from device work;
+`step_annotation(name, n)` labels one train or validation step.  The
+trainer captures epoch EGONN_TRACE_EPOCH (`trace_epoch`, default 2: past
+the kernels' build).  A capture inside an active one is a no-op: the
+profiler does not nest.
 """
 from __future__ import annotations
 
@@ -18,6 +21,10 @@ import torch
 
 def trace_dir() -> str | None:
     return os.environ.get("EGONN_TRACE_DIR") or None
+
+
+def trace_epoch() -> int:
+    return int(os.environ.get("EGONN_TRACE_EPOCH", "2"))
 
 
 _capture_active = False
@@ -55,3 +62,9 @@ def annotate(name: str):
     if trace_dir() is None:
         return contextlib.nullcontext()
     return torch.profiler.record_function(name)
+
+
+def step_annotation(name: str, step_num: int):
+    """A host range labelled `<name>#<step_num>` while tracing is on, else a
+    no-op: one train or validation step in the trace."""
+    return annotate(f"{name}#{step_num}")

@@ -52,9 +52,12 @@ def test_evaluation_set_pickles_cross_load(tmp_path, rng):
 
 
 def test_in_sorted_array():
-    arr = np.array([1, 4, 9, 12])
-    for e in (-1, 1, 4, 5, 12, 13):
-        assert tb.in_sorted_array(e, arr) == jb.in_sorted_array(e, arr)
+    """The port's vectorized `in_sorted` against JAX's `in_sorted_array`, per
+    value, on a sorted and an empty array."""
+    values = np.array([-1, 1, 4, 5, 9, 12, 13])
+    for arr in (np.array([1, 4, 9, 12]), np.array([], np.int64)):
+        assert tb.in_sorted(values, arr).tolist() == [jb.in_sorted_array(int(e), arr)
+                                                      for e in values]
 
 
 def test_lzf_matches_jax(rng):

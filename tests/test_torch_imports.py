@@ -45,7 +45,10 @@ def test_import_pulls_in_no_jax():
             "egonn_tpu_torch.data.base, egonn_tpu_torch.data.pcd, egonn_tpu_torch.data.mulran, "
             "egonn_tpu_torch.data.southbay, egonn_tpu_torch.data.kitti, "
             "egonn_tpu_torch.data.synthetic, egonn_tpu_torch.data.pipeline, "
-            "egonn_tpu_torch.sparse.calibrate, egonn_tpu_torch.utils.tracing; "
+            "egonn_tpu_torch.sparse.calibrate, egonn_tpu_torch.utils.tracing, "
+            "egonn_tpu_torch.data.samplers, egonn_tpu_torch.data.local_dataset, "
+            "egonn_tpu_torch.utils.logging, egonn_tpu_torch.train.cli, "
+            "egonn_tpu_torch.train.__main__, egonn_tpu_torch.ops.quantization; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -54,6 +57,9 @@ def test_import_pulls_in_no_jax():
 def test_entry_points_default_to_cuda():
     from egonn_tpu_torch.models import factory
 
-    for fn in (factory.create_egonn_model, factory.create_minkloc_model, factory.model_factory):
+    from egonn_tpu_torch.train import trainer
+
+    for fn in (factory.create_egonn_model, factory.create_minkloc_model, factory.model_factory,
+               trainer.do_train):
         default = inspect.signature(fn).parameters["device"].default
         assert torch.device(default) == torch.device("cuda"), fn.__name__

@@ -235,3 +235,23 @@ def test_nearest_point_dist_in_blocks(rng, monkeypatch):
     assert torch.equal(blocks, whole) and torch.equal(args[0].grad, g_whole)
     empty = tkp._nearest_point_dist(args[0], args[1], torch.zeros_like(args[2]))
     assert bool((empty == tkp.BIG).all())
+
+
+def test_gather_rows_backward(rng):
+    """The chamfer's sigma gather: forward equal to torch.gather, gradient
+    (its one-hot matmul, no atomics) within f32 rounding of torch.gather's
+    scatter_add and equal across repeats; rows share targets, as the
+    nearest keypoints do."""
+    x = torch.from_numpy(rng.standard_normal((3, 40)).astype(np.float32)).requires_grad_()
+    idx = torch.from_numpy(rng.integers(0, 12, (3, 70)))  # duplicates in every row
+    g = torch.from_numpy(rng.standard_normal((3, 70)).astype(np.float32))
+    grads = []
+    for _ in range(2):
+        y = tkp._GatherRows.apply(x, idx)
+        assert torch.equal(y, torch.gather(x, 1, idx))
+        (gx,) = torch.autograd.grad(y, x, g)
+        grads.append(gx)
+    (want,) = torch.autograd.grad(torch.gather(x, 1, idx), x, g)
+    assert torch.equal(grads[0], grads[1])
+    np.testing.assert_allclose(grads[0].numpy(), want.numpy(), rtol=0, atol=1e-5)
+    assert not grads[0][:, 12:].any()
