@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Runs the PyTorch / CUDA port of EgoNN (inference, the training step and
-loop, evaluation), of MinkLoc (inference) and of ResNet14 (inference) on one
-NVIDIA GPU.
+loop, evaluation, data parallel), of MinkLoc (inference) and of ResNet14
+(inference) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
 
@@ -160,13 +160,41 @@ Phases, each printing its lines:
    checkpoint in a fresh directory to epoch 10: parameters, BatchNorm
    statistics and Adam's state bit-equal to (a)'s.  Numbers under
    "train_loop".
+11. data parallel (`parallel/mesh.py`): DP_WORLD ranks over NCCL need as
+   many cards and the machine has one, so (a) DP_WORLD gloo ranks share
+   cuda:0 (spawned by `run_ranks`; this process is rank 0).  Each builds
+   phase 4's model (BatchNorms perturbed as in phase 9) and takes its rows
+   of phase 5's batch (16 of the 32 global clouds, 4 of the 8 pairs): one
+   validation step, then one train step with augmentation drawn for the
+   whole batch from a generator seeded SEED, against the same two steps
+   of one process on the card from the same weights: stats within rel
+   1e-4 (JAX's sharded-vs-unsharded bound, tests/test_multichip.py),
+   gradients within 1e-2 / 2e-3 of the leaf's max / l2 (known difference
+   9); parameters, BatchNorm statistics, Adam's state and gradients
+   bit-equal across the ranks; each rank's launches TRAIN_STEP_LAUNCHES
+   and VAL_STEP_LAUNCHES; rank 0's kernel calls of both steps held against
+   their plain versions and timed (the `dp` path); the collectives per
+   step with their bytes, each rank's host ms over DP_TIMED_STEPS more
+   steps, the global step rate beside the 1-process step's, and peak
+   memory per rank.  (b) A 1-rank NCCL group runs the same steps: the NCCL
+   collectives on CUDA tensors, bit-equal to the 1-process steps.  (c) The
+   evaluation of phase 9's set sharded over DP_WORLD gloo ranks: recalls
+   and top-1 equal to the unsharded ones, phase 9's embedding batch
+   `global` within JAX's sharded-vs-unsharded embedding bound (rtol 2e-4,
+   atol 2e-5), launches per rank EVAL_BATCH_LAUNCHES.  (d) `do_train` on a
+   mesh of DP_WORLD (gloo, one card) for DP_EPOCHS epochs on phase 10's
+   set against one process with the same buckets and draws, both at lr
+   DP_LR (known difference 20): every epoch stat within rel 1e-4; only rank
+   0 writes the checkpoint and the metrics log.  A rank that fails or does
+   not end within DP_TIMEOUT_S fails the phase.  Numbers under
+   "data_parallel".
 
 The last three lines are the card's name and power limit, one JSON object
 with every kernel's numbers (summed over the calls of all the paths: the
 inference forward, the training step, the validation step, the pyramid
 without up maps, the two MinkLoc forwards, the ResNet14 forward, one
-embedding batch of the evaluation and the training loop's first train and
-validation steps;
+embedding batch of the evaluation, the training loop's first train and
+validation steps, and rank 0's train and validation steps in phase 11;
 `launches` is the paths' launch counts added) and
 `{"ok": true, "device": {...}}`.  Details (every call shape's times and
 `tc_bound_ms`, each path apart and summed) go to build/chip_smoke.json.
@@ -286,6 +314,12 @@ LOOP_SCANS, LOOP_EPOCHS, LOOP_SAVE_FREQ = 192, 10, 5
 LOOP_BUCKET = 128  # config_egonn.txt's batch_size_limit: the largest bucket
 # the kernels a loop step launches (lookup builds no EgoNN map)
 LOOP_KERNELS = ("zrun_presence", "zrun_rank", "gather_conv", "tdown", "gather_dw")
+# Phase 11: data parallel over DP_WORLD ranks sharing the card (gloo); each
+# rank times DP_TIMED_STEPS train steps; do_train on the mesh for DP_EPOCHS
+# epochs against one process at DP_LR (see phase_data_parallel)
+DP_WORLD, DP_TIMED_STEPS, DP_EPOCHS, DP_LR = 2, 3, 2, 1e-5
+DP_TIMEOUT_S = 300.0  # a rank's wait in a collective, and for a rank to end
+DP_DIR = OUT_DIR / "train_dp"
 ROOT = pathlib.Path(__file__).resolve().parent
 
 
@@ -1553,7 +1587,7 @@ def phase_eval(kernels, cycles_per_ms, device, smi):
 
     t0 = time.perf_counter()
     names = generate_synthetic_dataset(str(EVAL_DIR), n_scans=EVAL_SCANS, seed=SEED)
-    out = dict(dataset_s=time.perf_counter() - t0)
+    out = dict(dataset_s=time.perf_counter() - t0, names=list(names))
     mp = ModelParams(str(ROOT / "model_configs" / "egonn.txt"))
     if (mp.model, mp.cap0, mp.num_points) != ("egonn", CAP0, N_POINTS):
         raise AssertionError(f"unexpected EgoNN parameters {(mp.model, mp.cap0, mp.num_points)}")
@@ -2000,7 +2034,8 @@ def phase_train_loop(kernels, cycles_per_ms, device, smi, bare_steps_per_s):
                               rot_max=tp.rot_max, trans_max=tp.trans_max)
     if len(ds) < LOOP_BUCKET:
         raise AssertionError(f"{len(ds)} train elements, fewer than bucket {LOOP_BUCKET}")
-    out = dict(dataset_s=time.perf_counter() - t0, train_elements=len(ds), bucket={})
+    out = dict(dataset_s=time.perf_counter() - t0, train_elements=len(ds), bucket={},
+               names=list(names))
 
     # one step each at buckets 32 and 128 (launches, peak memory); on the
     # bucket-32 batch the host's batch assembly against a step, and whether
@@ -2140,6 +2175,280 @@ def phase_train_loop(kernels, cycles_per_ms, device, smi, bare_steps_per_s):
     return rows, out
 
 
+# ---------------------------------------------------------------------------
+# data parallel
+# ---------------------------------------------------------------------------
+
+def _dp_rank(group, tp, g: dict, l: dict, lr: float, record: bool = False) -> dict:
+    """One rank of phase 11 (a) / (b), or with group None the single
+    process it is held against: a fresh EgoNN (phase 4's seeded weights,
+    BatchNorms perturbed as in phase 9: at their initial statistics the
+    eval-mode embeddings are almost equal, and the validation step's pair
+    distances, ~2.5e-4, would be differences of nearly equal vectors) on
+    this rank's rows of the batch (numpy, whole), then one validation step,
+    one train step with augmentation from a generator seeded SEED (both
+    counted: launches, collectives) and DP_TIMED_STEPS more train steps
+    (host ms each, ending in a synchronize).  record: also the kernel calls
+    of the two counted steps (rank 0, in this process)."""
+    from egonn_tpu_torch.models.factory import create_egonn_model
+    from egonn_tpu_torch.parallel import mesh
+    from egonn_tpu_torch.parallel.dryrun import rows_of
+    from egonn_tpu_torch.sparse import kernels
+    from egonn_tpu_torch.train.trainer import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = mesh.rank_device("cuda:0", group)
+    built = create_egonn_model(tp.model_params, cap0=CAP0, device=device, seed=SEED + 1)
+    with torch.no_grad():
+        _perturb_bn(built.model, SEED + 1)
+    step = make_train_step(built, tp, group)
+    gd = {k: torch.from_numpy(v).to(device)
+          for k, v in rows_of(g, ("clouds", "point_mask"), group).items()}
+    ld = {k: torch.from_numpy(v).to(device) for k, v in rows_of(l, tuple(l), group).items()}
+    out = {}
+
+    def counted(name, train, gen):
+        kernels.reset_launches()
+        mesh.reset_collectives()
+        box = []
+        run = lambda: box.append(step(gd, ld, gen, lr, train))  # noqa: E731
+        if record:
+            out[f"{name}_calls"] = record_calls(kernels, run)
+        else:
+            run()
+        torch.cuda.synchronize(device)
+        out[f"{name}_launches"] = kernels.launch_counts()
+        out[f"{name}_collectives"] = mesh.collective_counts()
+        out[f"{name}_stats"] = {k: float(v) for k, v in box[0].items()}
+
+    counted("val", False, None)
+    torch.cuda.reset_peak_memory_stats(device)
+    counted("train", True, torch.Generator(device=device).manual_seed(SEED))
+    model, adam = built.model, step.state.optimizer.state
+    out["grads"] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    out["state"] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    out["adam"] = {n: [adam[p][k].detach().cpu() for k in ("exp_avg", "exp_avg_sq")]
+                   for n, p in model.named_parameters()}
+    out["step_ms"] = []
+    for i in range(DP_TIMED_STEPS):
+        gen = torch.Generator(device=device).manual_seed(SEED + 100 + i)
+        t0 = time.perf_counter()
+        step(gd, ld, gen, lr, True)
+        torch.cuda.synchronize(device)
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 2**30
+    return out
+
+
+def _dp_eval_rank(group, eval_file: str) -> dict:
+    """Phase 11 (c) on one rank (group None: unsharded): phase 9's model and
+    Evaluator on its synthetic set, the global evaluation (recalls), then
+    phase 9's embedding batch with its launches counted."""
+    from egonn_tpu_torch.config import ModelParams
+    from egonn_tpu_torch.eval.evaluator import Evaluator
+    from egonn_tpu_torch.models.factory import create_egonn_model
+    from egonn_tpu_torch.sparse import kernels
+
+    device = torch.device("cuda", 0)
+    mp = ModelParams(str(ROOT / "model_configs" / "egonn.txt"))
+    built = create_egonn_model(mp, cap0=CAP0, device=device, seed=SEED + 5)
+    _perturb_bn(built.model, SEED + 5)
+    ev = Evaluator(str(EVAL_DIR), "synthetic", eval_file, built, num_points=N_POINTS,
+                   batch_size=B, group=group)
+    t0 = time.perf_counter()
+    m = ev.evaluate()
+    seconds = time.perf_counter() - t0
+    kernels.reset_launches()
+    emb = ev.compute_embeddings(ev.eval_set.map_set[:B])
+    torch.cuda.synchronize(device)
+    return dict(recall={str(r): v.tolist() for r, v in m["recall"].items()},
+                top1=m["top1_ndx"].tolist(), global_=emb["global"], seconds=seconds,
+                launches=kernels.launch_counts())
+
+
+def _stat_diffs(got: dict, want: dict) -> list:
+    """[(relative difference, stat, got, want)], the largest first."""
+    if set(got) != set(want):
+        raise AssertionError(f"stats {sorted(got)} against {sorted(want)}")
+    return sorted(((abs(got[k] - w) / max(abs(w), 1e-12), k, got[k], w)
+                   for k, w in want.items()), reverse=True)
+
+
+def _stat_rel(got: dict, want: dict) -> float:
+    return _stat_diffs(got, want)[0][0]
+
+
+def _grad_errors(got: dict, want: dict) -> tuple:
+    """(worst max abs err / leaf max, worst l2 err / leaf l2) over the leaves."""
+    mx = max(float((got[n] - w).abs().max() / w.abs().max().clamp_min(1e-30))
+             for n, w in want.items())
+    l2 = max(float((got[n] - w).norm() / w.norm().clamp_min(1e-30)) for n, w in want.items())
+    return mx, l2
+
+
+def _same(a: dict, b: dict) -> bool:
+    """Every tensor (or list of tensors) of a equal to b's, bit for bit."""
+    def eq(x, y):
+        return all(map(eq, x, y)) if isinstance(x, list) else torch.equal(x, y)
+    return a.keys() == b.keys() and all(eq(a[k], b[k]) for k in a)
+
+
+def phase_data_parallel(tp, g, l, lr, kernels, cycles_per_ms, smi, bare_steps_per_s,
+                        eval_file: str, loop_names: list):
+    """Phase 11: data parallel on the card (see the module docstring)."""
+    import numpy as np
+
+    from egonn_tpu_torch.parallel import mesh
+    from egonn_tpu_torch.sparse.pyramid import egonn_pyramid_spec
+    from egonn_tpu_torch.train import trainer
+
+    g_np = {k: v.cpu().numpy() for k, v in g.items()}
+    l_np = {k: v.cpu().numpy() for k, v in l.items()}
+    n_cards = torch.cuda.device_count()
+    log(f"[dp] {DP_WORLD} ranks over NCCL need {DP_WORLD} cards and {n_cards} is visible: "
+        f"the {DP_WORLD} ranks share cuda:0 over gloo (collectives staged through host "
+        f"memory); {DP_WORLD}-card NCCL is not run here (unverified)")
+    torch.cuda.empty_cache()
+
+    # (a) the 1-process step, then DP_WORLD gloo ranks from the same weights
+    t0 = time.perf_counter()
+    ref = _dp_rank(None, tp, g_np, l_np, lr)
+    ranks = mesh.run_ranks(_dp_rank, DP_WORLD, (tp, g_np, l_np, lr), device="cuda:0",
+                           backend="gloo", timeout_s=DP_TIMEOUT_S, rank0_kwargs={"record": True})
+    out = dict(ranks_s=time.perf_counter() - t0, ranks={})
+    for r, res in enumerate(ranks):
+        for what, want in (("train", TRAIN_STEP_LAUNCHES), ("val", VAL_STEP_LAUNCHES)):
+            if res[f"{what}_launches"] != want:
+                raise AssertionError(f"rank {r} {what} step: launches {res[what + '_launches']}")
+        rel = max(_stat_rel(res["train_stats"], ref["train_stats"]),
+                  _stat_rel(res["val_stats"], ref["val_stats"]))
+        g_max, g_l2 = _grad_errors(res["grads"], ref["grads"])
+        equal = r == 0 or all(_same(res[k], ranks[0][k]) for k in ("state", "adam", "grads"))
+        worst = (_stat_diffs(res["train_stats"], ref["train_stats"])[:3]
+                 + _stat_diffs(res["val_stats"], ref["val_stats"])[:2])
+        log(f"[dp] rank {r}: largest stat differences (rel, stat, rank, 1 process) "
+            f"{[(f'{d:.3g}', k, a, b) for d, k, a, b in worst]}")
+        out["ranks"][r] = dict(stats_rel=rel, grad_rel=g_max, grad_l2_rel=g_l2,
+                               bit_equal_to_rank0=equal, step_ms=res["step_ms"],
+                               peak_gb=res["peak_gb"], collectives=res["train_collectives"],
+                               val_collectives=res["val_collectives"])
+        log(f"[dp] rank {r}: launches train {res['train_launches']} val "
+            f"{res['val_launches']}; against the 1-process step: stats rel {rel:.3g}, grads "
+            f"max abs err / leaf max {g_max:.3g}, l2 {g_l2:.3g}; parameters, BatchNorm "
+            f"statistics, Adam state and gradients bit-equal to rank 0's {equal}; step ms "
+            f"{[round(x, 1) for x in res['step_ms']]}, peak memory {res['peak_gb']:.2f} GiB")
+        # stats at JAX's sharded-vs-unsharded bound (tests/test_multichip.py),
+        # gradients at known difference 9's card bounds
+        if not (rel <= 1e-4 and g_max <= 1e-2 and g_l2 <= 2e-3 and equal):
+            raise AssertionError(f"rank {r} disagrees with the 1-process step")
+    coll = ranks[0]["train_collectives"]
+    log(f"[dp] collectives per train step (rank 0): {json.dumps(coll)}; per validation step "
+        f"{json.dumps(ranks[0]['val_collectives'])}")
+    ms0 = statistics.median(ranks[0]["step_ms"])
+    ms1 = statistics.median(ref["step_ms"])
+    out.update(ref_step_ms=ref["step_ms"], ref_peak_gb=ref["peak_gb"],
+               dp_steps_per_s=1e3 / ms0, one_steps_per_s=1e3 / ms1)
+    log(f"[dp] {DP_WORLD}-rank train step {ms0:.1f} ms (median of {DP_TIMED_STEPS}, host "
+        f"clock): {1e3 / ms0:.3f} global steps/s against {1e3 / ms1:.3f} for the 1-process "
+        f"step in this phase ({ref['peak_gb']:.2f} GiB) and phase 5's {bare_steps_per_s:.3f} "
+        f"on {smi}")
+    rows = new_rows(kernels)
+    measure_calls(rows, ranks[0]["train_calls"] + ranks[0]["val_calls"], kernels,
+                  cycles_per_ms, reps=10, tag="dp-kernels",
+                  levels=level_of(egonn_pyramid_spec(CAP0).capacities))
+    for k, row in rows.items():
+        row["launches"] = ranks[0]["train_launches"][k] + ranks[0]["val_launches"][k]
+    del ranks
+    torch.cuda.empty_cache()
+
+    # (b) one NCCL rank: the NCCL collectives on CUDA tensors, bit-equal
+    (nccl,) = mesh.run_ranks(_dp_rank, 1, (tp, g_np, l_np, lr), device="cuda:0",
+                             backend="nccl", timeout_s=DP_TIMEOUT_S)
+    equal = (nccl["train_stats"] == ref["train_stats"] and nccl["val_stats"] == ref["val_stats"]
+             and all(_same(nccl[k], ref[k]) for k in ("state", "adam", "grads")))
+    out["nccl_1_rank"] = dict(bit_equal=equal, collectives=nccl["train_collectives"],
+                              step_ms=nccl["step_ms"])
+    log(f"[dp] a 1-rank NCCL group: stats, gradients, parameters, BatchNorm statistics and "
+        f"Adam state bit-equal to the 1-process step {equal}; collectives "
+        f"{json.dumps(nccl['train_collectives'])}")
+    if not equal:
+        raise AssertionError("the 1-rank NCCL step differs from the 1-process step")
+    del nccl, ref
+    torch.cuda.empty_cache()
+
+    # (c) the sharded evaluation on phase 9's set
+    one = _dp_eval_rank(None, eval_file)
+    shard = mesh.run_ranks(_dp_eval_rank, DP_WORLD, (eval_file,), device="cuda:0",
+                           backend="gloo", timeout_s=DP_TIMEOUT_S)
+    err = max(float(np.abs(r["global_"] - one["global_"]).max()) for r in shard)
+    scale = float(np.abs(one["global_"]).max())
+    same = all(r["recall"] == one["recall"] and r["top1"] == one["top1"] for r in shard)
+    out["eval"] = dict(global_max_abs_err=err, global_max=scale, recall_equal=same,
+                       seconds=[one["seconds"]] + [r["seconds"] for r in shard],
+                       launches=[r["launches"] for r in shard])
+    log(f"[dp] sharded evaluation over {DP_WORLD} ranks: Recall@N and top-1 equal to the "
+        f"unsharded {same}; phase 9's embedding batch `global` max abs err {err:.3g} (max "
+        f"{scale:.3g}); launches per rank {shard[0]['launches']}; evaluation s unsharded "
+        f"{one['seconds']:.2f}, per rank {[round(r['seconds'], 2) for r in shard]}")
+    # embeddings at JAX's own sharded-vs-unsharded bound (rtol 2e-4, atol
+    # 2e-5, tests/test_multichip.py): each rank's batch is half as large
+    if not (same and err <= 2e-5 + 2e-4 * scale
+            and all(r["launches"] == EVAL_BATCH_LAUNCHES for r in shard)):
+        raise AssertionError("the sharded evaluation differs from the unsharded one")
+
+    # (d) do_train on a mesh of DP_WORLD against one process, DP_EPOCHS epochs
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    runs = {}
+    for mesh_opt in ("off", DP_WORLD):
+        p = _loop_params(loop_names, DP_EPOCHS)
+        p.lr, p.mesh, p.test_file = DP_LR, mesh_opt, None
+        t0 = time.perf_counter()
+        if mesh_opt == "off":
+            # the same buckets as the mesh's (multiples of DP_WORLD): the
+            # same padding rows, so that the batches are the same
+            bucket_fn = trainer.expansion_buckets
+            trainer.expansion_buckets = lambda *a, multiple_of=1: bucket_fn(
+                *a, multiple_of=DP_WORLD)
+            try:
+                state, stats, name = trainer.do_train(p, weights_path=str(DP_DIR / "one"),
+                                                      device="cuda")
+            finally:
+                trainer.expansion_buckets = bucket_fn
+        else:
+            state, stats, name = trainer.do_train(p, weights_path=str(DP_DIR / "mesh"),
+                                                  device="cuda", backend="gloo")
+        runs[mesh_opt] = dict(stats=stats, name=name, seconds=time.perf_counter() - t0)
+        del state
+    one, two = runs["off"], runs[DP_WORLD]
+    diffs = sorted(((d, f"epoch {e} {phase} {k}", x, y) for phase in ("train", "val")
+                    for e, (a, b) in enumerate(zip(one["stats"][phase], two["stats"][phase]), 1)
+                    for d, k, x, y in _stat_diffs(b, a)), reverse=True)
+    rel = diffs[0][0]
+    log(f"[dp] do_train, largest epoch stat differences (rel, stat, mesh, 1 process) "
+        f"{[(f'{d:.3g}', k, x, y) for d, k, x, y in diffs[:6]]}")
+    n_epochs = [len(two["stats"][ph]) for ph in ("train", "val")]
+    files = sorted(f.name for f in (DP_DIR / "mesh" / two["name"]).iterdir())
+    want_files = sorted(f"step_{DP_EPOCHS}{ext}" for ext in (".pt", ".meta.json"))
+    records = [r for r in _read_metrics(DP_DIR / "mesh" / f"{two['name']}.metrics.jsonl")
+               if "train" in r]
+    # the first epoch starts from the same weights: every stat within rel
+    # 1e-4; later epochs follow Adam's updates, whose first step moves a
+    # weight with a near-zero gradient by ~lr either way (known difference
+    # 10), so a keypoint may cross the 0.5 m matching threshold: rel 1e-2
+    rel_first = max(d for d, k, _, _ in diffs if k.startswith("epoch 1 "))
+    out["do_train"] = dict(stats_rel=rel, stats_rel_epoch1=rel_first, one_s=one["seconds"],
+                           mesh_s=two["seconds"], files=files, epoch_records=len(records))
+    log(f"[dp] do_train on a mesh of {DP_WORLD} (gloo, one card), {DP_EPOCHS} epochs at lr "
+        f"{DP_LR} on phase 10's set: epoch stats within rel {rel:.3g} of one process's with "
+        f"the same buckets and draws ({rel_first:.3g} in epoch 1); {two['seconds']:.1f} s "
+        f"against {one['seconds']:.1f} s; "
+        f"rank 0's checkpoint files {files}, {len(records)} epoch records in its metrics log")
+    if not (rel_first <= 1e-4 and rel <= 1e-2 and n_epochs == [DP_EPOCHS] * 2
+            and files == want_files and len(records) == DP_EPOCHS):
+        raise AssertionError("do_train on the mesh disagrees with one process")
+    return rows, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2239,15 +2548,20 @@ def main() -> int:
     t0 = time.perf_counter()
     loop_rows, loop = phase_train_loop(kernels, cycles_per_ms, device, smi, tr["steps_per_s"])
     log(f"[loop] phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dp_rows, dp = phase_data_parallel(tp, g, l, lr, kernels, cycles_per_ms, smi,
+                                      tr["steps_per_s"], ev["names"][2], loop["names"])
+    log(f"[dp] phase done in {time.perf_counter() - t0:.1f} s")
     paths = {"forward": rows, "train_step": train_rows, "val_step": val_rows,
              "lookup_maps": maps_rows, **mink_rows, "resnet": resnet_rows, "eval": eval_rows,
-             "train_loop": loop_rows}
+             "train_loop": loop_rows, "dp": dp_rows}
     all_rows = merged_rows(*paths.values())
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, slice=sl, train=tr, lookup_maps=maps, minkloc=mink, resnet=resnet,
-             eval=ev, train_loop=loop, kernels=all_rows, paths=paths, wide=wide,
+             eval=ev, train_loop=loop, data_parallel=dp, kernels=all_rows, paths=paths,
+             wide=wide,
              determinism=[*repeat_fwd, *repeat_train, repeat_val, maps["repeat"],
                           mink["lookup_repeat"], resnet["lookup_repeat"]],
              seconds=time.perf_counter() - t_start), indent=1))

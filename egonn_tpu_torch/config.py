@@ -158,7 +158,7 @@ class TrainingParams:
             raise NotImplementedError(f"Unsupported loss function: {self.loss}")
 
         self.aug_mode = params.getint("aug_mode", 1)
-        # data-parallel mesh option of the JAX trainer, parsed for parity
+        # data-parallel ranks of do_train (parallel/mesh.py::resolve_mesh)
         self.mesh = params.get("mesh", "auto")
 
         self.train_file = params.get("train_file")

@@ -3,8 +3,9 @@ ascii, binary and binary_compressed (LZF) data, and two xyz writers.
 
 binary_compressed data is stored field-major: all x values, then all y
 values, and so on, each field contiguous after decompression.  Its LZF is
-decoded here in pure Python (the JAX package builds a C++ decoder into its
-own tree), with a minimal encoder of literal runs for writing.
+decoded by the port's native decoder (`utils/native.py`, C++ built at first
+use); `lzf_decompress_plain` is the same decoder in pure Python, and
+`lzf_compress` a minimal encoder of literal runs for writing.
 """
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ import re
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from egonn_tpu_torch.utils.native import lzf_decompress
 
 _PCD_TYPE_TO_NUMPY: Dict[Tuple[str, int], np.dtype] = {
     ("F", 4): np.dtype("float32"),
@@ -27,9 +30,10 @@ _PCD_TYPE_TO_NUMPY: Dict[Tuple[str, int], np.dtype] = {
 }
 
 
-def lzf_decompress(data: bytes, expected_size: int) -> bytes:
-    """Decompress `data` into exactly `expected_size` bytes; ValueError on a
-    corrupt stream or a size mismatch."""
+def lzf_decompress_plain(data: bytes, expected_size: int) -> bytes:
+    """Decompress `data` into exactly `expected_size` bytes in pure Python
+    (the native decoder's plain version); ValueError on a corrupt stream or
+    a size mismatch."""
     out = bytearray()
     ip, n = 0, len(data)
     while ip < n:

@@ -33,6 +33,7 @@ from egonn_tpu_torch.data.augmentation import (
     train_transform,
 )
 from egonn_tpu_torch.data.base import TrainingDataset, in_sorted
+from egonn_tpu_torch.parallel.mesh import row_slice, world_size
 from egonn_tpu_torch.sparse.pyramid import PyramidSpec, build_pyramid
 from egonn_tpu_torch.sparse.types import Pyramid
 
@@ -113,15 +114,20 @@ def round_to_bucket(b: int, buckets: Sequence[int]) -> int:
 
 
 def make_global_batch(dataset: TrainingDataset, element_ids: List[int], num_points: int,
-                      buckets: Sequence[int]) -> GlobalBatch:
+                      buckets: Sequence[int], group=None) -> GlobalBatch:
     """The elements' padded clouds and their positive / negative masks (the
     reference's collate_fn, datasets/dataset_utils.py:60-95), in a bucket of
-    rows; elements beyond the largest bucket are dropped."""
+    rows; elements beyond the largest bucket are dropped.  With a
+    data-parallel `group` only the rank's rows of the bucket are read:
+    `clouds` and `point_mask` hold those rows, the masks and `valid_elems`
+    stay whole."""
     b_real = len(element_ids)
     b = round_to_bucket(b_real, buckets)
-    clouds = np.zeros((b, num_points, 3), dtype=np.float32)
-    mask = np.zeros((b, num_points), dtype=bool)
-    for i, ndx in enumerate(element_ids[:b]):
+    rows = row_slice(b, group)
+    n_rows = rows.stop - rows.start
+    clouds = np.zeros((n_rows, num_points, 3), dtype=np.float32)
+    mask = np.zeros((n_rows, num_points), dtype=bool)
+    for i, ndx in enumerate(element_ids[:b][rows]):
         pc, _ = dataset[ndx]
         clouds[i], mask[i] = pad_cloud(np.asarray(pc, dtype=np.float32), num_points)
 
@@ -195,16 +201,25 @@ class Prefetcher:
 
 def device_preprocess_global(clouds: torch.Tensor, point_mask: torch.Tensor, quantizer,
                              spec: PyramidSpec, gen: Optional[torch.Generator] = None,
-                             aug_mode: int = 2, with_kmap_down: bool = False) -> Pyramid:
+                             aug_mode: int = 2, with_kmap_down: bool = False,
+                             group=None) -> Pyramid:
     """(augment ->) quantize -> dedup -> pyramid, on the clouds' device.
 
     clouds (B, N, 3), point_mask (B, N).  With a generator the clouds are
     augmented first: each cloud's TrainTransform, then one TrainSetTransform
-    for the batch.  with_kmap_down builds the maps a training forward needs."""
+    for the batch.  With a data-parallel `group` the clouds are this rank's
+    rows of the global batch: the draws are those of the whole global batch
+    (from the generator every rank shares) and the rank takes its rows, so
+    each cloud is augmented as in a single process.  with_kmap_down builds
+    the maps a training forward needs."""
     if gen is not None:
         b, n, _ = clouds.shape
-        clouds = train_transform(clouds, point_mask,
-                                 draw_train_transform(gen, b, n, aug_mode), aug_mode)
+        b_global = b * world_size(group)
+        draws = draw_train_transform(gen, b_global, n, aug_mode)
+        if b_global != b:
+            rows = row_slice(b_global, group)
+            draws = {k: v[rows] for k, v in draws.items()}
+        clouds = train_transform(clouds, point_mask, draws, aug_mode)
         clouds = train_set_transform(clouds, draw_train_set_transform(gen, aug_mode), aug_mode)
     res = quantizer.quantize(clouds, point_mask, spec.capacities[0], need_index=False)
     return build_pyramid(res.coords_t, res.mask, spec, n_unique0=res.n_unique, keys0=res.keys,

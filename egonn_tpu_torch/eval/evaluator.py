@@ -18,6 +18,11 @@ eligible pair in one batched call (chunked to bound memory), its draws from
 a CPU `torch.Generator` seeded 0, moved to the device.  The model carries
 its weights, so `evaluate` and `compute_embeddings` take none.  `band_ok`
 is always {}: no port kernel keeps band windows.
+
+With a data-parallel `group` (`parallel/mesh.py`) the batch size is rounded
+up to a multiple of the ranks, each rank reads and embeds its rows of every
+batch and the outputs are gathered, so every rank holds every embedding and
+returns the same metrics.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from egonn_tpu_torch.ops.geometry import (
     rotation_error_deg,
 )
 from egonn_tpu_torch.ops.ransac import ransac_6dof
+from egonn_tpu_torch.parallel.mesh import all_gather_rows, row_slice, world_size
 from egonn_tpu_torch.sparse.pyramid import build_pyramid, capacity_report
 from egonn_tpu_torch.utils import tracing
 
@@ -77,12 +83,14 @@ class Evaluator:
     def __init__(self, dataset_root: str, dataset_type: str, eval_set_pickle: str,
                  built: BuiltModel, num_points: int = 65536, batch_size: int = 8,
                  radius=(5, 20), k: int = 50, debug: bool = False,
-                 n_samples: Optional[int] = None):
+                 n_samples: Optional[int] = None, group=None):
         self.dataset_root = dataset_root
         self.dataset_type = dataset_type
         self.built = built
         self.num_points = num_points
-        self.batch_size = batch_size
+        self.group = group
+        world = world_size(group)
+        self.batch_size = -(-batch_size // world) * world
         self.radius = radius
         self.k = k
         self.eval_set = EvaluationSet()
@@ -125,7 +133,7 @@ class Evaluator:
         pyr = build_pyramid(res.coords_t, res.mask, spec, keys0=res.keys,
                             n_unique0=res.n_unique)
         self.band_ok = {}
-        self.capacity_ok = capacity_report(pyr, spec)
+        self.capacity_ok = capacity_report(pyr, spec, self.group)
         bad = {k: v for k, v in self.capacity_ok.items() if not v[2]}
         if bad:
             detail = ", ".join(f"{k}: {n} > {c}" for k, (n, c, _) in sorted(bad.items()))
@@ -165,17 +173,18 @@ class Evaluator:
         self._maybe_calibrate()
         device = self.built.device
         bs = self.batch_size
+        rows = row_slice(bs, self.group)
         outs: Dict[str, List[np.ndarray]] = {}
         for start in range(0, len(eval_subset), bs):
             chunk = eval_subset[start : start + bs]
-            clouds, mask = self.load_clouds(chunk, bs)
+            clouds, mask = self.load_clouds(chunk[rows], rows.stop - rows.start)
             clouds = torch.from_numpy(clouds).to(device)
             mask = torch.from_numpy(mask).to(device)
             if self.capacity_ok is None:
                 self._check_capacity(clouds, mask)
             n = len(chunk)
-            y = {k: v[:n].cpu().numpy()
-                 for k, v in inference.forward(self.built, clouds, mask, with_local).items()}
+            y = inference.forward(self.built, clouds, mask, with_local)
+            y = {k: all_gather_rows(v, self.group)[:n].cpu().numpy() for k, v in y.items()}
             outs.setdefault("global", []).append(y["global"])
             if with_local:
                 random_start = start if self.ignore_keypoint_saliency else None

@@ -4,10 +4,12 @@ repository's `evaluate.py`, with its flags):
     python -m egonn_tpu_torch.evaluate --dataset_root <root> --dataset_type mulran \
         --eval_set test_Sejong01_Sejong02.pickle --model_config model_configs/egonn.txt \
         [--weights <dir or .pth>] [--radius 5 20] [--n_k 128 256] [--icp_refine] \
-        [--device cpu]
+        [--device cpu] [--dp [N]]
 
 Runs on the CUDA card unless `--device cpu` is given; without a card it
-stops.  `--dp` (data parallel) is not ported yet (ROADMAP A.9).
+stops.  `--dp` shards the embedding batches over data-parallel ranks
+(`parallel/mesh.py`): every visible card (NCCL, one rank each), or N
+ranks (`--dp N`; gloo ranks on the CPU); rank 0 prints.
 """
 from __future__ import annotations
 
@@ -33,18 +35,16 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--n_samples", type=int, default=None,
                         help="Number of elements sampled from the query sequence "
                              "(an even stride)")
-    parser.add_argument("--dp", action="store_true",
-                        help="Data-parallel evaluation: not ported yet (ROADMAP A.9)")
+    parser.add_argument("--dp", nargs="?", const="auto", default=None,
+                        help="Shard the embedding batches over data-parallel ranks: every "
+                             "visible card, or N ranks (--dp N)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument("--debug", action="store_true")
 
 
 def resolve_device(args) -> torch.device:
-    """The device asked for; stops on --dp (where the CLI has it) and on cuda
-    without a card."""
-    if getattr(args, "dp", False):
-        raise SystemExit("--dp: data-parallel evaluation is not ported yet (ROADMAP A.9)")
+    """The device asked for; stops on cuda without a card."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA card: pass --device cpu to run on the CPU")
@@ -72,6 +72,26 @@ def load_weights(built, weights, model_name: str) -> None:
         print("WARNING: evaluating a randomly initialized model (no --weights)")
 
 
+def run_sharded(fn, args, device) -> None:
+    """fn(group, args, device) on the ranks --dp asks for (one process
+    without it), each on its device, rank 0 printing."""
+    from egonn_tpu_torch.parallel.mesh import resolve_mesh, run_ranks
+
+    world = resolve_mesh(args.dp, device)
+    if world == 1:
+        fn(None, args, device)
+        return
+    print(f"evaluation sharded over {world} ranks")
+    run_ranks(_on_rank, world, (fn, args, device), device=device)
+
+
+def _on_rank(group, fn, args, device) -> None:
+    from egonn_tpu_torch.parallel.mesh import quiet_unless_rank0, rank_device
+
+    with quiet_unless_rank0(group):
+        fn(group, args, rank_device(device, group))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Evaluate model on a dataset")
     add_common_args(parser)
@@ -90,8 +110,10 @@ def main(argv=None):
     parser.add_argument("--global_only", action="store_true",
                         help="Skip the 6DoF local evaluation")
     args = parser.parse_args(argv)
-    device = resolve_device(args)
+    run_sharded(_evaluate, args, resolve_device(args))
 
+
+def _evaluate(group, args, device) -> None:
     from egonn_tpu_torch.config import ModelParams
     from egonn_tpu_torch.data.pipeline import resolve_num_points
     from egonn_tpu_torch.eval.evaluator import Evaluator, GLEvaluator
@@ -108,7 +130,7 @@ def main(argv=None):
     load_weights(built, args.weights, model_params.model)
 
     common = dict(num_points=model_params.num_points, radius=args.radius,
-                  n_samples=args.n_samples, debug=args.debug)
+                  n_samples=args.n_samples, debug=args.debug, group=group)
     if args.global_only or built.model_type != "egonn":
         ev = Evaluator(args.dataset_root, args.dataset_type, args.eval_set_pickle, built,
                        **common)

@@ -5,7 +5,9 @@ correspondence loss, over padded (B, K, ...) buffers with masks.
 The JAX package writes each loss for one cloud pair and vmaps it; here every
 function takes the batch of pairs as a leading dimension and returns one
 value per pair.  Means are over the valid entries only.  Metrics are
-detached.
+detached.  Under data parallelism each rank holds its rows of the pairs and
+the means over the pairs are global: the sums are summed over the ranks
+and divided by the global count (`parallel/mesh.py`).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from egonn_tpu_torch.losses.triplet import (
     pairwise_l2,
 )
 from egonn_tpu_torch.ops.geometry import apply_transform, true_f32
+from egonn_tpu_torch.parallel.mesh import all_reduce_sum
 
 BIG = 1e9
 _CLOUD_CHUNK = 8192  # points per block of the keypoint-to-cloud distance search
@@ -179,13 +182,16 @@ def correspondence_loss_single(desc1, kp1_mask, desc2, kp2_mask, dist12, beta=1.
 def keypoint_corr_loss(clouds1, clouds1_mask, kp1, sigma1, desc1, kp1_mask,
                        clouds2, clouds2_mask, kp2, sigma2, desc2, kp2_mask,
                        t_gt, gamma_c=1.0, gamma_k=1.0, gamma_chamfer=1.0,
-                       gamma_p2p=1.0, beta=1.0, dist_th=0.5
+                       gamma_p2p=1.0, beta=1.0, dist_th=0.5, group=None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Keypoint + correspondence loss over a batch of pairs.
 
     clouds* (B, N, 3) + (B, N) masks; kp*/sigma*/desc* (B, K, ...) + (B, K)
     masks; t_gt (B, 4, 4) maps cloud 1's frame into cloud 2's.  Returns the
-    mean loss over the pairs and the mean of each metric."""
+    loss to step on and the mean of each metric over the pairs: the sum
+    over these pairs / the count of every rank's pairs (with `group` this
+    rank's share of the global mean, whose sum over the ranks is the mean;
+    the metrics and `loss` are the global means)."""
     kp1_trans = apply_transform(kp1, t_gt)
     dist12 = pairwise_l2(kp1_trans, kp2)
     dist12 = torch.where(kp1_mask[:, :, None] & kp2_mask[:, None, :], dist12, BIG)
@@ -201,7 +207,10 @@ def keypoint_corr_loss(clouds1, clouds1_mask, kp1, sigma1, desc1, kp1_mask,
     metrics.update(km)
     metrics.update(cm)
     metrics["loss"] = loss.detach()
-    return loss.mean(), {k: v.mean() for k, v in metrics.items()}
+    names = list(metrics)
+    sums = torch.stack([metrics[k].sum() for k in names] + [loss.new_full((), loss.shape[0])])
+    sums = all_reduce_sum(sums, group)
+    return loss.sum() / sums[-1], {k: sums[i] / sums[-1] for i, k in enumerate(names)}
 
 
 def make_losses(params):

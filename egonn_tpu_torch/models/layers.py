@@ -99,9 +99,14 @@ def down_conv(conv: SparseConv, bn: SparseBatchNorm, feats: torch.Tensor, level:
     ReLU.  Eval fuses BN + ReLU + mask into the conv: transposed from the
     finer level's up map where it is recorded, else a gather over
     `level.kmap_down`.  Train runs the conv over `level.kmap_down`, then BN
-    and ReLU."""
-    if training:
-        x = conv(feats, level.kmap_down, finer.up_parent, finer.up_koffset)
+    and ReLU; so does eval with the fusion off (`sconv.FUSE_BN_EVAL`), in
+    transposed form where the pyramid has no kmap_down."""
+    if training or not sconv.FUSE_BN_EVAL:
+        if training or level.kmap_down is not None:
+            x = conv(feats, level.kmap_down, finer.up_parent, finer.up_koffset)
+        else:
+            x = sconv.sparse_tdown(feats, finer.up_parent, finer.up_koffset, conv.kernel,
+                                   level.mask.shape[-1])
         return torch.relu(bn(x, level.mask))
     s, shift = bn.affine()
     return conv(feats, level.kmap_down, finer.up_parent, finer.up_koffset,
@@ -179,7 +184,8 @@ class ECALayer(nn.Module):
 class BasicBlock(nn.Module):
     """ME BasicBlock: conv3 -> BN -> ReLU -> conv3 -> BN (+ECA) -> + residual
     (1x1 + BN when the width changes) -> ReLU -> mask.  In eval mode each BN
-    (and the first ReLU) is fused into its conv's epilogue.  kaiming: the
+    (and the first ReLU) is fused into its conv's epilogue, unless
+    `sconv.FUSE_BN_EVAL` is off.  kaiming: the
     EgoNN trunk re-initialises its convs kaiming fan_out; MinkFPN does not."""
 
     def __init__(self, inplanes: int, planes: int, gen: torch.Generator,
@@ -202,7 +208,7 @@ class BasicBlock(nn.Module):
         return out if self.eca is None else self.eca(out, mask)
 
     def forward(self, feats: torch.Tensor, level: Level) -> torch.Tensor:
-        if self.training:
+        if self.training or not sconv.FUSE_BN_EVAL:
             out = torch.relu(self.norm1(self.conv1(feats, level.kmap_self), level.mask))
             out = self.norm2(self.conv2(out, level.kmap_self), level.mask)
         else:

@@ -9,8 +9,11 @@ per cluster, flattened, L2-normalised, projected to `output_dim`, then
 optionally gated (GatingContext: x * sigmoid(BN(x @ W))).
 
 Both BatchNorms are flax `nn.BatchNorm`, not the masked `SparseBatchNorm`:
-they normalise every row, padding included, and are ported for inference
-(running statistics, eps 1e-5).  Parameter names are the flax names.
+they normalise every row, padding included (eps 1e-5).  In train mode they
+take flax's statistics: the mean and the one-pass variance E[x^2] - E[x]^2
+(clipped at 0) over every row, and the running statistics move by flax's
+momentum 0.99 towards them (the biased variance).  Under data parallelism
+the sums are over every rank's rows.  Parameter names are the flax names.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 from torch import nn
 
 from egonn_tpu_torch.models.layers import l2_normalize
+from egonn_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 def _trunc_normal(shape, std: float, gen: torch.Generator) -> nn.Parameter:
@@ -30,23 +34,36 @@ def _trunc_normal(shape, std: float, gen: torch.Generator) -> nn.Parameter:
 
 
 class FlaxBatchNorm(nn.Module):
-    """flax `nn.BatchNorm(use_running_average=True)` over the last axis:
-    y = (x - mean) * (rsqrt(var + eps) * scale) + bias on every row, in
-    flax's order of operations.  Parameters `scale`, `bias`; buffers `mean`,
-    `var`."""
+    """flax `nn.BatchNorm` over the last axis: y = (x - mean) * (rsqrt(var +
+    eps) * scale) + bias on every row, in flax's order of operations; mean
+    and var the running statistics in eval mode, the batch's in train mode.
+    Parameters `scale`, `bias`; buffers `mean`, `var`."""
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.99):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.process_group = None  # data parallel: statistics over every rank's rows
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError("NetVLAD's BatchNorm is ported for inference only")
-        return (x - self.mean) * (torch.rsqrt(self.var + self.eps) * self.scale) + self.bias
+            f = x.shape[-1]
+            rows = x.reshape(-1, f).to(torch.float32)
+            sums = all_reduce_sum(torch.cat([rows.sum(0), (rows * rows).sum(0),
+                                             rows.new_full((1,), rows.shape[0])]),
+                                  self.process_group)
+            mean, mean2 = sums[:f] / sums[-1], sums[f:2 * f] / sums[-1]
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
+            with torch.no_grad():
+                self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
+                self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
+        else:
+            mean, var = self.mean, self.var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
 
 
 class GatingContext(nn.Module):

@@ -17,13 +17,15 @@ import torch
 from torch import nn
 
 from egonn_tpu_torch.models.layers import BasicBlock, SparseConv, SparseConv1x1, down_conv
+from egonn_tpu_torch.sparse import conv as sconv
 from egonn_tpu_torch.sparse.norm import SparseBatchNorm
 from egonn_tpu_torch.sparse.types import Level, Pyramid, masked
 
 
 class Bottleneck(nn.Module):
     """1x1 -> 3^3 -> 1x1 residual block, expansion 4 (ME Bottleneck); the
-    3^3 conv fuses BN + ReLU in eval mode."""
+    3^3 conv fuses BN + ReLU in eval mode (unless `sconv.FUSE_BN_EVAL` is
+    off)."""
 
     expansion = 4
 
@@ -49,7 +51,7 @@ class Bottleneck(nn.Module):
 
     def forward(self, feats: torch.Tensor, level: Level) -> torch.Tensor:
         out = torch.relu(self.norm1(self.conv1(feats), level.mask))
-        if self.training:
+        if self.training or not sconv.FUSE_BN_EVAL:
             out = torch.relu(self.norm2(self.conv2(out, level.kmap_self), level.mask))
         else:
             s, b = self.norm2.affine()

@@ -41,6 +41,11 @@ class PolarQuantizer:
             self._step_tensors[device] = torch.as_tensor(self.quant_step, device=device)
         return self._step_tensors[device]
 
+    def __getstate__(self):
+        """Pickled without the device copies (a data-parallel rank makes its
+        own, on its own device)."""
+        return {**self.__dict__, "_step_tensors": {}}
+
     def to_polar_voxels(self, pc: torch.Tensor) -> torch.Tensor:
         """(..., N, 3) cartesian -> (..., 3, N) int32 polar voxel coordinates."""
         s0, s1, s2 = (float(s) for s in self.quant_step)

@@ -21,11 +21,25 @@ activations, and its backward is a gather program again:
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 
 from egonn_tpu_torch.sparse import kernels
+
+# Eval-mode BN affine + ReLU + row mask fused into the conv kernels' output
+# store (the models pass an `epi` tuple).  EGONN_FUSE_BN=0, or
+# set_fuse_bn(False), runs each conv, then its BN and ReLU as separate ops
+# (the JAX package's toggle): the same function, associated differently,
+# x * s + b against (x - m) * rsqrt(v + eps) * scale + bias.
+FUSE_BN_EVAL = os.environ.get("EGONN_FUSE_BN", "1") == "1"
+
+
+def set_fuse_bn(enabled: bool) -> None:
+    """Fuse the eval-mode BN / ReLU epilogue into the convs (default) or not."""
+    global FUSE_BN_EVAL
+    FUSE_BN_EVAL = enabled
 
 
 def _transposed(kernel: torch.Tensor) -> torch.Tensor:

@@ -9,11 +9,19 @@ the valid voxels of the whole batch (the biased variance), and the running
 statistics move by momentum 0.1 towards the batch mean and the unbiased
 variance var * cnt / max(cnt - 1, 1), in place.  `nn.BatchNorm1d` over the
 padded buffers would count the padding.
+
+Under data parallelism (`process_group` set, `parallel/mesh.py`) the batch is
+the global batch: the two passes' sums are summed over the ranks, first
+[sum x*m, sum m] for the mean, then sum (x - mean)^2 * m for the variance (the
+two-pass form of the single process), so every rank's running statistics
+come out equal.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from egonn_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 class SparseBatchNorm(nn.Module):
@@ -30,6 +38,7 @@ class SparseBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.process_group = None  # data parallel: statistics over every rank's rows
 
     def affine(self) -> tuple:
         """Eval-mode BN as y = x * s + b, s = scale * rsqrt(var + eps),
@@ -39,11 +48,16 @@ class SparseBatchNorm(nn.Module):
 
     def forward(self, feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
+            group = self.process_group
             m = mask[..., None].to(torch.float32)
-            cnt = torch.clamp_min(m.sum(), 1.0)
             x = feats.to(torch.float32) * m
-            mean = x.sum((0, 1)) / cnt
-            var = ((x - mean) ** 2 * m).sum((0, 1)) / cnt  # biased
+            total, cnt = x.sum((0, 1)), m.sum()
+            if group is not None:  # one all-reduce for both sums
+                sums = all_reduce_sum(torch.cat([total, cnt.reshape(1)]), group)
+                total, cnt = sums[:-1], sums[-1]
+            cnt = torch.clamp_min(cnt, 1.0)
+            mean = total / cnt
+            var = all_reduce_sum(((x - mean) ** 2 * m).sum((0, 1)), group) / cnt  # biased
             with torch.no_grad():
                 unbiased = var * cnt / torch.clamp_min(cnt - 1.0, 1.0)
                 self.mean.copy_((1 - self.momentum) * self.mean + self.momentum * mean)

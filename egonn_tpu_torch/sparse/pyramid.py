@@ -38,6 +38,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from egonn_tpu_torch.parallel.mesh import all_reduce_max
 from egonn_tpu_torch.sparse import kernels
 from egonn_tpu_torch.sparse.packing import (
     DEFAULT_PACK,
@@ -243,13 +244,16 @@ def build_pyramid(coords0_t: torch.Tensor, mask0: torch.Tensor, spec: PyramidSpe
     return Pyramid(levels=tuple(levels))
 
 
-def capacity_report(pyramid: Pyramid, spec: PyramidSpec) -> dict:
+def capacity_report(pyramid: Pyramid, spec: PyramidSpec, group=None) -> dict:
     """Per-level true unique-voxel count (max over the batch) against capacity:
     {"cap_L{l}": (n_unique_max, capacity, ok)}.  n_unique counts keys beyond
-    capacity too, so n_unique > capacity means the level dropped voxels."""
+    capacity too, so n_unique > capacity means the level dropped voxels.
+    With a data-parallel group the max is over every rank's clouds."""
+    levels = range(spec.num_levels + 1)
+    n_max = all_reduce_max(torch.stack([pyramid[l].n_unique.max().long() for l in levels]),
+                           group)
     out = {}
-    for l in range(spec.num_levels + 1):
-        n = int(pyramid[l].n_unique.max())
+    for l, n in zip(levels, n_max.tolist()):
         out[f"cap_L{l}"] = (n, spec.capacities[l], n <= spec.capacities[l])
     return out
 

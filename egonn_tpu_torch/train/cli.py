@@ -6,7 +6,9 @@ with its flags):
         [--resume DIR] [--debug] [--device cpu]
 
 Trains on the CUDA card unless `--device cpu` is given; without a card it
-stops.  `--debug` runs 2 steps per phase with autograd's anomaly detection
+stops.  The config's `[TRAIN] mesh` (N, or auto: every visible card) trains
+on N data-parallel ranks (`train/trainer.py::do_train`): NCCL ranks on
+the cards, gloo ranks with `--device cpu`.  `--debug` runs 2 steps per phase with autograd's anomaly detection
 on (the counterpart of `jax_debug_nans`).
 """
 from __future__ import annotations

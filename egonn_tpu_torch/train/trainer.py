@@ -27,10 +27,20 @@ shuffle as in the JAX package, and the global batch's augmentation from a
 (JAX's `fold_in` chain cannot be reproduced in torch).  So a run resumed at
 an epoch boundary repeats the uninterrupted one.
 
-Not ported: the data-parallel mesh (`params.mesh` "auto" or 1 is one
-device; more raises, ROADMAP A.9), and the band auto-calibration, which the
-JAX loop runs only for its banded engine: no port kernel keeps band
-windows, so there is nothing to calibrate.
+Data parallel (`params.mesh`, `parallel/mesh.py`): with a mesh of N > 1
+`do_train` runs the calling process as rank 0 and spawns N - 1 ranks (NCCL,
+one card each; gloo on the CPU, or on one card when `backend="gloo"` is
+named).  Each rank reads and steps on its rows of every global and local
+batch (buckets and the local batch size rounded up to multiples of N); the
+miner sees the gathered embeddings, BatchNorm the global batch's
+statistics, the local loss the global mean, and one all-reduce sums the
+gradients, so a step computes the single-process step's function and every
+rank keeps the same parameters.  Rank 0 alone prints, logs and writes
+checkpoints; every rank reads a resumed checkpoint.
+
+Not ported: the band auto-calibration, which the JAX loop runs only for its
+banded engine: no port kernel keeps band windows, so there is nothing to
+calibrate.
 """
 from __future__ import annotations
 
@@ -55,6 +65,19 @@ from egonn_tpu_torch.data.pipeline import (
 from egonn_tpu_torch.data.samplers import BatchSampler
 from egonn_tpu_torch.losses.keypoint import make_losses
 from egonn_tpu_torch.models.factory import BuiltModel, model_factory
+from egonn_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    all_reduce_grads,
+    broadcast_module,
+    quiet_unless_rank0,
+    rank_device,
+    rank_of,
+    resolve_mesh,
+    row_slice,
+    run_ranks,
+    set_process_group,
+    world_size,
+)
 from egonn_tpu_torch.sparse.pyramid import capacity_report
 from egonn_tpu_torch.train.state import (
     TrainState,
@@ -97,12 +120,20 @@ class TrainStep:
     rate.  Returns the JAX step's stats as detached 0-d tensors: the global
     and local losses' stats, `global_loss`, `local_loss` and `loss` (their
     sum, what the update steps on).  `state` holds the model, the optimizer
-    and the epoch (for checkpoints)."""
+    and the epoch (for checkpoints).
 
-    def __init__(self, built: BuiltModel, params):
+    With a data-parallel `group` the clouds, point masks, pairs and t_gt are
+    this rank's rows (the (B, B) masks whole) and gen is the generator every
+    rank shares; the stats are the global batch's, equal on every rank.
+    The model takes rank 0's weights at construction."""
+
+    def __init__(self, built: BuiltModel, params, group=None):
         self.built = built
         self.aug_mode = params.aug_mode
+        self.group = group
         self.gl_loss_fn, self.loc_loss_fn = make_losses(params)
+        set_process_group(built.model, group)
+        broadcast_module(built.model, group)
         self.state = TrainState(built.model, make_optimizer(built.model.parameters(), params))
 
     def _forward(self, clouds, mask, gen, train: bool):
@@ -111,27 +142,31 @@ class TrainStep:
             if t.device != b.device:
                 raise ValueError(f"{name} on {t.device}, the model on {b.device}")
         pyr = device_preprocess_global(clouds, mask, b.quantizer, b.pyramid_spec, gen=gen,
-                                       aug_mode=self.aug_mode, with_kmap_down=train)
+                                       aug_mode=self.aug_mode, with_kmap_down=train,
+                                       group=self.group)
         return b.model(pyr, b.quantizer)
 
     def _losses(self, g: Dict, l: Dict, gen, train: bool):
+        """(this rank's share of the loss, the global stats)."""
         yg = self._forward(g["clouds"], g["point_mask"], gen, train)
-        gl_loss, gl_stats = self.gl_loss_fn(yg["global"], g["positives_mask"],
-                                            g["negatives_mask"])
+        # every rank mines the whole batch: its share is 1 / world of the loss
+        gl_loss, gl_stats = self.gl_loss_fn(all_gather_rows(yg["global"], self.group),
+                                            g["positives_mask"], g["negatives_mask"])
         y1 = self._forward(l["anc_clouds"], l["anc_mask"], None, train)
         y2 = self._forward(l["pos_clouds"], l["pos_mask"], None, train)
-        loc_loss, loc_stats = self.loc_loss_fn(
+        loc_share, loc_stats = self.loc_loss_fn(
             l["anc_clouds"], l["anc_mask"],
             y1["keypoints"], y1["sigma"], y1["descriptors"], y1["kp_mask"],
             l["pos_clouds"], l["pos_mask"],
             y2["keypoints"], y2["sigma"], y2["descriptors"], y2["kp_mask"],
-            l["t_gt"])
-        total = gl_loss + loc_loss
+            l["t_gt"], group=self.group)
+        share = gl_loss / world_size(self.group) + loc_share
         stats = {k: v for k, v in gl_stats.items() if k != "loss"}
         stats.update({k: v for k, v in loc_stats.items() if k != "loss"})
-        stats.update(global_loss=gl_loss.detach(), local_loss=loc_loss.detach(),
-                     loss=total.detach())
-        return total, stats
+        local_loss = loc_stats["loss"]
+        stats.update(global_loss=gl_loss.detach(), local_loss=local_loss,
+                     loss=gl_loss.detach() + local_loss)
+        return share, stats
 
     def __call__(self, g: Dict, l: Dict, gen: Optional[torch.Generator], lr: float,
                  train: bool) -> Dict[str, torch.Tensor]:
@@ -142,8 +177,9 @@ class TrainStep:
                 model.train()
                 set_lr(optimizer, lr)
                 optimizer.zero_grad(set_to_none=True)
-                total, stats = self._losses(g, l, gen, train=True)
-                total.backward()
+                share, stats = self._losses(g, l, gen, train=True)
+                share.backward()
+                all_reduce_grads(model.parameters(), self.group)
                 optimizer.step()
             else:
                 # the reference's validation sets have no transform
@@ -155,9 +191,10 @@ class TrainStep:
         return stats
 
 
-def make_train_step(built: BuiltModel, params) -> TrainStep:
-    """The combined (global + local) train / validation step."""
-    return TrainStep(built, params)
+def make_train_step(built: BuiltModel, params, group=None) -> TrainStep:
+    """The combined (global + local) train / validation step (on this
+    rank's rows, given a data-parallel group)."""
+    return TrainStep(built, params, group)
 
 
 def print_stats(stats: Dict[str, float], phase: str) -> None:
@@ -182,15 +219,6 @@ def print_stats(stats: Dict[str, float], phase: str) -> None:
               f"match. descriptors: {stats['matching_descriptors']:0.3f}")
 
 
-def check_mesh(mesh_opt) -> None:
-    """The [TRAIN] mesh option: "auto", "off", 0 or 1 train on one device;
-    a larger mesh is refused (data parallel is not ported yet)."""
-    if mesh_opt in (None, "off", "auto", "0", "1", 0, 1):
-        return
-    raise NotImplementedError(f"mesh {mesh_opt!r}: data-parallel training is not ported yet "
-                              "(ROADMAP A.9); set mesh = auto or 1 to train on one device")
-
-
 def step_generator(device: torch.device, *words: int) -> torch.Generator:
     """A generator on `device` seeded from the words (epoch, phase, step, ...)."""
     seed = int(np.random.SeedSequence(list(words)).generate_state(1, np.uint64)[0])
@@ -206,17 +234,19 @@ def _to_device(arrays: Dict[str, np.ndarray], device: torch.device) -> Dict[str,
             for k, v in arrays.items()}
 
 
-def capacity_audit(built: BuiltModel, g: GlobalBatch, aug_mode: int, epoch: int) -> dict:
+def capacity_audit(built: BuiltModel, g: GlobalBatch, aug_mode: int, epoch: int,
+                   group=None) -> dict:
     """The voxel-capacity report of one global batch's pyramid, augmented as
     in training (from a generator seeded (1, epoch)), with a warning where a
-    level dropped voxels."""
+    level dropped voxels.  With a data-parallel group, g holds the rank's
+    rows and the report is the global batch's (the same on every rank)."""
     device = built.device
     clouds = _to_device({"c": g.clouds, "m": g.point_mask}, device)
     with torch.no_grad():
         pyr = device_preprocess_global(clouds["c"], clouds["m"], built.quantizer,
                                        built.pyramid_spec, gen=step_generator(device, 1, epoch),
-                                       aug_mode=aug_mode)
-        caps = capacity_report(pyr, built.pyramid_spec)
+                                       aug_mode=aug_mode, group=group)
+        caps = capacity_report(pyr, built.pyramid_spec, group)
     bad = {k: (n, c) for k, (n, c, ok) in caps.items() if not ok}
     if bad:
         detail = ", ".join(f"{k}: {n} > {c}" for k, (n, c) in sorted(bad.items()))
@@ -228,7 +258,7 @@ def capacity_audit(built: BuiltModel, g: GlobalBatch, aug_mode: int, epoch: int)
 
 def do_train(params, debug: bool = False, weights_path: str = "weights", log_fn=None,
              dataset_type: Optional[str] = None, resume_from: Optional[str] = None,
-             device="cuda"):
+             device="cuda", backend: Optional[str] = None):
     """Train `params` (a `config.TrainingParams`) on `device` for
     params.epochs epochs; returns (TrainState, {"train": [...], "val": [...]}
     per-epoch stats, model name).
@@ -243,11 +273,14 @@ def do_train(params, debug: bool = False, weights_path: str = "weights", log_fn=
     evaluation.  resume_from: a checkpoint directory of an earlier run;
     training restores the model, the optimizer, the epoch and the
     sampler's batch size from its latest step and continues into that
-    directory.  debug: 2 steps per phase."""
+    directory.  debug: 2 steps per phase.
+
+    params.mesh (`parallel/mesh.py::resolve_mesh`): N > 1 trains on N ranks,
+    this process rank 0 (whose state and stats are returned); `backend`
+    overrides the device's default (NCCL on CUDA, gloo on the CPU)."""
     device = torch.device(device)
-    check_mesh(getattr(params, "mesh", "auto"))
+    world = resolve_mesh(getattr(params, "mesh", "auto"), device)
     dataset_type = dataset_type or params.dataset
-    built = model_factory(params.model_params, device=device)
     if resume_from is not None:
         resume_from = resume_from.rstrip("/")
         model_name = os.path.basename(resume_from)
@@ -255,27 +288,56 @@ def do_train(params, debug: bool = False, weights_path: str = "weights", log_fn=
     else:
         model_name = f"model_{params.model_params.model}_{get_datetime()}"
     os.makedirs(weights_path, exist_ok=True)
-    ckpt_dir = os.path.join(weights_path, model_name)
     print(f"Model name: {model_name}")
-    logger = None
-    if log_fn is None:
-        from egonn_tpu_torch.utils.logging import MetricsLogger
+    args = (params, debug, weights_path, dataset_type, resume_from, device, model_name)
+    if world == 1:
+        return _train_rank(None, *args, log_fn=log_fn)
+    if device.type == "cuda":
+        from egonn_tpu_torch.sparse import cuda_lib
 
-        logger = MetricsLogger(weights_path, model_name,
-                               config={k: v for k, v in vars(params).items()
-                                       if k != "model_params"})
-        log_fn = logger.log
-    try:
-        return _train_epochs(params, built, debug, log_fn, dataset_type, resume_from,
-                             ckpt_dir, model_name)
-    finally:
-        if logger is not None:
-            logger.close()
+        cuda_lib.build_all()  # once, before the ranks load the libraries
+    print(f"Data-parallel mesh over {world} ranks; batch buckets rounded to multiples "
+          f"of {world}")
+    return run_ranks(_train_rank, world, args, device=device, backend=backend,
+                     rank0_kwargs={"log_fn": log_fn})[0]
+
+
+def _train_rank(group, params, debug: bool, weights_path: str, dataset_type: str,
+                resume_from: Optional[str], device, model_name: str, log_fn=None):
+    """One rank of `do_train` (group None: the single process).  Rank 0
+    returns do_train's result and alone prints, logs and checkpoints; the
+    other ranks return None."""
+    main_rank = rank_of(group) == 0
+    device = rank_device(device, group)
+    logger = None
+    with quiet_unless_rank0(group):
+        built = model_factory(params.model_params, device=device)
+        if not main_rank:
+            log_fn = _no_log
+        elif log_fn is None:
+            from egonn_tpu_torch.utils.logging import MetricsLogger
+
+            logger = MetricsLogger(weights_path, model_name,
+                                   config={k: v for k, v in vars(params).items()
+                                           if k != "model_params"})
+            log_fn = logger.log
+        try:
+            out = _train_epochs(params, built, debug, log_fn, dataset_type, resume_from,
+                                os.path.join(weights_path, model_name), model_name, group)
+        finally:
+            if logger is not None:
+                logger.close()
+    return out if main_rank else None
+
+
+def _no_log(record: dict) -> None:
+    """The metrics log of ranks other than 0."""
 
 
 def _train_epochs(params, built: BuiltModel, debug: bool, log_fn, dataset_type: str,
-                  resume_from: Optional[str], ckpt_dir: str, model_name: str):
+                  resume_from: Optional[str], ckpt_dir: str, model_name: str, group=None):
     device = built.device
+    world, main_rank = world_size(group), rank_of(group) == 0
     num_points = resolve_num_points(params.model_params, dataset_type)
     quantizer = built.quantizer
     train_ds = TrainingDataset(params.dataset_folder, dataset_type, params.train_file)
@@ -294,9 +356,14 @@ def _train_epochs(params, built: BuiltModel, debug: bool, log_fn, dataset_type: 
     val_sampler = (BatchSampler(val_ds, batch_size=params.batch_size_limit, seed=0)
                    if val_ds else None)
     buckets = expansion_buckets(params.batch_size, params.batch_size_limit,
-                                params.batch_expansion_rate)
+                                params.batch_expansion_rate, multiple_of=world)
+    # local batches hold real pairs only, split evenly over the ranks
+    lbs = -(-params.local_batch_size // world) * world
+    if lbs != params.local_batch_size:
+        print(f"local_batch_size {params.local_batch_size} -> {lbs} "
+              f"(multiple of {world} mesh devices)")
     lr_sched = make_lr_schedule(params)
-    step = make_train_step(built, params)
+    step = make_train_step(built, params, group)
     state = step.state
     start_epoch = 1
     if resume_from is not None:
@@ -331,14 +398,14 @@ def _train_epochs(params, built: BuiltModel, debug: bool, log_fn, dataset_type: 
                                 else (val_ds, local_val_ds, val_sampler))
                 local_ids = list(lds.valid_ids)
                 np.random.default_rng([0, epoch, phase_idx]).shuffle(local_ids)
-                lbs = params.local_batch_size
-                local_batches = [local_ids[i : i + lbs]
+                rows = row_slice(lbs, group)
+                local_batches = [local_ids[i : i + lbs][rows]
                                  for i in range(0, len(local_ids) - lbs + 1, lbs)]
 
                 def batches(ds=ds, lds=lds, smp=smp, local_batches=local_batches):
                     for gids, lids in zip(smp, local_batches):
                         with tracing.annotate("batch_prep"):
-                            yield (make_global_batch(ds, gids, num_points, buckets),
+                            yield (make_global_batch(ds, gids, num_points, buckets, group),
                                    make_local_batch(lds, lids, num_points))
 
                 keys, running, copy_s = None, [], 0.0
@@ -382,11 +449,11 @@ def _train_epochs(params, built: BuiltModel, debug: bool, log_fn, dataset_type: 
         state.epoch += 1
 
         if last_global is not None:
-            capacity_audit(built, last_global, params.aug_mode, epoch)
+            capacity_audit(built, last_global, params.aug_mode, epoch, group)
 
         if params.test_file and epoch % EVAL_EVERY == 0:
             test_evaluator = _evaluate(params, built, dataset_type, num_points, test_evaluator,
-                                       epoch, log_fn)
+                                       epoch, log_fn, group)
 
         if all_stats["train"]:
             log_fn(record)
@@ -399,21 +466,23 @@ def _train_epochs(params, built: BuiltModel, debug: bool, log_fn, dataset_type: 
                 if es["num_non_zero_triplets"] / es["num_triplets"] < params.batch_expansion_th:
                     sampler.expand_batch()
 
-        if epoch % params.save_freq == 0:
+        if epoch % params.save_freq == 0 and main_rank:
             save_checkpoint(ckpt_dir, state, epoch,
                             extra_meta={"sampler_batch_size": sampler.batch_size})
         print(f"epoch {epoch} took {time.perf_counter() - t_epoch:.1f}s (lr {lr:.2e})")
 
-    save_checkpoint(ckpt_dir, state, params.epochs,
-                    extra_meta={"sampler_batch_size": sampler.batch_size})
+    if main_rank:
+        save_checkpoint(ckpt_dir, state, params.epochs,
+                        extra_meta={"sampler_batch_size": sampler.batch_size})
     return state, all_stats, model_name
 
 
 def _evaluate(params, built: BuiltModel, dataset_type: str, num_points: int, evaluator,
-              epoch: int, log_fn):
+              epoch: int, log_fn, group=None):
     """The in-training evaluation on params.test_file, in eval mode (the
-    model's mode restored after); returns the evaluator for the next one.
-    A failure is printed, not raised: it must not end the training."""
+    model's mode restored after), sharded over a data-parallel group's
+    ranks; returns the evaluator for the next one.  A failure is printed,
+    not raised: it must not end the training."""
     from egonn_tpu_torch.eval.evaluator import GLEvaluator
 
     model = built.model
@@ -422,7 +491,7 @@ def _evaluate(params, built: BuiltModel, dataset_type: str, num_points: int, eva
         if evaluator is None:
             evaluator = GLEvaluator(params.dataset_folder, dataset_type, params.test_file,
                                     built, num_points=num_points, k=20, n_samples=100,
-                                    n_k=(128,))
+                                    n_k=(128,), group=group)
         model.eval()
         t0 = time.perf_counter()
         gm, lm = evaluator.evaluate()

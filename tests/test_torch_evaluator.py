@@ -339,10 +339,11 @@ def test_auto_capacity_calibration(setup, monkeypatch):
     np.testing.assert_allclose(e_fit["global"], e_plain["global"], rtol=1e-5, atol=1e-6)
 
 
-def test_evaluate_cli(setup, tmp_path, capsys):
+def test_evaluate_cli(setup, tmp_path, capsys, monkeypatch):
     """`python -m egonn_tpu_torch.evaluate --device cpu` prints the recall and
-    6DoF lines; --dp and a card that is not there stop it; the rotations
-    CLI reads a port checkpoint."""
+    6DoF lines; a card that is not there stops it; with --dp 2 (two gloo
+    ranks) it prints the unsharded recall lines once; the rotations CLI
+    reads a port checkpoint."""
     config = tmp_path / "egonn_small.txt"
     config.write_text(SMALL_CONFIG)
     args = ["--dataset_root", setup["root"], "--dataset_type", "synthetic", "--eval_set",
@@ -354,8 +355,6 @@ def test_evaluate_cli(setup, tmp_path, capsys):
     assert "Radius: 5 [m] : Recall@N:" in out and "Radius: 20 [m] : Recall@N:" in out
     assert "Ignore keypoints regressor: True" in out
     assert "WARNING: evaluating a randomly initialized model" in out
-    with pytest.raises(SystemExit, match="A.9"):
-        t_evaluate_cli.main(args + ["--dp", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="--device cpu"):
             t_evaluate_cli.main(args)
@@ -369,6 +368,20 @@ def test_evaluate_cli(setup, tmp_path, capsys):
     t_evaluate_cli.main(args + ["--device", "cpu", "--weights", ckpt, "--global_only"])
     out = capsys.readouterr().out
     assert "Loaded checkpoint step 3" in out and "Recall@1:" in out
+    recall = [ln for ln in out.splitlines() if "Recall@1:" in ln]
+    from egonn_tpu_torch.parallel import mesh
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))  # the spawned rank takes this count
+    monkeypatch.setattr(mesh, "DEFAULT_TIMEOUT_S", 120.0)  # a hung rank fails
+    try:
+        t_evaluate_cli.main(args + ["--device", "cpu", "--weights", ckpt, "--global_only",
+                                    "--dp", "2"])
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert "evaluation sharded over 2 ranks" in out
+    assert [ln for ln in out.splitlines() if "Recall@1:" in ln] == recall
     t_rotations_cli.main(args + ["--device", "cpu", "--weights", ckpt, "--step_deg", "90",
                                  "--out", str(tmp_path / "rot.pickle")])
     out = capsys.readouterr().out

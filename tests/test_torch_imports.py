@@ -48,7 +48,12 @@ def test_import_pulls_in_no_jax():
             "egonn_tpu_torch.sparse.calibrate, egonn_tpu_torch.utils.tracing, "
             "egonn_tpu_torch.data.samplers, egonn_tpu_torch.data.local_dataset, "
             "egonn_tpu_torch.utils.logging, egonn_tpu_torch.train.cli, "
-            "egonn_tpu_torch.train.__main__, egonn_tpu_torch.ops.quantization; "
+            "egonn_tpu_torch.train.__main__, egonn_tpu_torch.ops.quantization, "
+            "egonn_tpu_torch.parallel.mesh, egonn_tpu_torch.parallel.dryrun, "
+            "egonn_tpu_torch.data.generate_mulran, egonn_tpu_torch.data.generate_kitti, "
+            "egonn_tpu_torch.data.generate_southbay, egonn_tpu_torch.eval.scan_context, "
+            "egonn_tpu_torch.evaluate_scan_context, egonn_tpu_torch.utils.visualize, "
+            "egonn_tpu_torch.utils.native; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -234,3 +234,59 @@ def test_resnet_one_channel_matches_jax(block):
     F_in = 1, which the card's gather conv takes only through its width
     plan (zero-padded to 4)."""
     _resnet_case(block, 1, 5)
+
+
+def test_netvlad_train_batch_norm_matches_flax(rng):
+    """NetVLADLoupe with context gating in train mode against JAX's on the
+    same weights and padded features (every row, padding included, in the
+    statistics, as flax's BatchNorm): the output within rel 1e-5, both
+    BatchNorms' updated running statistics (flax's momentum 0.99, biased
+    variance) within rel 1e-5, and every parameter's gradient of the summed
+    output within 1e-4 of its leaf's max."""
+    from egonn_tpu.models.netvlad import NetVLADLoupe as JNetVLAD
+    from egonn_tpu_torch.models.netvlad import NetVLADLoupe
+
+    b, c, f, k, out = 3, 40, 16, 8, 12
+    feats = rng.normal(0, 1, (b, c, f)).astype(np.float32)
+    mask = np.ones((b, c), bool)
+    mask[1, 25:] = False
+    feats[~mask] = 0.0
+    model = NetVLADLoupe(f, k, out, torch.Generator().manual_seed(0), gating=True)
+    with torch.no_grad():  # running statistics away from their initial values
+        for bn in (model.cluster_bn, model.context_gating.bn):
+            bn.mean.copy_(torch.from_numpy(rng.normal(0, 0.2, bn.mean.shape).astype(np.float32)))
+            bn.var.copy_(torch.from_numpy(rng.uniform(0.5, 2, bn.var.shape).astype(np.float32)))
+    tree = {"params": {}, "batch_stats": {}}
+    for key, t in model.state_dict().items():
+        parts = key.split(".")
+        node = tree["batch_stats" if parts[-1] in ("mean", "var") else "params"]
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = jnp.asarray(t.numpy())
+
+    jmodel = JNetVLAD(f, k, out, gating=True)
+
+    def loss(params, x):
+        y, mut = jmodel.apply({"params": params, "batch_stats": tree["batch_stats"]}, x,
+                              jnp.asarray(mask), train=True, mutable=["batch_stats"])
+        return y.sum(), (y, mut["batch_stats"])
+
+    (_, (y_j, bs_j)), g_j = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        tree["params"], jnp.asarray(feats))
+    model.train()
+    y_t = model(torch.from_numpy(feats), torch.from_numpy(mask))
+    y_t.sum().backward()
+    assert _rel(y_t.detach().numpy(), np.asarray(y_j)) <= 1e-5
+    for name in ("cluster_bn", "context_gating.bn"):
+        node = bs_j
+        for p in name.split("."):
+            node = node[p]
+        bn = model.get_submodule(name)
+        for stat in ("mean", "var"):
+            assert _rel(getattr(bn, stat).numpy(), np.asarray(node[stat])) <= 1e-5, (name, stat)
+    for key, p in model.named_parameters():
+        node = g_j
+        for part in key.split("."):
+            node = node[part]
+        want = np.asarray(node)
+        assert np.abs(p.grad.numpy() - want).max() <= 1e-4 * np.abs(want).max(), key

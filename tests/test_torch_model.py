@@ -210,3 +210,44 @@ def test_head_options_match_jax(both, head_options):
     with torch.no_grad():
         assert model(pyr, quantizer, disable_global_head=True, disable_local_head=True) == {}
     assert y_none == {}
+
+
+def test_unfused_eval_path(both, monkeypatch):
+    """With the eval BN / ReLU fusion off (EGONN_FUSE_BN=0 on both sides),
+    every conv followed by its BN and ReLU as separate ops: the port's
+    outputs within rel 1e-5 of its fused ones (max abs error over max |x|;
+    the same function, associated differently), and against JAX's unfused
+    forward at test_global_descriptor's and test_local_head's tolerances
+    (tests/test_model.py::test_fused_bn_eval_matches_unfused's fixture)."""
+    import egonn_tpu.sparse.conv as j_sconv
+    from egonn_tpu_torch.sparse import conv as t_sconv
+
+    y_j_fused, y_t_fused, variables, built_t = both
+    built_j = j_create(_MP(JPolar(STEPS)), cap0=512)
+    spec, q = built_j.pyramid_spec, built_j.quantizer
+    rng = np.random.default_rng(0)
+    clouds = np.stack([_synth_cloud(rng) for _ in range(2)])
+    mask = np.ones(clouds.shape[:2], bool)
+    monkeypatch.setattr(j_sconv, "FUSE_BN_EVAL", False)
+    monkeypatch.setattr(t_sconv, "FUSE_BN_EVAL", False)
+
+    def fwd(v, c, m):
+        res = jax.vmap(lambda pc, mm: q.quantize(pc, mm, spec.capacities[0],
+                                                 need_index=False))(c, m)
+        pyr = j_build_pyramid(res.coords_t, res.mask, spec, keys0=res.keys)
+        return built_j.model.apply(v, pyr, q, train=False)
+
+    y_j = {k: np.asarray(v) for k, v in
+           jax.jit(fwd)(variables, jnp.asarray(clouds), jnp.asarray(mask)).items()}
+    y_t = {k: v.numpy() for k, v in
+           inference.forward(built_t, torch.from_numpy(clouds), torch.from_numpy(mask)).items()}
+    assert set(y_t) == set(y_t_fused)
+    np.testing.assert_array_equal(y_t["kp_mask"], y_t_fused["kp_mask"])
+    for k in ("global", "descriptors", "keypoints", "sigma"):
+        rel = np.abs(y_t[k] - y_t_fused[k]).max() / np.abs(y_t_fused[k]).max()
+        assert rel <= 1e-5, (k, rel)
+    assert np.abs(y_t["global"] - y_j["global"]).max() <= 1e-4 * np.abs(y_j["global"]).max()
+    np.testing.assert_array_equal(y_t["kp_mask"], y_j["kp_mask"])
+    np.testing.assert_allclose(y_t["descriptors"], y_j["descriptors"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(y_t["keypoints"], y_j["keypoints"], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(y_t["sigma"], y_j["sigma"], rtol=1e-4, atol=0)

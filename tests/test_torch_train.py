@@ -237,15 +237,50 @@ def step_pair():
                 state=built_t.model.state_dict())
 
 
-def test_step_loss_and_stats(step_pair):
-    """Every stat within rel 1e-5 (atol 1e-6): f32 forwards whose
-    summation orders differ."""
-    s_t, s_j = step_pair["stats_t"], step_pair["stats_j"]
+def _check_stats(s_t, s_j):
     assert set(s_t) == set(s_j)
     for k in s_j:
         np.testing.assert_allclose(float(s_t[k]), float(s_j[k]), rtol=1e-5, atol=1e-6, err_msg=k)
     assert float(s_t["loss"]) == pytest.approx(float(s_t["global_loss"] + s_t["local_loss"]))
     assert float(s_t["num_triplets"]) == B_GLOBAL and float(s_t["matching_keypoints"]) > 0
+
+
+def _check_gradients(g_t, g_j):
+    assert set(g_t) == set(g_j)
+    for name, want in g_j.items():
+        scale = float(np.abs(want).max())
+        assert scale > 0, name
+        err = float(np.abs(g_t[name] - want).max())
+        assert err <= 1e-3 * scale, (name, err, scale)
+
+
+def _check_batch_norm(state, bs_j):
+    assert len(bs_j) == sum(k.endswith((".mean", ".var")) for k in state)
+    for k, want in bs_j.items():
+        np.testing.assert_allclose(np.asarray(state[k]), want, rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+def _check_update(state, p0, g_t, new_j, tp):
+    tx = jstate.make_optimizer(tp)
+    updates, _ = tx.update({k: jnp.asarray(v) for k, v in g_t.items()},
+                           tx.init({k: jnp.asarray(v) for k, v in p0.items()}),
+                           {k: jnp.asarray(v) for k, v in p0.items()})
+    for name, u in updates.items():
+        want = p0[name] - np.float32(LR) * np.asarray(u)
+        got = np.asarray(state[name])
+        # within 2 ulp: torch and optax round the moments' updates differently
+        np.testing.assert_allclose(got, want, rtol=2.4e-7, atol=1e-7, err_msg=name)
+        assert not np.array_equal(got, p0[name]), name
+        g_l2 = g_t[name] + tp.weight_decay * p0[name]  # what Adam sees
+        strong = np.abs(g_l2) > 1e-3 * np.abs(g_l2).max()
+        np.testing.assert_allclose(got[strong], new_j[name][strong], rtol=0, atol=1e-6,
+                                   err_msg=name)
+
+
+def test_step_loss_and_stats(step_pair):
+    """Every stat within rel 1e-5 (atol 1e-6): f32 forwards whose
+    summation orders differ."""
+    _check_stats(step_pair["stats_t"], step_pair["stats_j"])
 
 
 def test_step_gradients(step_pair):
@@ -256,21 +291,12 @@ def test_step_gradients(step_pair):
     the gradients below it by several 1e-3 of their max at this small size
     (seen with other seeds for the weights; each piece's own gradient is
     held at 1e-5 in tests/test_torch_train_ops.py and test_torch_losses.py)."""
-    g_t, g_j = step_pair["grads_t"], step_pair["grads_j"]
-    assert set(g_t) == set(g_j)
-    for name, want in g_j.items():
-        scale = float(np.abs(want).max())
-        assert scale > 0, name
-        err = float(np.abs(g_t[name] - want).max())
-        assert err <= 1e-3 * scale, (name, err, scale)
+    _check_gradients(step_pair["grads_t"], step_pair["grads_j"])
 
 
 def test_step_batch_norm_statistics(step_pair):
     """The running statistics after the three forwards: rtol 1e-5."""
-    state, bs_j = step_pair["state"], step_pair["bs_j"]
-    assert len(bs_j) == sum(k.endswith((".mean", ".var")) for k in state)
-    for k, want in bs_j.items():
-        np.testing.assert_allclose(state[k].numpy(), want, rtol=1e-5, atol=1e-6, err_msg=k)
+    _check_batch_norm(step_pair["state"], step_pair["bs_j"])
 
 
 def test_step_parameter_update(step_pair):
@@ -280,21 +306,38 @@ def test_step_parameter_update(step_pair):
     difference (> 1e-3 x the leaf's max): Adam's first step moves each weight
     by ~lr * sign(g + wd * p), so one that is zero up to rounding may move
     either way."""
-    state, p0, g_t, new_j = (step_pair[k] for k in ("state", "params0", "grads_t", "new_j"))
-    tx = jstate.make_optimizer(step_pair["tp"])
-    updates, _ = tx.update({k: jnp.asarray(v) for k, v in g_t.items()},
-                           tx.init({k: jnp.asarray(v) for k, v in p0.items()}),
-                           {k: jnp.asarray(v) for k, v in p0.items()})
-    for name, u in updates.items():
-        want = p0[name] - np.float32(LR) * np.asarray(u)
-        # within 2 ulp: torch and optax round the moments' updates differently
-        np.testing.assert_allclose(state[name].numpy(), want, rtol=2.4e-7, atol=1e-7,
-                                   err_msg=name)
-        assert not np.array_equal(state[name].numpy(), p0[name]), name
-        g_l2 = g_t[name] + step_pair["tp"].weight_decay * p0[name]  # what Adam sees
-        strong = np.abs(g_l2) > 1e-3 * np.abs(g_l2).max()
-        np.testing.assert_allclose(state[name].numpy()[strong], new_j[name][strong], rtol=0,
-                                   atol=1e-6, err_msg=name)
+    _check_update(step_pair["state"], step_pair["params0"], step_pair["grads_t"],
+                  step_pair["new_j"], step_pair["tp"])
+
+
+def test_two_rank_step_matches_jax(step_pair, tmp_path):
+    """The step on 2 gloo ranks (2 global clouds and 1 pair each, the same
+    weights) against JAX's unsharded step, which is the function JAX's mesh
+    computes (tests/test_multichip.py): stats, gradients, BatchNorm
+    statistics and the update at the tolerances of the four tests above;
+    after the step both ranks' parameters, BatchNorm statistics and Adam
+    moments are bit-equal."""
+    from egonn_tpu_torch.parallel import dryrun
+    from egonn_tpu_torch.parallel.mesh import run_ranks
+
+    g, l = _batch()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))  # the spawned rank takes this count
+    try:
+        ranks = run_ranks(dryrun.rank_step, 2, (step_pair["tp"], CAP0, 1, g, l, None, LR, "cpu"),
+                          init_method=f"file://{tmp_path / 'init'}", timeout_s=120.0)
+    finally:
+        torch.set_num_threads(threads)
+    r0 = ranks[0]
+    _check_stats(r0["stats"], step_pair["stats_j"])
+    _check_gradients(r0["grads"], step_pair["grads_j"])
+    _check_batch_norm(r0["state"], step_pair["bs_j"])
+    _check_update(r0["state"], step_pair["params0"], r0["grads"], step_pair["new_j"],
+                  step_pair["tp"])
+    for k, v in r0["state"].items():
+        assert np.array_equal(ranks[1]["state"][k], v), k
+    for n, moments in r0["adam"].items():
+        assert all(np.array_equal(a, b) for a, b in zip(ranks[1]["adam"][n], moments)), n
 
 
 # ---------------------------------------------------------------------------

@@ -45,6 +45,8 @@ from egonn_tpu_torch.data.local_dataset import Training6DOFDataset, make_local_b
 from egonn_tpu_torch.data.pipeline import Prefetcher, make_global_batch, round_to_bucket
 from egonn_tpu_torch.data.samplers import BatchSampler
 from egonn_tpu_torch.ops import quantization as tq
+from egonn_tpu_torch.parallel import mesh as parallel_mesh
+from egonn_tpu_torch.parallel.mesh import resolve_mesh
 from egonn_tpu_torch.sparse import kernels
 from egonn_tpu_torch.train import cli
 from egonn_tpu_torch.train import trainer as ttrainer
@@ -296,10 +298,13 @@ def test_step_generator_and_mesh():
     x = torch.rand(4, generator=a)
     assert torch.equal(x, torch.rand(4, generator=b))
     assert not torch.equal(x, torch.rand(4, generator=c))
-    for ok in ("auto", "off", 1, "1", None):
-        ttrainer.check_mesh(ok)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        ttrainer.check_mesh(4)
+    cpu = torch.device("cpu")
+    for one in ("auto", "off", 0, "0", 1, "1", None):
+        assert resolve_mesh(one, cpu) == 1, one  # "auto" on the CPU: one process
+    assert resolve_mesh(4, cpu) == resolve_mesh("4", cpu) == 4
+    assert resolve_mesh("auto", "cuda") == max(1, torch.cuda.device_count())
+    with pytest.raises(ValueError):
+        resolve_mesh(-2, cpu)
 
 
 # ---------------------------------------------------------------------------
@@ -421,6 +426,54 @@ def test_resume_matches_uninterrupted(jdata, two_epochs, tmp_path):
     assert load_checkpoint_meta(str(ckpt), 2) == {"sampler_batch_size": 15}
     a, b = _state_tensors(full), _state_tensors(res)
     assert a.keys() == b.keys() and any(k.startswith("adam.") for k in a)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_do_train_on_mesh_of_two(jdata, tmp_path, capfd, monkeypatch):
+    """`do_train` with mesh 2 on the CPU (two gloo ranks; the counterpart of
+    JAX's test_do_train_on_mesh_smoke): two debug epochs without batch
+    expansion at lr 1e-5 (see test_do_train_matches_jax); the first epoch's
+    stats within rel 1e-4 of one process's.  Rank 0 alone prints, writes
+    the metrics JSONL and the checkpoints; a resume from a copy of the
+    epoch-1 checkpoint on 2 ranks ends bit-equal to the uninterrupted
+    2-rank run."""
+    def params(mesh, epochs=2):
+        p = _params(TrainingParams, jdata, epochs=epochs)
+        p.mesh, p.lr, p.batch_expansion_th = mesh, LOOP_LR, None
+        return p
+
+    monkeypatch.setattr(parallel_mesh, "DEFAULT_TIMEOUT_S", 120.0)  # a hung rank fails
+
+    _, one, _ = ttrainer.do_train(params("off", epochs=1), debug=True,
+                                  weights_path=str(tmp_path / "one"), log_fn=lambda m: None,
+                                  dataset_type="synthetic", device="cpu")
+    capfd.readouterr()
+    weights = tmp_path / "two"
+    state, two, name = ttrainer.do_train(params(2), debug=True, weights_path=str(weights),
+                                         dataset_type="synthetic", device="cpu")
+    out = capfd.readouterr().out
+    for phase in ("train", "val"):
+        assert len(two[phase]) == 2 and len(one[phase]) == 1
+        got, want = two[phase][0], one[phase][0]
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-6,
+                                       err_msg=f"{phase} {k}")
+    assert out.count("epoch 1 took") == out.count("epoch 2 took") == 1
+    assert "Data-parallel mesh over 2 ranks" in out
+    assert sorted(os.listdir(weights / name)) == ["step_1.meta.json", "step_1.pt",
+                                                  "step_2.meta.json", "step_2.pt"]
+    lines = [json.loads(s) for s in (weights / f"{name}.metrics.jsonl").read_text().splitlines()]
+    assert [r["epoch"] for r in lines if "train" in r] == [1, 2]
+    ckpt = tmp_path / "resumed" / name
+    ckpt.mkdir(parents=True)
+    for f in ("step_1.pt", "step_1.meta.json"):
+        shutil.copy(weights / name / f, ckpt / f)
+    res, _, _ = ttrainer.do_train(params(2), debug=True, resume_from=str(ckpt),
+                                  log_fn=lambda m: None, dataset_type="synthetic", device="cpu")
+    a, b = _state_tensors(state), _state_tensors(res)
+    assert a.keys() == b.keys()
     for k in a:
         assert torch.equal(a[k], b[k]), k
 
