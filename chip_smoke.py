@@ -4,6 +4,7 @@ loop, evaluation, data parallel), of MinkLoc (inference) and of ResNet14
 (inference) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
+    python3 chip_smoke.py bf16   # phases 1-3 and 3b alone (the bf16 forward)
 
 Phases, each printing its lines:
 
@@ -36,6 +37,20 @@ Phases, each printing its lines:
    quantizations the voxel mismatch rate (atan2 may differ by an ulp) is
    reported.  Last, clouds/s over 10 forwards on varied inputs (host clock;
    `python -m egonn_tpu_torch.profile_forward` splits a forward's device time).
+3b. bf16 forward: the same forward with EGONN_BF16_ACTS=1 (set by the
+   phase alone, every other phase runs f32 activations): launches 1 / 7 /
+   14 / 7 (zrun_presence / zrun_rank / gather_conv_bf16 / tdown_bf16), no
+   f32 conv launch; every bf16 gather_conv and tdown call held against its
+   bf16 plain version (within one bf16 ulp, or 1e-6 x max |plain| near 0)
+   and timed as in phase 2 beside the split-TF32 kernel on the same call in
+   f32, its bound at 2 bytes a feature element or one bf16 MMA per product
+   at 989 TFLOP/s; the largest call of each re-run and two more forwards
+   bit-equal; 2 clouds on the card and on the CPU (bf16 forced there) from
+   one shared quantization: `global`, descriptors, keypoints and sigma
+   within 3e-2 of max |CPU| (tests/test_banded.py's bf16 rule), every
+   output's type the CPU run's; clouds/s (medians of 6 turns of 10
+   forwards, in rounds f32 / bf16 / bf16 / f32), peak memory of the bf16
+   forward beside f32's, max |bf16 - f32| of `global`.
 4. train kernels: the training parameters of config/config_egonn.txt +
    model_configs/egonn.txt (batch 32, local batch 8, Adam lr 1e-3, weight
    decay 1e-4, aug_mode 2), a full-width batch (16 places x 2 scans of
@@ -191,7 +206,8 @@ Phases, each printing its lines:
 
 The last three lines are the card's name and power limit, one JSON object
 with every kernel's numbers (summed over the calls of all the paths: the
-inference forward, the training step, the validation step, the pyramid
+inference forward, the bf16 forward (the rows gather_conv_bf16 and
+tdown_bf16), the training step, the validation step, the pyramid
 without up maps, the two MinkLoc forwards, the ResNet14 forward, one
 embedding batch of the evaluation, the training loop's first train and
 validation steps, and rank 0's train and validation steps in phase 11;
@@ -208,6 +224,7 @@ import dataclasses
 import inspect
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -223,12 +240,17 @@ import torch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # f32 FMA pipes, outside the tensor cores (data sheet)
 TF32_OPS_PER_S = 495e12     # dense TF32 tensor cores (data sheet)
+BF16_OPS_PER_S = 989e12     # dense bf16 tensor cores (data sheet)
 TC_KERNELS = ("gather_conv", "tdown", "gather_dw")  # split TF32: 3 TF32 MMAs per product
+# the bf16 kernels of gather_conv and tdown (bf16 features), one MMA per
+# product, with their own rows and launch counts
+BF16_ROWS = {"gather_conv": "gather_conv_bf16", "tdown": "tdown_bf16"}
 SPILL_FREE = ("gather_conv.cu", "tdown.cu", "gather_dw.cu")  # ptxas must report no spills
 INT32_OPS_PER_S = 33.5e12   # 64 INT32 lanes per SM against 128 FP32 lanes
 B, N_POINTS, CAP0, SEED = 8, 65536, 16384, 0
 EXPECTED_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 14, "tdown": 7,
-                     "gather_dw": 0, "lookup": 0}
+                     "gather_dw": 0, "lookup": 0,
+                     "gather_conv_bf16": 0, "tdown_bf16": 0}
 # Kernel launches of one training step: three train-mode forwards (global,
 # anchor, positive), each 1 zrun_presence + 7 zrun_rank (the pyramid), 7 down
 # convs + 14 self convs through gather_conv; then one backward, which reaches
@@ -241,22 +263,27 @@ EXPECTED_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 14, "tdo
 # conv.  gather_conv 3 x 21 + 14 + 2 + 2 x (8 + 1) = 97; gather_dw
 # 21 + 2 x 12 = 45.  The down convs' dX is the transposed conv in torch.
 TRAIN_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 97, "tdown": 0,
-                       "gather_dw": 45, "lookup": 0}
+                       "gather_dw": 45, "lookup": 0,
+                       "gather_conv_bf16": 0, "tdown_bf16": 0}
 # The validation step: three eval forwards (7 tdown, 14 gather_conv each).
 VAL_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 42, "tdown": 21,
-                     "gather_dw": 0, "lookup": 0}
+                     "gather_dw": 0, "lookup": 0,
+                     "gather_conv_bf16": 0, "tdown_bf16": 0}
 # Phase 6a: the EgoNN pyramid without up maps, kmap_down looked up at L1-L7
 # in one launch of the lookup kernel.
 LOOKUP_MAPS_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 0, "tdown": 0,
-                        "gather_dw": 0, "lookup": 1}
+                        "gather_dw": 0, "lookup": 1,
+                        "gather_conv_bf16": 0, "tdown_bf16": 0}
 # Phase 6b: one MinkLoc forward: the stem map, 3 self maps, 2 convs in each
 # of 3 blocks; the factory pyramid runs the 3 down convs from the up maps,
 # the one with level 2's up map alone looks up L1 and L2's down maps (one
 # lookup launch) and runs those down convs as gathers.
 MINKLOC_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 3, "gather_conv": 6, "tdown": 3,
-                    "gather_dw": 0, "lookup": 0}
+                    "gather_dw": 0, "lookup": 0,
+                    "gather_conv_bf16": 0, "tdown_bf16": 0}
 MINKLOC_LOOKUP_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 3, "gather_conv": 8, "tdown": 1,
-                           "gather_dw": 0, "lookup": 1}
+                           "gather_dw": 0, "lookup": 1,
+                           "gather_conv_bf16": 0, "tdown_bf16": 0}
 MINKLOC_CAP0 = 40960
 MINKLOC_ROUNDS = 20  # throughput turns of each MinkLoc pyramid
 # Phase 8: ResNet14 at torchvision widths over MinkLoc's quantizer and
@@ -267,12 +294,27 @@ MINKLOC_ROUNDS = 20  # throughput turns of each MinkLoc pyramid
 RESNET_CAPACITIES = (40960, 20480, 10240, 5120, 2560)
 RESNET_PLANES, RESNET_INIT_DIM = (64, 128, 256, 512), 64
 RESNET_LAUNCHES = {"zrun_presence": 0, "zrun_rank": 5, "gather_conv": 13, "tdown": 0,
-                   "gather_dw": 0, "lookup": 1}
+                   "gather_dw": 0, "lookup": 1,
+                   "gather_conv_bf16": 0, "tdown_bf16": 0}
+# Phase 3b: the forward of phases 2-3 with EGONN_BF16_ACTS=1: the same maps,
+# the 21 convs on the bf16 kernels
+BF16_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 0, "tdown": 0,
+                 "gather_dw": 0, "lookup": 0, "gather_conv_bf16": 14, "tdown_bf16": 7}
+# card vs CPU bf16 forward, of each output's max |CPU| (tests/test_banded.py's
+# bf16 rule): roundings to bf16 at other places flip single activations by an ulp
+BF16_REL_TOL = 3e-2
+# a bf16 kernel's output against its bf16 plain version: one bf16 ulp, or
+# this much of max |plain| for outputs near 0 (both round the same f32 sums
+# once, summed in another order)
+BF16_ABS_TOL = 1e-6
+BF16_ROUNDS = 3  # rounds of throughput turns f32, bf16, bf16, f32
 RESNET_Z_SCALE = 0.25  # the stem's one feature: the voxel centre's z, per 4 m
 RESNET_ROUNDS = 5      # throughput turns of 10 forwards
 # the wrappers recorded apart from KERNELS, and the kernel whose row they feed
 ROW_OF = {"lookup_down": "lookup"}
 REPLACES = {
+    "gather_conv_bf16": ("egonn_tpu_torch/csrc/gather_conv.cu", "egonn_tpu/sparse/banded.py:207"),
+    "tdown_bf16": ("egonn_tpu_torch/csrc/tdown.cu", "egonn_tpu/sparse/banded.py:506"),
     "zrun_presence": ("egonn_tpu_torch/csrc/zrun.cu", "egonn_tpu/sparse/banded.py:970"),
     "zrun_rank": ("egonn_tpu_torch/csrc/zrun.cu", "egonn_tpu/sparse/banded.py:1095"),
     "gather_conv": ("egonn_tpu_torch/csrc/gather_conv.cu", "egonn_tpu/sparse/banded.py:207"),
@@ -379,9 +421,16 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def row_of(name: str) -> str:
-    """The kernel row a recorded wrapper's calls feed."""
+def row_of(name: str, args: tuple = ()) -> str:
+    """The kernel row a recorded wrapper's call feeds: a conv on bf16
+    features feeds its bf16 kernel's row."""
+    if name in BF16_ROWS and args and args[0].dtype == torch.bfloat16:
+        return BF16_ROWS[name]
     return ROW_OF.get(name, name)
+
+
+def row_names(kernels) -> tuple:
+    return tuple(fn.__name__ for fn in kernels.KERNELS) + tuple(BF16_ROWS.values())
 
 
 def _outputs(out) -> tuple:
@@ -434,17 +483,19 @@ def work(name: str, args: tuple, kwargs: dict, out) -> tuple:
         feats, kmap, g = args
         nnz = int(((kmap >= 0) & (kmap < feats.shape[1])).sum())
         return _nbytes(feats, kmap, g, out), 2 * nnz * feats.shape[2] * g.shape[2], F32_OPS_PER_S
+    # bf16 features: 2 bytes a feature element in and out, bf16 tensor-core rate
+    rate = BF16_OPS_PER_S if args[0].dtype == torch.bfloat16 else F32_OPS_PER_S
     epi = kwargs.get("epi")
     epi_t = (epi[0], epi[1], epi[3]) if epi else ()
     if name == "gather_conv":
         feats, kmap, kernel = args
         nnz = int(((kmap >= 0) & (kmap < feats.shape[1])).sum())
         ops = 2 * nnz * kernel.shape[1] * kernel.shape[2]
-        return _nbytes(feats, kmap, kernel, out, *epi_t), ops, F32_OPS_PER_S
+        return _nbytes(feats, kmap, kernel, out, *epi_t), ops, rate
     feats, up_parent, up_koffset, kernel, c_coarse = args
     n_child = int(((up_parent >= 0) & (up_parent < c_coarse)).sum())
     ops = 2 * n_child * kernel.shape[1] * kernel.shape[2]
-    return _nbytes(feats, up_parent, up_koffset, kernel, out, *epi_t), ops, F32_OPS_PER_S
+    return _nbytes(feats, up_parent, up_koffset, kernel, out, *epi_t), ops, rate
 
 
 def plain_call(name: str, kernels):
@@ -473,7 +524,21 @@ def library_call(name: str, args: tuple):
     return None
 
 
+def _bf16_within_one_ulp(name: str, g: torch.Tensor, w: torch.Tensor, kernels) -> None:
+    near = (g.float() - w.float()).abs() <= BF16_ABS_TOL * float(w.float().abs().max())
+    ulps = kernels.bf16_ulps(g, w)
+    far = ~(near | (ulps <= 1))
+    if bool(far.any()):
+        raise AssertionError(f"{name}: {int(far.sum())} bf16 outputs more than one ulp from the "
+                             f"plain version's (up to {int(ulps[far].max())} ulps)")
+
+
 def compare(name: str, got, want) -> float:
+    """Max abs error of a kernel's outputs against its plain version's:
+    integers bit-equal, f32 within rel FLOAT_REL_TOL (gather_dw DW_REL_TOL)
+    of max |plain|, bf16 within one ulp (`_bf16_within_one_ulp`)."""
+    from egonn_tpu_torch.sparse import kernels
+
     got, want = _outputs(got), _outputs(want)
     if len(got) != len(want):
         raise AssertionError(f"{name}: {len(got)} outputs against {len(want)}")
@@ -481,7 +546,12 @@ def compare(name: str, got, want) -> float:
     err = 0.0
     for g, w in zip(got, want):
         g, w = g.detach(), w.detach()
-        if g.dtype.is_floating_point:
+        if g.dtype != w.dtype:
+            raise AssertionError(f"{name}: output {g.dtype} against the plain version's {w.dtype}")
+        if g.dtype == torch.bfloat16:
+            _bf16_within_one_ulp(name, g, w, kernels)
+            e = float((g.float() - w.float()).abs().max())
+        elif g.dtype.is_floating_point:
             e = float((g - w).abs().max())
             scale = float(w.abs().max())
             if not e <= tol * max(scale, 1e-30):
@@ -566,11 +636,11 @@ def record_calls(kernels, run) -> list:
 
 
 def new_rows(kernels) -> dict:
-    return {fn.__name__: dict(name=fn.__name__, route="cuda", source=REPLACES[fn.__name__][0],
-                              replaces=REPLACES[fn.__name__][1], launches=None, max_abs_err=0.0,
-                              ms=0.0, plain_ms=0.0, bound_ms=0.0, tc_bound_ms=None,
-                              library_ms=None, _bytes_ms=0.0, _ops_ms=0.0, calls=[])
-            for fn in kernels.KERNELS}
+    return {name: dict(name=name, route="cuda", source=REPLACES[name][0],
+                       replaces=REPLACES[name][1], launches=None, max_abs_err=0.0,
+                       ms=0.0, plain_ms=0.0, bound_ms=0.0, tc_bound_ms=None,
+                       library_ms=None, _bytes_ms=0.0, _ops_ms=0.0, calls=[])
+            for name in row_names(kernels)}
 
 
 def level_of(capacities) -> dict:
@@ -610,11 +680,13 @@ def call_desc(name: str, args: tuple) -> str:
             f"F {feats.shape[2]}->{f_out}")
 
 
-def tc_bound_ms(name: str, nbytes: int, ops: int):
-    """The least time of a split-TF32 kernel's work: bytes over HBM, or
-    three TF32 MMAs per f32 product at the dense TF32 rate; None for the
-    integer kernels."""
-    if name not in TC_KERNELS:
+def tc_bound_ms(row: str, nbytes: int, ops: int):
+    """The least time of a tensor-core kernel's work: bytes over HBM, or
+    three TF32 MMAs per f32 product at the dense TF32 rate (one bf16 MMA at
+    the bf16 rate for the bf16 rows); None for the integer kernels."""
+    if row in BF16_ROWS.values():
+        return max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
+    if row not in TC_KERNELS:
         return None
     return max(nbytes / HBM_BYTES_PER_S, 3 * ops / TF32_OPS_PER_S) * 1e3
 
@@ -696,8 +768,8 @@ def measure_calls(rows: dict, calls: list, kernels, cycles_per_ms: float, reps: 
             ms, plain_ms, lib_ms = timed[key]
             nbytes, ops, rate = work(name, args, kwargs, out)
             bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
-            tc_ms = tc_bound_ms(name, nbytes, ops)
-            row = rows[row_of(name)]
+            tc_ms = tc_bound_ms(row_of(name, args), nbytes, ops)
+            row = rows[row_of(name, args)]
             row["max_abs_err"] = max(row["max_abs_err"], err)
             row["ms"] += ms
             row["plain_ms"] += plain_ms
@@ -717,7 +789,7 @@ def measure_calls(rows: dict, calls: list, kernels, cycles_per_ms: float, reps: 
                                      bound_ms=max(bytes_ms, ops_ms), tc_bound_ms=tc_ms,
                                      max_abs_err=err, **detail))
             if new_shape and tc_ms is not None:
-                log(f"[{tag}] {name} {level} {call_desc(name, args)} "
+                log(f"[{tag}] {row_of(name, args)} {level} {call_desc(name, args)} "
                     f"{'epi ' if kwargs.get('epi') is not None else ''}ms {ms:.4f} "
                     f"plain {plain_ms:.4f} bound {max(bytes_ms, ops_ms):.4f} "
                     f"tc_bound {tc_ms:.4f} err {err:.3g}{_detail_text(detail)}")
@@ -880,13 +952,8 @@ def phase_slice(built, kernels, inference, pyramid_mod):
     # the same weights on the CPU, 2 clouds
     cpu = torch.device("cpu")
     built_cpu = dataclasses.replace(built, model=copy.deepcopy(built.model).to(cpu), device=cpu)
-    c2, m2 = make_inputs(cpu, b=2, seed=SEED + 1)
     # (a) one shared quantization: pyramids bit-equal, outputs within tolerance
-    res2 = built.quantizer.quantize(c2.to(built.device), m2.to(built.device),
-                                    spec.capacities[0], need_index=False)
-    pg = pyramid_mod.build_pyramid(res2.coords_t, res2.mask, spec, keys0=res2.keys)
-    pc = pyramid_mod.build_pyramid(res2.coords_t.cpu(), res2.mask.cpu(), spec,
-                                   keys0=res2.keys.cpu())
+    c2, m2, pg, pc = _two_cloud_pyramids(built, pyramid_mod)
     for l in range(spec.num_levels + 1):
         for field in ("coords", "mask", "kmap_self", "up_parent", "up_koffset"):
             a, b_ = getattr(pg[l], field), getattr(pc[l], field)
@@ -917,21 +984,163 @@ def phase_slice(built, kernels, inference, pyramid_mod):
         f"of {vg.shape[0] * vg.shape[2]} points, global rel {e2e_rel:.3g}")
 
     # throughput on varied inputs
-    gen = torch.Generator(device=built.device).manual_seed(SEED)
-    iters = 10
-    variants = [clouds + 0.01 * torch.randn(clouds.shape, generator=gen, device=built.device)
-                for _ in range(iters)]
+    cps = _clouds_per_s(inference, built, _varied(clouds), mask)
+    return dict(launches=launches, capacity=report, global_rel_shared=g_rel,
+                descriptors_abs=d_err, keypoints_abs_m=k_err, sigma_rel=s_rel,
+                voxel_mismatch_rate=mismatch, global_rel_independent=e2e_rel,
+                clouds_per_s=cps, forward_ms=B / cps * 1e3)
+
+
+# ---------------------------------------------------------------------------
+# bf16 activations
+# ---------------------------------------------------------------------------
+
+def _forward_peak_gb(run) -> tuple:
+    """run()'s output and its peak device memory above what was allocated
+    before it, in GiB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def _two_cloud_pyramids(built, pyramid_mod) -> tuple:
+    """2 clouds (on the CPU) quantized once on the card, and their pyramid
+    built from that one quantization on the card and on the CPU: (clouds,
+    mask, card pyramid, CPU pyramid)."""
+    spec = built.pyramid_spec
+    c2, m2 = make_inputs(torch.device("cpu"), b=2, seed=SEED + 1)
+    res2 = built.quantizer.quantize(c2.to(built.device), m2.to(built.device),
+                                    spec.capacities[0], need_index=False)
+    pg = pyramid_mod.build_pyramid(res2.coords_t, res2.mask, spec, keys0=res2.keys)
+    pc = pyramid_mod.build_pyramid(res2.coords_t.cpu(), res2.mask.cpu(), spec,
+                                   keys0=res2.keys.cpu())
+    return c2, m2, pg, pc
+
+
+def _varied(clouds: torch.Tensor, n: int = 10) -> list:
+    """n seeded jitters of the clouds (1 cm), so no forward repeats another."""
+    gen = torch.Generator(device=clouds.device).manual_seed(SEED)
+    return [clouds + 0.01 * torch.randn(clouds.shape, generator=gen, device=clouds.device)
+            for _ in range(n)]
+
+
+def _clouds_per_s(inference, built, variants, mask) -> float:
+    """Clouds/s of forwards over `variants` after one warm-up (host clock,
+    ending in a synchronize)."""
     inference.forward(built, variants[0], mask)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for v in variants:
         inference.forward(built, v, mask)
     torch.cuda.synchronize()
-    sec = time.perf_counter() - t0
-    return dict(launches=launches, capacity=report, global_rel_shared=g_rel,
-                descriptors_abs=d_err, keypoints_abs_m=k_err, sigma_rel=s_rel,
-                voxel_mismatch_rate=mismatch, global_rel_independent=e2e_rel,
-                clouds_per_s=B * iters / sec, forward_ms=sec / iters * 1e3)
+    return B * len(variants) / (time.perf_counter() - t0)
+
+
+def phase_bf16(built, kernels, inference, pyramid_mod, cycles_per_ms):
+    """Phase 3b: the forward of phases 2-3 (same clouds, same weights) with
+    EGONN_BF16_ACTS=1: activations in bf16 from the stem on, the 21 convs
+    on the bf16 kernels (BF16_LAUNCHES).  Every bf16 gather_conv and tdown
+    call is held against its bf16 plain version (one bf16 ulp) and timed
+    beside the split-TF32 kernel on the same call in f32; the largest of
+    each re-run bit-equal; two forwards bit-equal; 2 clouds on the card and
+    on the CPU (bf16 forced there: the flag keeps the CPU in f32, as JAX's
+    keeps it off the TPU) from one shared quantization: each output within
+    BF16_REL_TOL of max |CPU|, every output's type the CPU run's; clouds/s
+    (host clock, medians of 6 turns of 10 forwards, in BF16_ROUNDS rounds
+    f32 / bf16 / bf16 / f32) and peak memory
+    of the bf16 forward beside f32's; max |bf16 - f32| of `global`.  The
+    flag is unset again at the end, whatever happens."""
+    from egonn_tpu_torch.sparse import conv as sconv
+
+    clouds, mask = make_inputs(built.device)
+    spec = built.pyramid_spec
+    y32, peak32 = _forward_peak_gb(lambda: inference.forward(built, clouds, mask))
+    os.environ["EGONN_BF16_ACTS"] = "1"
+    try:
+        if sconv.activation_dtype(built.device) != torch.bfloat16:
+            raise AssertionError("EGONN_BF16_ACTS=1 did not give bf16 activations on the card")
+        y, peak16 = _forward_peak_gb(lambda: inference.forward(built, clouds, mask))
+        _, launches = _path_launches(kernels, lambda: inference.forward(built, clouds, mask),
+                                     BF16_LAUNCHES, "bf16 forward", tag="bf16")
+        again = [inference.forward(built, clouds, mask) for _ in range(2)]
+        repeat_equal = all(torch.equal(a[k], y[k]) for a in again for k in y)
+        log(f"[bf16] two more forwards bit-equal: {repeat_equal}")
+        if not repeat_equal:
+            raise AssertionError("bf16 forward: a repeat differs")
+        rows, calls = _measured_path(kernels, lambda: inference.forward(built, clouds, mask),
+                                     launches, cycles_per_ms, 20, "bf16",
+                                     level_of(spec.capacities))
+        repeats = [check_repeat(kernels, calls, name, "bf16") for name in ("gather_conv", "tdown")]
+        # the split-TF32 kernels on the same calls in f32
+        f32_ms, timed = {name: 0.0 for name in BF16_ROWS}, {}
+        with torch.no_grad():
+            for name, args, kwargs, _ in calls:
+                if name not in BF16_ROWS:
+                    continue
+                key = json.dumps([name, [_shape(a) for a in args], kwargs.get("epi") is not None])
+                if key not in timed:
+                    fn, args32 = getattr(kernels, name), (args[0].float(), *args[1:])
+                    timed[key] = device_ms(lambda: fn(*args32, **kwargs), cycles_per_ms, 20)
+                f32_ms[name] += timed[key]
+        for name, row in BF16_ROWS.items():
+            r = rows[row]
+            log(f"[bf16] {row}: {r['launches']} launches, {r['ms']:.4f} ms per forward (split TF32 "
+                f"on the same calls {f32_ms[name]:.4f}), bound {r['bound_ms']:.4f} "
+                f"({'bytes' if r['_bytes_ms'] >= r['_ops_ms'] else 'operations'}), plain "
+                f"{r['plain_ms']:.4f}, max abs err {r['max_abs_err']:.3g}")
+
+        # card vs CPU, 2 clouds from one shared quantization
+        model_cpu = copy.deepcopy(built.model).to(torch.device("cpu"))
+        _, _, pg, pc = _two_cloud_pyramids(built, pyramid_mod)
+        flag_dtype = sconv.activation_dtype
+        with torch.no_grad():
+            yg = built.model(pg, built.quantizer)
+            sconv.activation_dtype = lambda device: torch.bfloat16
+            try:
+                yc = model_cpu(pc, built.quantizer)
+            finally:
+                sconv.activation_dtype = flag_dtype
+        types_ = {k: (str(yg[k].dtype), str(yc[k].dtype)) for k in yc}
+        card_cpu = {k: float((yg[k].cpu().float() - yc[k].float()).abs().max()
+                             / yc[k].float().abs().max().clamp_min(1e-30))
+                    for k in ("global", "descriptors", "keypoints", "sigma")}
+        log(f"[bf16] card vs CPU (bf16 on both), shared quantization: rel to max |CPU| "
+            f"{ {k: float(f'{v:.3g}') for k, v in card_cpu.items()} } (gate {BF16_REL_TOL}); "
+            f"types {types_}")
+        if any(a != b for a, b in types_.values()):
+            raise AssertionError(f"bf16 forward: output types differ from the CPU run's: {types_}")
+        if not (all(v <= BF16_REL_TOL for v in card_cpu.values())
+                and torch.equal(yg["kp_mask"].cpu(), yc["kp_mask"])):
+            raise AssertionError(f"bf16 forward: card and CPU disagree: {card_cpu}")
+    finally:
+        os.environ.pop("EGONN_BF16_ACTS", None)
+
+    # throughput, in BF16_ROUNDS rounds of turns f32, bf16, bf16, f32
+    variants = _varied(clouds)
+    turns = {"f32": [], "bf16": []}
+    for kind in ("f32", "bf16", "bf16", "f32") * BF16_ROUNDS:
+        if kind == "bf16":
+            os.environ["EGONN_BF16_ACTS"] = "1"
+        try:
+            turns[kind].append(_clouds_per_s(inference, built, variants, mask))
+        finally:
+            os.environ.pop("EGONN_BF16_ACTS", None)
+    g_err = float((y["global"] - y32["global"]).abs().max())
+    g_max = float(y32["global"].abs().max())
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    log(f"[bf16] clouds/s (host clock, turns of 10 forwards of {B} x {N_POINTS} points): bf16 "
+        f"median {med['bf16']:.1f} {[round(t, 1) for t in turns['bf16']]} against f32 median "
+        f"{med['f32']:.1f} {[round(t, 1) for t in turns['f32']]}; "
+        f"forward peak memory above its inputs and weights: bf16 {peak16:.3f} GiB, f32 "
+        f"{peak32:.3f} GiB; max |bf16 - f32| of global {g_err:.3g} (max |f32| {g_max:.3g})")
+    return rows, dict(launches=launches, card_vs_cpu=card_cpu, output_types=types_,
+                      repeat_bit_equal=repeat_equal, repeats=repeats, split_tf32_ms=f32_ms,
+                      clouds_per_s=turns, clouds_per_s_median=med,
+                      peak_gb=dict(bf16=peak16, f32=peak32),
+                      global_max_abs_diff_f32=g_err, global_max_abs_f32=g_max)
 
 
 # ---------------------------------------------------------------------------
@@ -946,7 +1155,7 @@ def phase_train_kernels(step, g, l, lr, kernels, cycles_per_ms, levels):
     """Record every kernel call of one training step, then compare and time
     each distinct shape."""
     calls = record_calls(kernels, lambda: step(g, l, _gen(g["clouds"].device, SEED), lr, True))
-    counts = {name: sum(row_of(c[0]) == name for c in calls) for name in TRAIN_STEP_LAUNCHES}
+    counts = {name: sum(row_of(*c[:2]) == name for c in calls) for name in TRAIN_STEP_LAUNCHES}
     if counts != TRAIN_STEP_LAUNCHES:
         raise AssertionError(f"kernel calls per train step {counts}, expected "
                              f"{TRAIN_STEP_LAUNCHES}")
@@ -961,7 +1170,7 @@ def phase_val_kernels(step, g, l, lr, kernels, cycles_per_ms, levels):
     """Record every kernel call of one validation step (three eval forwards:
     tdown's largest user), then compare and time each distinct shape."""
     calls = record_calls(kernels, lambda: step(g, l, None, lr, False))
-    counts = {name: sum(row_of(c[0]) == name for c in calls) for name in VAL_STEP_LAUNCHES}
+    counts = {name: sum(row_of(*c[:2]) == name for c in calls) for name in VAL_STEP_LAUNCHES}
     if counts != VAL_STEP_LAUNCHES:
         raise AssertionError(f"kernel calls per validation step {counts}, expected "
                              f"{VAL_STEP_LAUNCHES}")
@@ -2461,6 +2670,12 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # every phase runs f32 activations but phase 3b, which sets the flag itself
+    os.environ.pop("EGONN_BF16_ACTS", None)
+    bf16_only = sys.argv[1:] == ["bf16"]
+    if sys.argv[1:] and not bf16_only:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, or `bf16`)", file=sys.stderr)
+        return 2
     t_start = time.perf_counter()
     smi = phase_environment(cuda_lib)
     device = torch.device("cuda")
@@ -2479,6 +2694,12 @@ def main() -> int:
         f"points ({sl['forward_ms']:.2f} ms per forward, host clock) on {smi}")
     for name, row in rows.items():
         row["launches"] = sl["launches"][name]
+    t0 = time.perf_counter()
+    bf16_rows, bf16 = phase_bf16(built, kernels, inference, pyramid_mod, cycles_per_ms)
+    log(f"[bf16] phase done in {time.perf_counter() - t0:.1f} s")
+    if bf16_only:
+        return _finish(smi, {"forward": rows, "bf16_forward": bf16_rows},
+                       dict(card=smi, slice=sl, bf16=bf16), t_start)
 
     from egonn_tpu_torch.config import TrainingParams
     from egonn_tpu_torch.data.train_batch import make_train_batch
@@ -2552,19 +2773,24 @@ def main() -> int:
     dp_rows, dp = phase_data_parallel(tp, g, l, lr, kernels, cycles_per_ms, smi,
                                       tr["steps_per_s"], ev["names"][2], loop["names"])
     log(f"[dp] phase done in {time.perf_counter() - t0:.1f} s")
-    paths = {"forward": rows, "train_step": train_rows, "val_step": val_rows,
-             "lookup_maps": maps_rows, **mink_rows, "resnet": resnet_rows, "eval": eval_rows,
-             "train_loop": loop_rows, "dp": dp_rows}
-    all_rows = merged_rows(*paths.values())
+    paths = {"forward": rows, "bf16_forward": bf16_rows, "train_step": train_rows,
+             "val_step": val_rows, "lookup_maps": maps_rows, **mink_rows, "resnet": resnet_rows,
+             "eval": eval_rows, "train_loop": loop_rows, "dp": dp_rows}
+    return _finish(smi, paths, dict(
+        card=smi, slice=sl, bf16=bf16, train=tr, lookup_maps=maps, minkloc=mink, resnet=resnet,
+        eval=ev, train_loop=loop, data_parallel=dp, wide=wide,
+        determinism=[*repeat_fwd, *bf16["repeats"], *repeat_train, repeat_val, maps["repeat"],
+                     mink["lookup_repeat"], resnet["lookup_repeat"]]), t_start)
 
+
+def _finish(smi: str, paths: dict, details: dict, t_start: float) -> int:
+    """build/chip_smoke.json, then the last three lines: the card, the
+    kernels' numbers summed over the paths' calls, and the result."""
+    all_rows = merged_rows(*paths.values())
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        dict(card=smi, slice=sl, train=tr, lookup_maps=maps, minkloc=mink, resnet=resnet,
-             eval=ev, train_loop=loop, data_parallel=dp, kernels=all_rows, paths=paths,
-             wide=wide,
-             determinism=[*repeat_fwd, *repeat_train, repeat_val, maps["repeat"],
-                          mink["lookup_repeat"], resnet["lookup_repeat"]],
-             seconds=time.perf_counter() - t_start), indent=1))
+        dict(details, kernels=all_rows, paths=paths, seconds=time.perf_counter() - t_start),
+        indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -5,9 +5,14 @@
 // banded_conv_pallas), which builds a one-hot over a band window of the
 // key-sorted feature table and multiplies it on the MXU in bf16.  Here the
 // rows are gathered directly (no window, so no band overflow) and multiplied
-// on the tensor cores in split TF32 (f32 accuracy); see gather_mm.cuh for the
-// design and what bounds it.  `cols` is the output-column slice of a block;
-// `n_groups` > 1 splits the offsets across blocks, summed in `partial`.
+// on the tensor cores; see gather_mm.cuh for the design and what bounds it.
+// `cols` is the output-column slice of a block; `n_groups` > 1 splits the
+// offsets across blocks, summed in `partial`.
+//
+// egonn_gather_conv: f32 features, weights and output, split TF32 (f32
+// accuracy).  egonn_gather_conv_bf16: bf16 features and output and
+// w_t = W^T (k_vol, f_out, f_in) rounded to bf16, the TPU kernel's numerics
+// (bf16 products, f32 sums and epilogue, one rounding at the store).
 #include "gather_mm.cuh"
 
 extern "C" int egonn_gather_conv(const float* feats, const int32_t* kmap, const float* w,
@@ -16,6 +21,17 @@ extern "C" int egonn_gather_conv(const float* feats, const int32_t* kmap, const 
                                  int n_groups, int batch, int c_in, int f_in, int k_vol,
                                  int c_out, int f_out, int cols, int relu, void* stream) {
   return egonn::launch_gather_mm(feats, kmap, w, scale, bias, mask, out, partial, n_groups,
+                                 batch, c_in, f_in, k_vol, c_out, f_out, cols, relu,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int egonn_gather_conv_bf16(const egonn::bf16* feats, const int32_t* kmap,
+                                      const egonn::bf16* w_t, const float* scale,
+                                      const float* bias, const uint8_t* mask, egonn::bf16* out,
+                                      float* partial, int n_groups, int batch, int c_in,
+                                      int f_in, int k_vol, int c_out, int f_out, int cols,
+                                      int relu, void* stream) {
+  return egonn::launch_gather_mm(feats, kmap, w_t, scale, bias, mask, out, partial, n_groups,
                                  batch, c_in, f_in, k_vol, c_out, f_out, cols, relu,
                                  static_cast<cudaStream_t>(stream));
 }

@@ -47,21 +47,39 @@
 // levels, each staging only its slice of w[k] (the 64 KB w[k] of a 128 x 128
 // conv does not fit beside the rows, let alone at 512 wide).
 //
-// Bound: three TF32 MMAs per f32 product at 495 TFLOP/s dense, i.e. 165
-// TFLOP/s of f32 work, against the bytes of feats, kmap, w and out.  At
-// EgoNN widths the operations bound it on paper; in practice the stages are
-// short (a few valid rows each), so each stage's barrier and its round trip
-// to L2 for scattered rows and w set the pace (PERF.md).
+// bf16 features (gather_mm_bf16_kernel, the TPU kernel's numerics;
+// bf16.cuh): the same blocks, maps (compact_group), ring and epilogue; a
+// stage is 64 F_in columns (the same 128 bytes of a row as 32 f32 columns),
+// w arrives rounded and transposed, W^T (K, F_out, F_in) in bf16, so that
+// the stage holds its NS rows, and each 16-row tile is one mma.sync
+// m16n8k16 per 16 deep per 8 columns (mma_stage_bf16) instead of three
+// m16n8k8 per 8 deep.  The accumulator, the offset groups' partial sums and
+// the epilogue stay in f32; the store rounds once to bf16.  The f32 body
+// stays a kernel of its own: one body templated on the element type gave
+// its f32 instance fewer registers (80-94 against 115, with spills at 80)
+// and 5% more time on an H100 (PERF.md).
+//
+// Bound: f32, three TF32 MMAs per product at 495 TFLOP/s dense, i.e. 165
+// TFLOP/s of f32 work; bf16, one MMA per product at 989 TFLOP/s; against the
+// bytes of feats, kmap, w and out (bf16 rows halve the gathered bytes).  At
+// EgoNN widths the operations bound the f32 path on paper; in practice the
+// stages are short (a few valid rows each), so each stage's barrier and its
+// round trip to L2 for scattered rows and w set the pace (PERF.md).
 #pragma once
 
+#include <type_traits>
+
+#include "bf16.cuh"
 #include "tf32x3.cuh"
 
 namespace egonn {
 
 constexpr int kTileRows = 128;    // output rows per block
 constexpr int kThreads = 256;     // 8 warps
-constexpr int kChunk = 32;        // F_in columns per stage
+constexpr int kChunk = 32;        // F_in columns per stage (f32)
 constexpr int kLdA = kChunk + 4;  // shared row stride of the gathered rows (floats)
+constexpr int kChunkH = 64;       // F_in columns per stage (bf16: the same 128 bytes of a row)
+constexpr int kLdH = kChunkH + 8;  // shared row stride of the gathered rows and W^T rows (bf16)
 constexpr int kGroup = 32;        // offsets whose maps are held at once
 
 // ring depth: three stages where two blocks still fit an SM, else two
@@ -77,10 +95,64 @@ template <int NS>
 __host__ __device__ constexpr int mm_float_bytes() {  // stages + the accumulator tile
   return 4 * (mm_stages<NS>() * stage_floats<NS>() + kTileRows * (NS + 8));
 }
+// bf16: a stage holds the gathered rows and W^T's NS rows of the slice
+template <int NS>
+__host__ __device__ constexpr int stage_halves() {
+  return (kTileRows + NS) * kLdH;
+}
+template <int NS>
+__host__ __device__ constexpr int mm_bf16_bytes() {  // stages + the f32 accumulator tile
+  return 2 * mm_stages<NS>() * stage_halves<NS>() + 4 * kTileRows * (NS + 8);
+}
 
+template <typename T>
 inline size_t gather_mm_smem_bytes(int ns) {
-  const int floats = ns == 64 ? mm_float_bytes<64>() : mm_float_bytes<32>();
-  return (size_t)floats + sizeof(int) * (kGroup * (kTileRows + 2) + 1);
+  constexpr bool f32 = std::is_same_v<T, float>;
+  const int bytes = ns == 64 ? (f32 ? mm_float_bytes<64>() : mm_bf16_bytes<64>())
+                             : (f32 ? mm_float_bytes<32>() : mm_bf16_bytes<32>());
+  return (size_t)bytes + sizeof(int) * (kGroup * (kTileRows + 2) + 1);
+}
+
+// Steps 1-3 of a group of offsets [k0, k0 + kg) of a tile: its kmap entries
+// (pair_s), each offset's valid (row, source) pairs compacted in row order
+// in place as (row << 24) | source with their count (cnt_s), and the
+// offsets with any pair in ascending order (list_s, their count at
+// list_s[kGroup]).
+__device__ __forceinline__ void compact_group(const int32_t* kmap_b, int k0, int kg, int row0,
+                                              int c_in, int c_out, int* pair_s, int* cnt_s,
+                                              int* list_s) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __syncthreads();  // the last group's stages are done with pair_s and list_s
+  // 1. the tile's kmap entries at the group's offsets
+#pragma unroll 4
+  for (int e = tid; e < kg * kTileRows; e += kThreads) {
+    const int k = k0 + e / kTileRows, r = e % kTileRows;
+    pair_s[e] = row0 + r < c_out ? kmap_b[(size_t)k * c_out + row0 + r] : c_in;
+  }
+  __syncthreads();
+  // 2. per offset, its valid (row, source) pairs compacted in row order, in
+  // place: (row << 24) | source
+  for (int kl = warp; kl < kg; kl += kThreads / 32) {
+    int* p = pair_s + kl * kTileRows;
+    int n = 0;
+    for (int base = 0; base < kTileRows; base += 32) {
+      const int src = p[base + lane];
+      const bool v = (unsigned)src < (unsigned)c_in;
+      const unsigned m = __ballot_sync(0xffffffffu, v);
+      if (v) p[n + __popc(m & ((1u << lane) - 1))] = ((base + lane) << 24) | src;
+      n += __popc(m);
+    }
+    if (lane == 0) cnt_s[kl] = n;
+  }
+  __syncthreads();
+  // 3. the group's offsets with any valid pair, in ascending order
+  if (warp == 0) {
+    const bool f = lane < kg && cnt_s[lane] > 0;
+    const unsigned m = __ballot_sync(0xffffffffu, f);
+    if (f) list_s[__popc(m & ((1u << lane) - 1))] = lane;
+    if (lane == 0) list_s[kGroup] = __popc(m);
+  }
+  __syncthreads();
 }
 
 template <int NS>
@@ -125,37 +197,7 @@ gather_mm_kernel(const float* __restrict__ feats, const int32_t* __restrict__ km
   // the offsets in groups of kGroup, in ascending order
   for (int k0 = k_lo; k0 < k_hi; k0 += kGroup) {
     const int kg = min(kGroup, k_hi - k0);
-    __syncthreads();  // the last group's stages are done with pair_s and list_s
-    // 1. the tile's kmap entries at the group's offsets
-#pragma unroll 4
-    for (int e = tid; e < kg * kTileRows; e += kThreads) {
-      const int k = k0 + e / kTileRows, r = e % kTileRows;
-      pair_s[e] = row0 + r < c_out ? kmap_b[(size_t)k * c_out + row0 + r] : c_in;
-    }
-    __syncthreads();
-    // 2. per offset, its valid (row, source) pairs compacted in row order, in
-    // place: (row << 24) | source
-    for (int kl = warp; kl < kg; kl += kThreads / 32) {
-      int* p = pair_s + kl * kTileRows;
-      int n = 0;
-      for (int base = 0; base < kTileRows; base += 32) {
-        const int src = p[base + lane];
-        const bool v = (unsigned)src < (unsigned)c_in;
-        const unsigned m = __ballot_sync(0xffffffffu, v);
-        if (v) p[n + __popc(m & ((1u << lane) - 1))] = ((base + lane) << 24) | src;
-        n += __popc(m);
-      }
-      if (lane == 0) cnt_s[kl] = n;
-    }
-    __syncthreads();
-    // 3. the group's offsets with any valid pair, in ascending order
-    if (warp == 0) {
-      const bool f = lane < kg && cnt_s[lane] > 0;
-      const unsigned m = __ballot_sync(0xffffffffu, f);
-      if (f) list_s[__popc(m & ((1u << lane) - 1))] = lane;
-      if (lane == 0) list_s[kGroup] = __popc(m);
-    }
-    __syncthreads();
+    compact_group(kmap_b, k0, kg, row0, c_in, c_out, pair_s, cnt_s, list_s);
 
     const int n_stages = list_s[kGroup] * n_chunks;  // (active offset, F_in chunk) pairs
 
@@ -291,12 +333,123 @@ gather_mm_kernel(const float* __restrict__ feats, const int32_t* __restrict__ km
   }
 }
 
+// The bf16 body: the f32 body's blocks, offset groups, maps, ring and
+// epilogue, with bf16 rows (64 F_in columns a stage), W^T's rows of the
+// slice beside them, and mma_stage_bf16 for the products; the accumulator
+// stays f32 and the store rounds once to bf16.
+template <int NS>
+__global__ void __launch_bounds__(kThreads)
+gather_mm_bf16_kernel(const bf16* __restrict__ feats, const int32_t* __restrict__ kmap,
+                      const bf16* __restrict__ w_t, const float* __restrict__ scale,
+                      const float* __restrict__ bias, const uint8_t* __restrict__ mask,
+                      bf16* __restrict__ out, float* __restrict__ partial, int n_groups,
+                      int batch, int c_in, int f_in, int k_vol, int c_out, int f_out, int relu) {
+  constexpr int kStages = mm_stages<NS>();
+  constexpr int kLdC = NS + 8;   // shared row stride of the accumulator tile
+  constexpr int kStage = stage_halves<NS>();
+  constexpr int NP = NS / 16;    // pairs of 8-column MMA tiles; a warp owns one
+  constexpr int MG = kThreads / 32 / NP;  // warps sharing a column pair
+
+  extern __shared__ float4 smem4[];
+  bf16* stage_s = reinterpret_cast<bf16*>(smem4);                       // kStages x kStage
+  float* acc_s = reinterpret_cast<float*>(stage_s + kStages * kStage);  // 128 x kLdC
+  int* pair_s = reinterpret_cast<int*>(acc_s + kTileRows * kLdC);       // kGroup x 128
+  int* cnt_s = pair_s + kGroup * kTileRows;                             // kGroup
+  int* list_s = cnt_s + kGroup;                                         // active offsets, count
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int np = warp % NP, mg = warp / NP;
+  const int col0 = blockIdx.x * NS;
+  const int row0 = blockIdx.y * kTileRows;
+  const int b = blockIdx.z / n_groups, grp = blockIdx.z % n_groups;
+  const int k_per = (k_vol + n_groups - 1) / n_groups;
+  const int k_lo = grp * k_per, k_hi = min(k_vol, k_lo + k_per);
+  const bf16* feats_b = feats + (size_t)b * c_in * f_in;
+  const int32_t* kmap_b = kmap + (size_t)b * k_vol * c_out;
+
+  for (int e = tid; e < kTileRows * kLdC; e += kThreads) acc_s[e] = 0.f;
+  const int n_chunks = (f_in + kChunkH - 1) / kChunkH;
+  // a chunk's columns padded to the MMA depth
+  auto padded = [&](int c) { return (min(kChunkH, f_in - c * kChunkH) + 15) & ~15; };
+
+  for (int k0 = k_lo; k0 < k_hi; k0 += kGroup) {
+    compact_group(kmap_b, k0, min(kGroup, k_hi - k0), row0, c_in, c_out, pair_s, cnt_s, list_s);
+    const int n_stages = list_s[kGroup] * n_chunks;  // (active offset, F_in chunk) pairs
+
+    // stage s -> buffer `buf`: offset k0 + kl, kl = list_s[s / n_chunks], and
+    // chunk c = s % n_chunks: the offset's valid rows' chunk c gathered into
+    // rows 0 .. n-1 (8 bf16 a copy), and W^T[k]'s NS rows of the slice,
+    // chunk c's columns
+    auto load_stage = [&](int s, int buf) {
+      const int kl = list_s[s / n_chunks], c = s % n_chunks;
+      bf16* a_s = stage_s + buf * kStage;
+      bf16* b_s = a_s + kTileRows * kLdH;
+      const int c0 = c * kChunkH;
+      const int kc = min(kChunkH, f_in - c0);  // valid columns (a multiple of 8)
+      const int q8 = padded(c) / 8;            // 16-byte pieces per padded row
+      const int* pairs = pair_s + kl * kTileRows;
+      for (int e = tid; e < cnt_s[kl] * q8; e += kThreads) {
+        const int j = e / q8, q = e - j * q8;
+        const bool ok = 8 * q < kc;
+        const bf16* src = feats_b + (size_t)(pairs[j] & 0xffffff) * f_in + c0 + 8 * q;
+        cp_async16(a_s + j * kLdH + 8 * q, ok ? src : feats, ok ? 16 : 0);
+      }
+      const bf16* w_k = w_t + ((size_t)(k0 + kl) * f_out + col0) * f_in + c0;
+      for (int e = tid; e < NS * q8; e += kThreads) {
+        const int n = e / q8, q = e - n * q8;
+        const bool ok = 8 * q < kc;
+        cp_async16(b_s + n * kLdH + 8 * q, ok ? w_k + (size_t)n * f_in + 8 * q : w_t,
+                   ok ? 16 : 0);
+      }
+    };
+    auto compute_stage = [&](int s, int buf) {
+      const int kl = list_s[s / n_chunks], c = s % n_chunks;
+      const bf16* a_s = stage_s + buf * kStage;
+      mma_stage_bf16(a_s, kLdH, a_s + (kTileRows + np * 16) * kLdH, kLdH,
+                     pair_s + kl * kTileRows, cnt_s[kl], padded(c), mg, MG, acc_s, kLdC,
+                     np * 16);
+    };
+
+    // 4. the stages through a ring of kStages buffers, kStages - 1 in flight
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < n_stages) load_stage(s, s);
+      cp_async_commit();
+    }
+    for (int s = 0; s < n_stages; ++s) {
+      cp_async_wait<kStages - 2>();  // stage s has landed
+      __syncthreads();               // ... for every thread; stage s - 1 is done
+      if (s + kStages - 1 < n_stages) load_stage(s + kStages - 1, (s + kStages - 1) % kStages);
+      cp_async_commit();
+      compute_stage(s, s % kStages);
+    }
+  }
+  __syncthreads();
+
+  // 5. the epilogue at the single store, rounding once to bf16; with offset
+  // groups, this group's raw f32 sum to its partial
+  for (int e = tid; e < kTileRows * (NS / 4); e += kThreads) {
+    const int r = e / (NS / 4), q = e % (NS / 4);
+    const int row = row0 + r;
+    if (row >= c_out) continue;
+    const int col = col0 + 4 * q;
+    const float4 v = *reinterpret_cast<const float4*>(acc_s + r * kLdC + 4 * q);
+    if (n_groups > 1) {
+      *reinterpret_cast<float4*>(
+          partial + (((size_t)grp * batch + b) * c_out + row) * f_out + col) = v;
+      continue;
+    }
+    store4(out + ((size_t)b * c_out + row) * f_out + col,
+           epi4(v, scale, bias, col, relu, !mask || mask[(size_t)b * c_out + row]));
+  }
+}
+
 // out = epi(sum over g of partial[g]), the groups in index order; one
 // thread per 4 outputs
+template <typename T>
 __global__ void gather_mm_sum_kernel(const float4* __restrict__ partial,
                                      const float* __restrict__ scale,
                                      const float* __restrict__ bias,
-                                     const uint8_t* __restrict__ mask, float4* __restrict__ out,
+                                     const uint8_t* __restrict__ mask, T* __restrict__ out,
                                      int n_groups, int rows, int f_out, int relu) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t n4 = (size_t)rows * f_out / 4;
@@ -310,39 +463,34 @@ __global__ void gather_mm_sum_kernel(const float4* __restrict__ partial,
     v.w += u.w;
   }
   const int col = (int)(i % (f_out / 4)) * 4;
-  if (scale) {
-    v.x = v.x * scale[col] + bias[col];
-    v.y = v.y * scale[col + 1] + bias[col + 1];
-    v.z = v.z * scale[col + 2] + bias[col + 2];
-    v.w = v.w * scale[col + 3] + bias[col + 3];
-  }
-  if (relu) {
-    v.x = fmaxf(v.x, 0.f);
-    v.y = fmaxf(v.y, 0.f);
-    v.z = fmaxf(v.z, 0.f);
-    v.w = fmaxf(v.w, 0.f);
-  }
-  if (mask && !mask[i / (f_out / 4)]) v = make_float4(0.f, 0.f, 0.f, 0.f);
-  out[i] = v;
+  store4(out + 4 * i, epi4(v, scale, bias, col, relu, !mask || mask[i / (f_out / 4)]));
 }
 
 // Launches gather_mm_kernel with column slices of `cols` (32 or 64, dividing
-// f_out); f_in % 4 == 0.  With n_groups > 1 the offsets are split into that
-// many contiguous ranges, each block summing one range of one tile into
+// f_out); f_in a multiple of 4 (f32) or 8 (bf16, w as W^T (k_vol, f_out,
+// f_in)).  With n_groups > 1 the offsets are split into that many
+// contiguous ranges, each block summing one range of one tile into
 // `partial` (n_groups x batch x c_out x f_out floats), and
 // gather_mm_sum_kernel adds them.  Returns cudaGetLastError() (or the
 // attribute call's error).
-inline int launch_gather_mm(const float* feats, const int32_t* kmap, const float* w,
-                            const float* scale, const float* bias, const uint8_t* mask,
-                            float* out, float* partial, int n_groups, int batch, int c_in,
-                            int f_in, int k_vol, int c_out, int f_out, int cols, int relu,
-                            cudaStream_t stream) {
-  if ((cols != 32 && cols != 64) || f_out % cols || f_in % 4 || f_in <= 0 || k_vol <= 0 ||
-      c_in >= (1 << 24) || n_groups < 1 || n_groups > k_vol || (n_groups > 1 && !partial))
+template <typename T>
+int launch_gather_mm(const T* feats, const int32_t* kmap, const T* w, const float* scale,
+                     const float* bias, const uint8_t* mask, T* out, float* partial,
+                     int n_groups, int batch, int c_in, int f_in, int k_vol, int c_out, int f_out,
+                     int cols, int relu, cudaStream_t stream) {
+  constexpr int vec = std::is_same_v<T, float> ? 4 : 8;  // elements of a 16-byte row piece
+  if ((cols != 32 && cols != 64) || f_out % cols || f_in % vec || f_in <= 0 ||
+      k_vol <= 0 || c_in >= (1 << 24) || n_groups < 1 || n_groups > k_vol ||
+      (n_groups > 1 && !partial))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = gather_mm_smem_bytes(cols);
+  const size_t smem = gather_mm_smem_bytes<T>(cols);
   const dim3 grid(f_out / cols, (c_out + kTileRows - 1) / kTileRows, batch * n_groups);
-  auto kern = cols == 64 ? gather_mm_kernel<64> : gather_mm_kernel<32>;
+  void (*kern)(const T*, const int32_t*, const T*, const float*, const float*, const uint8_t*,
+               T*, float*, int, int, int, int, int, int, int, int);
+  if constexpr (std::is_same_v<T, float>)
+    kern = cols == 64 ? gather_mm_kernel<64> : gather_mm_kernel<32>;
+  else
+    kern = cols == 64 ? gather_mm_bf16_kernel<64> : gather_mm_bf16_kernel<32>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -351,9 +499,9 @@ inline int launch_gather_mm(const float* feats, const int32_t* kmap, const float
                                          relu);
   if (n_groups > 1) {
     const size_t n4 = (size_t)batch * c_out * f_out / 4;
-    gather_mm_sum_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
-        reinterpret_cast<const float4*>(partial), scale, bias, mask,
-        reinterpret_cast<float4*>(out), n_groups, batch * c_out, f_out, relu);
+    gather_mm_sum_kernel<T><<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
+        reinterpret_cast<const float4*>(partial), scale, bias, mask, out, n_groups,
+        batch * c_out, f_out, relu);
   }
   return (int)cudaGetLastError();
 }

@@ -56,8 +56,21 @@
 // (parents in no order) is slow and still exact.  Bound: the bytes of
 // feats, the up map, w and out (the operations, three TF32 MMAs per
 // product, are below them at EgoNN widths).
+//
+// bf16 features (T = bf16, the TPU kernel's numerics; bf16.cuh): the same
+// hull launch, bodies and tilings, with bf16 rows in shared memory, w
+// arriving rounded and transposed (W^T (8, F_out, F_in) in bf16, so that a
+// B fragment is two 32-bit loads) and one mma.sync m16n8k16 per 16 deep per
+// 8 columns; the gathering body's stage is 64 F_in columns as in f32 (the
+// multiply is mma_stage_bf16, as in gather_mm.cuh).  The per-row results,
+// the accumulator and the epilogue stay in f32; the store rounds once to
+// bf16.  The streaming body's w tiles halve, so every tiling fits a block
+// with two stage buffers (tdown_tiling_ok in sparse/kernels.py).
 #include <cooperative_groups.h>
 
+#include <type_traits>
+
+#include "bf16.cuh"
 #include "tf32x3.cuh"
 
 namespace egonn {
@@ -176,36 +189,57 @@ tdown_hull_kernel(const int32_t* __restrict__ up_parent, int2* __restrict__ hull
   }
 }
 
-// shared memory of a tdown block: w (8 slots x gwp rows x NS, unpadded,
-// columns swizzled), n_abuf stages of fine rows, the per-row
-// results, the tile's accumulator, its child table, the slot lists and
-// counts, the rows' parents and slots, the touched span
+// Per feature type in the bodies: the elements of a 16-byte copy, the MMA
+// depth the columns are zero-padded to, and the extra row stride of the
+// rows in shared memory (conflict-free fragment loads).
+template <typename T>
+struct TdElt;
+template <>
+struct TdElt<float> {
+  static constexpr int kVec = 4, kDepth = 8, kPad = 4;
+};
+template <>
+struct TdElt<bf16> {
+  static constexpr int kVec = 8, kDepth = 16, kPad = 8;
+};
+
+// shared memory of a streaming tdown block: w (f32: 8 slots x gwp rows x
+// NS, unpadded, columns swizzled; bf16: 8 slots x NS rows of W^T x gwp + 8),
+// n_abuf stages of fine rows, the per-row results, the tile's accumulator,
+// its child table, the slot lists and counts, the rows' parents and slots,
+// the touched span
+template <typename T>
 inline size_t tdown_smem_bytes(int ns, int rows, int gwp, int rc, int n_abuf) {
-  const size_t floats = (size_t)kSlots * gwp * ns + (size_t)n_abuf * rc * (gwp + 4) +
-                        (size_t)rc * (ns + 8) + (size_t)rows * (ns + 8);
+  const size_t w = std::is_same_v<T, float> ? (size_t)kSlots * gwp * ns
+                                            : (size_t)kSlots * ns * (gwp + 8);
+  const size_t elems = w + (size_t)n_abuf * rc * (gwp + TdElt<T>::kPad);
+  const size_t floats = (size_t)rc * (ns + 8) + (size_t)rows * (ns + 8);
   const size_t ints = (size_t)rows * kSlots + kSlots * rc + kSlots + (size_t)n_abuf * 2 * rc + 4;
-  return 4 * (floats + ints);
+  return sizeof(T) * elems + 4 * (floats + ints);
 }
 
-template <int NS>
+template <int NS, typename T>
 __global__ void __launch_bounds__(kThreads)
-tdown_kernel(const float* __restrict__ feats, const int32_t* __restrict__ up_parent,
+tdown_kernel(const T* __restrict__ feats, const int32_t* __restrict__ up_parent,
              const int32_t* __restrict__ up_koffset, const int2* __restrict__ hull,
-             const float* __restrict__ w, const float* __restrict__ scale,
+             const T* __restrict__ w, const float* __restrict__ scale,
              const float* __restrict__ bias, const uint8_t* __restrict__ mask,
-             float* __restrict__ out, int c_fine, int f_in, int c_coarse, int f_out, int rows,
+             T* __restrict__ out, int c_fine, int f_in, int c_coarse, int f_out, int rows,
              int n_tiles, int gwp, int rc, int n_abuf, int relu) {
+  using E = TdElt<T>;
+  constexpr bool kF32 = std::is_same_v<T, float>;
   constexpr int kLdV = NS + 8;  // shared row stride of the per-row results
   constexpr int kLdC = NS + 8;  // shared row stride of the accumulator
   constexpr int NT = NS / 8;    // 8-column MMA tiles of the slice
   constexpr int kPass = 4;      // ... a warp multiplies at once
 
   const int n_groups = (f_in + kGroup - 1) / kGroup;
-  const int ld_a = gwp + 4;  // shared row stride of the fine rows: conflict-free fragments
+  const int ld_a = gwp + E::kPad;  // shared row stride of the fine rows: conflict-free fragments
+  const int ld_w = gwp + 8;        // bf16: shared row stride of W^T's rows
   extern __shared__ float4 smem4[];
-  float* w_s = reinterpret_cast<float*>(smem4);            // 8 x gwp x NS
-  float* a_s = w_s + kSlots * gwp * NS;                    // n_abuf x rc x ld_a
-  float* v_s = a_s + n_abuf * rc * ld_a;                   // rc x kLdV
+  T* w_s = reinterpret_cast<T*>(smem4);                          // 8 slots of w
+  T* a_s = w_s + (kF32 ? kSlots * gwp * NS : kSlots * NS * ld_w);  // n_abuf x rc x ld_a
+  float* v_s = reinterpret_cast<float*>(a_s + n_abuf * rc * ld_a);  // rc x kLdV
   float* acc_s = v_s + rc * kLdV;                          // rows x kLdC
   int* child_s = reinterpret_cast<int*>(acc_s + rows * kLdC);  // rows x 8
   int* list_s = child_s + rows * kSlots;                   // 8 x rc
@@ -222,28 +256,16 @@ tdown_kernel(const float* __restrict__ feats, const int32_t* __restrict__ up_par
   const int first = hl.x, n_rows = max(0, hl.y - hl.x);
   const int n_sub = (n_rows + rc - 1) / rc;  // row chunks of the hull
   const int n_stages = n_sub * n_groups;                    // 0 for an empty tile
-  const float* feats_b = feats + (size_t)b * c_fine * f_in;
+  const T* feats_b = feats + (size_t)b * c_fine * f_in;
   const int32_t* par_b = up_parent + (size_t)b * c_fine;
   const int32_t* ko_b = up_koffset + (size_t)b * c_fine;
 
-  // the epilogue at the single store, 16 bytes a thread
+  // the epilogue at the single store
   auto store = [&](int r, int q, float4 v) {
     const int row = row0 + r, cc = col0 + 4 * q;
     if (row >= c_coarse) return;
-    if (scale) {
-      v.x = v.x * scale[cc] + bias[cc];
-      v.y = v.y * scale[cc + 1] + bias[cc + 1];
-      v.z = v.z * scale[cc + 2] + bias[cc + 2];
-      v.w = v.w * scale[cc + 3] + bias[cc + 3];
-    }
-    if (relu) {
-      v.x = fmaxf(v.x, 0.f);
-      v.y = fmaxf(v.y, 0.f);
-      v.z = fmaxf(v.z, 0.f);
-      v.w = fmaxf(v.w, 0.f);
-    }
-    if (mask && !mask[(size_t)b * c_coarse + row]) v = make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(out + ((size_t)b * c_coarse + row) * f_out + cc) = v;
+    store4(out + ((size_t)b * c_coarse + row) * f_out + cc,
+           epi4(v, scale, bias, cc, relu, !mask || mask[(size_t)b * c_coarse + row]));
   };
   if (n_stages == 0) {  // no children: epi(0), without shared memory
     for (int e = tid; e < rows * (NS / 4); e += kThreads)
@@ -254,7 +276,8 @@ tdown_kernel(const float* __restrict__ feats, const int32_t* __restrict__ up_par
   for (int e = tid; e < rows * kLdC; e += kThreads) acc_s[e] = 0.f;
   for (int e = tid; e < rows * kSlots; e += kThreads) child_s[e] = 0;  // no stamp
   if (tid < 4) span_s[tid] = tid % 2 ? -1 : rows;
-  auto group_cols = [&](int gi) { return min(kGroup, f_in - gi * kGroup); };  // a multiple of 4
+  auto group_cols = [&](int gi) { return min(kGroup, f_in - gi * kGroup); };  // a multiple of kVec
+  auto group_depth = [&](int gi) { return (group_cols(gi) + E::kDepth - 1) & ~(E::kDepth - 1); };
 
   // stage s: row chunk j = s / n_groups of the hull (rows j0 .. j0 + n - 1)
   // by F_in group gi = s % n_groups into buffer s % n_abuf, with the rows'
@@ -263,13 +286,14 @@ tdown_kernel(const float* __restrict__ feats, const int32_t* __restrict__ up_par
   auto load_stage = [&](int s) {
     const int j = s / n_groups, gi = s % n_groups, j0 = first + j * rc;
     const int n = min(rc, first + n_rows - j0);
-    const int c0 = gi * kGroup, kc = group_cols(gi), q4 = ((kc + 7) & ~7) / 4;
-    float* a = a_s + (s % n_abuf) * rc * ld_a;
-    for (int e = tid; e < n * q4; e += kThreads) {
-      const int jj = e / q4, q = e - jj * q4;
-      const bool ok = 4 * q < kc;  // past kc: zeros up to the MMA depth
-      cp_async16(a + jj * ld_a + 4 * q,
-                 ok ? feats_b + (size_t)(j0 + jj) * f_in + c0 + 4 * q : feats, ok ? 16 : 0);
+    const int c0 = gi * kGroup, kc = group_cols(gi), qn = group_depth(gi) / E::kVec;
+    T* a = a_s + (s % n_abuf) * rc * ld_a;
+    for (int e = tid; e < n * qn; e += kThreads) {
+      const int jj = e / qn, q = e - jj * qn;
+      const bool ok = E::kVec * q < kc;  // past kc: zeros up to the MMA depth
+      cp_async16(a + jj * ld_a + E::kVec * q,
+                 ok ? feats_b + (size_t)(j0 + jj) * f_in + c0 + E::kVec * q : feats,
+                 ok ? 16 : 0);
     }
     if (gi == 0) {
       int* pk = pk_s + (s % n_abuf) * 2 * rc;
@@ -279,15 +303,29 @@ tdown_kernel(const float* __restrict__ feats, const int32_t* __restrict__ up_par
       }
     }
     if (n_groups > 1 || s == 0) {
-      // w[k][c0 + rr][col0 + c] at w_s[(k gwp + rr) NS + (c ^ 8 (rr & 3))]:
-      // a fragment's 4 rows x 8 columns fall on 32 banks
-      const int per_slot = 4 * q4 * (NS / 4);
-      for (int e = tid; e < kSlots * per_slot; e += kThreads) {
-        const int k = e / per_slot, rem = e - k * per_slot;
-        const int rr = rem / (NS / 4), q = rem % (NS / 4);
-        const bool ok = rr < kc;
-        cp_async16(w_s + (k * gwp + rr) * NS + ((4 * q) ^ ((rr & 3) << 3)),
-                   ok ? w + ((size_t)k * f_in + c0 + rr) * f_out + col0 + 4 * q : w, ok ? 16 : 0);
+      if constexpr (kF32) {
+        // w[k][c0 + rr][col0 + c] at w_s[(k gwp + rr) NS + (c ^ 8 (rr & 3))]:
+        // a fragment's 4 rows x 8 columns fall on 32 banks
+        const int per_slot = 4 * qn * (NS / 4);
+        for (int e = tid; e < kSlots * per_slot; e += kThreads) {
+          const int k = e / per_slot, rem = e - k * per_slot;
+          const int rr = rem / (NS / 4), q = rem % (NS / 4);
+          const bool ok = rr < kc;
+          cp_async16(w_s + (k * gwp + rr) * NS + ((4 * q) ^ ((rr & 3) << 3)),
+                     ok ? w + ((size_t)k * f_in + c0 + rr) * f_out + col0 + 4 * q : w,
+                     ok ? 16 : 0);
+        }
+      } else {
+        // W^T[k][col0 + n][c0 + c] at w_s[(k NS + n) ld_w + c]
+        const int per_slot = NS * qn;
+        for (int e = tid; e < kSlots * per_slot; e += kThreads) {
+          const int k = e / per_slot, rem = e - k * per_slot;
+          const int n = rem / qn, q = rem - n * qn;
+          const bool ok = E::kVec * q < kc;
+          cp_async16(w_s + (k * NS + n) * ld_w + E::kVec * q,
+                     ok ? w + ((size_t)k * f_out + col0 + n) * f_in + c0 + E::kVec * q : w,
+                     ok ? 16 : 0);
+        }
       }
     }
   };
@@ -342,51 +380,73 @@ tdown_kernel(const float* __restrict__ feats, const int32_t* __restrict__ up_par
     }
 
     // 2. warp `slot` multiplies its rows by w[slot] as 16-row tiles on the
-    // tensor cores, four 8-column tiles at a time (twelve independent MMA
-    // chains): per 32 F_in columns three split-TF32 products into fresh
-    // accumulators, summed in f32; each row's result goes to its own row
-    // of v_s (added over F_in groups)
+    // tensor cores, four 8-column tiles at a time: per 32 F_in columns the
+    // products go into fresh accumulators (f32: three split-TF32 products
+    // each, twelve independent MMA chains; bf16: one MMA per 16 deep),
+    // summed in f32; each row's result goes to its own row of v_s (added
+    // over F_in groups)
     {
-      const float* a = a_s + buf * rc * ld_a;
+      const T* a = a_s + buf * rc * ld_a;
       const int* lst = list_s + slot * rc;
-      const float* ws = w_s + slot * gwp * NS;
-      const int kcp = (group_cols(gi) + 7) & ~7, cnt = cnt_s[slot];
+      const T* ws = w_s + slot * (kF32 ? gwp * NS : NS * ld_w);
+      const int kcp = group_depth(gi), cnt = cnt_s[slot];
       for (int m0 = 0; m0 < cnt; m0 += 16) {
         const bool v0 = m0 + g < cnt, v1 = m0 + g + 8 < cnt;
         const int j_0 = v0 ? lst[m0 + g] : 0, j_1 = v1 ? lst[m0 + g + 8] : 0;
-        const float* p0 = a + j_0 * ld_a + t4;
-        const float* p1 = a + j_1 * ld_a + t4;
+        const T* p0 = a + j_0 * ld_a + (kF32 ? 1 : 2) * t4;
+        const T* p1 = a + j_1 * ld_a + (kF32 ? 1 : 2) * t4;
 #pragma unroll
         for (int n0 = 0; n0 < NT; n0 += kPass) {
           float sum[kPass][4];
 #pragma unroll
           for (int e = 0; e < kPass * 4; ++e) sum[e / 4][e % 4] = 0.f;
           for (int k0 = 0; k0 < kcp; k0 += kChunk) {
-            float part[kPass][3][4];
-#pragma unroll
-            for (int e = 0; e < kPass * 12; ++e) part[e / 12][(e / 4) % 3][e % 4] = 0.f;
             const int k1 = min(k0 + kChunk, kcp);
-            for (int kk = k0; kk < k1; kk += 8) {
-              uint32_t a_hi[4], a_lo[4];
-              split_tf32(v0 ? p0[kk] : 0.f, a_hi[0], a_lo[0]);
-              split_tf32(v1 ? p1[kk] : 0.f, a_hi[1], a_lo[1]);
-              split_tf32(v0 ? p0[kk + 4] : 0.f, a_hi[2], a_lo[2]);
-              split_tf32(v1 ? p1[kk + 4] : 0.f, a_hi[3], a_lo[3]);
-              const float* q = ws + (kk + t4) * NS;
+            if constexpr (kF32) {
+              float part[kPass][3][4];
 #pragma unroll
-              for (int nt = 0; nt < kPass; ++nt) {
-                const int c = ((n0 + nt) * 8 + g) ^ (t4 << 3);
-                uint32_t b_hi[2], b_lo[2];
-                split_tf32(q[c], b_hi[0], b_lo[0]);
-                split_tf32(q[4 * NS + c], b_hi[1], b_lo[1]);
-                mma_3xtf32_sets(part[nt], a_hi, a_lo, b_hi, b_lo);
+              for (int e = 0; e < kPass * 12; ++e) part[e / 12][(e / 4) % 3][e % 4] = 0.f;
+              for (int kk = k0; kk < k1; kk += 8) {
+                uint32_t a_hi[4], a_lo[4];
+                split_tf32(v0 ? p0[kk] : 0.f, a_hi[0], a_lo[0]);
+                split_tf32(v1 ? p1[kk] : 0.f, a_hi[1], a_lo[1]);
+                split_tf32(v0 ? p0[kk + 4] : 0.f, a_hi[2], a_lo[2]);
+                split_tf32(v1 ? p1[kk + 4] : 0.f, a_hi[3], a_lo[3]);
+                const float* q = ws + (kk + t4) * NS;
+#pragma unroll
+                for (int nt = 0; nt < kPass; ++nt) {
+                  const int c = ((n0 + nt) * 8 + g) ^ (t4 << 3);
+                  uint32_t b_hi[2], b_lo[2];
+                  split_tf32(q[c], b_hi[0], b_lo[0]);
+                  split_tf32(q[4 * NS + c], b_hi[1], b_lo[1]);
+                  mma_3xtf32_sets(part[nt], a_hi, a_lo, b_hi, b_lo);
+                }
               }
+#pragma unroll
+              for (int nt = 0; nt < kPass; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  sum[nt][e] += part[nt][0][e] + (part[nt][1][e] + part[nt][2][e]);
+            } else {
+              float part[kPass][4];
+#pragma unroll
+              for (int e = 0; e < kPass * 4; ++e) part[e / 4][e % 4] = 0.f;
+              for (int kk = k0; kk < k1; kk += 16) {
+                const uint32_t af[4] = {v0 ? ld_pair(p0 + kk) : 0u, v1 ? ld_pair(p1 + kk) : 0u,
+                                        v0 ? ld_pair(p0 + kk + 8) : 0u,
+                                        v1 ? ld_pair(p1 + kk + 8) : 0u};
+#pragma unroll
+                for (int nt = 0; nt < kPass; ++nt) {
+                  const T* q = ws + ((n0 + nt) * 8 + g) * ld_w + kk + 2 * t4;
+                  const uint32_t bf[2] = {ld_pair(q), ld_pair(q + 8)};
+                  mma_bf16(part[nt], af, bf);
+                }
+              }
+#pragma unroll
+              for (int nt = 0; nt < kPass; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) sum[nt][e] += part[nt][e];
             }
-#pragma unroll
-            for (int nt = 0; nt < kPass; ++nt)
-#pragma unroll
-              for (int e = 0; e < 4; ++e)
-                sum[nt][e] += part[nt][0][e] + (part[nt][1][e] + part[nt][2][e]);
           }
 #pragma unroll
           for (int nt = 0; nt < kPass; ++nt) {
@@ -452,30 +512,50 @@ tdown_kernel(const float* __restrict__ feats, const int32_t* __restrict__ up_par
 constexpr int kGatherRows = 128;
 constexpr int kGatherChunk = 64;        // F_in columns of a stage, at most
 constexpr int kRing = 2;                // stage buffers: one loads while one multiplies
-constexpr int kLdG = kGatherChunk + 4;  // shared row stride of a stage's rows
-constexpr int kLdW = kSliceCols + 8;    // shared row stride of a stage's w rows
-constexpr int kGatherStage = kGatherRows * kLdG + kGatherChunk * kLdW;
+constexpr int kLdW = kSliceCols + 8;    // f32: shared row stride of a stage's w rows
 
-inline size_t tdown_gather_smem_bytes() {
-  return 4 * ((size_t)kRing * kGatherStage + (size_t)kGatherRows * (kSliceCols + 8) +
-              (size_t)kSlots * kGatherRows + 2 * kSlots + 1);
+// shared row stride of a stage's gathered rows (bf16: and of its W^T rows)
+template <typename T>
+__host__ __device__ constexpr int gather_ld() {
+  return kGatherChunk + TdElt<T>::kPad;
+}
+// a stage: the gathered rows, then w's chunk rows x 32 columns (f32) or
+// W^T's 32 rows x the chunk (bf16)
+template <typename T>
+__host__ __device__ constexpr int gather_stage_elems() {
+  return std::is_same_v<T, float> ? kGatherRows * gather_ld<T>() + kGatherChunk * kLdW
+                                  : (kGatherRows + kSliceCols) * gather_ld<T>();
 }
 
-__global__ void __launch_bounds__(kThreads)
-tdown_gather_kernel(const float* __restrict__ feats, const int32_t* __restrict__ up_parent,
+template <typename T>
+inline size_t tdown_gather_smem_bytes() {
+  return sizeof(T) * kRing * gather_stage_elems<T>() +
+         4 * ((size_t)kGatherRows * (kSliceCols + 8) + (size_t)kSlots * kGatherRows +
+              2 * kSlots + 1);
+}
+
+// two blocks an SM; without the bound ptxas gives the f32 body 64
+// registers and spills
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+tdown_gather_kernel(const T* __restrict__ feats, const int32_t* __restrict__ up_parent,
                     const int32_t* __restrict__ up_koffset, const int2* __restrict__ hull,
-                    const float* __restrict__ w, const float* __restrict__ scale,
+                    const T* __restrict__ w, const float* __restrict__ scale,
                     const float* __restrict__ bias, const uint8_t* __restrict__ mask,
-                    float* __restrict__ out, int c_fine, int f_in, int c_coarse, int f_out,
+                    T* __restrict__ out, int c_fine, int f_in, int c_coarse, int f_out,
                     int n_tiles, int relu) {
+  using E = TdElt<T>;
+  constexpr bool kF32 = std::is_same_v<T, float>;
   constexpr int NS = kSliceCols;
+  constexpr int kLdG = gather_ld<T>();
+  constexpr int kStage = gather_stage_elems<T>();
   constexpr int kLdC = NS + 8;  // shared row stride of the accumulator
   extern __shared__ float4 smem4[];
-  float* stage_s = reinterpret_cast<float*>(smem4);                    // kRing x kGatherStage
-  float* acc_s = stage_s + kRing * kGatherStage;                       // 128 x kLdC
-  int* pair_s = reinterpret_cast<int*>(acc_s + kGatherRows * kLdC);    // 8 x 128
-  int* cnt_s = pair_s + kSlots * kGatherRows;                          // 8
-  int* list_s = cnt_s + kSlots;                                        // active slots, count
+  T* stage_s = reinterpret_cast<T*>(smem4);                             // kRing x kStage
+  float* acc_s = reinterpret_cast<float*>(stage_s + kRing * kStage);    // 128 x kLdC
+  int* pair_s = reinterpret_cast<int*>(acc_s + kGatherRows * kLdC);     // 8 x 128
+  int* cnt_s = pair_s + kSlots * kGatherRows;                           // 8
+  int* list_s = cnt_s + kSlots;                                         // active slots, count
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -487,28 +567,16 @@ tdown_gather_kernel(const float* __restrict__ feats, const int32_t* __restrict__
   wait_for_hulls();
   const int2 hl = hull[(size_t)b * n_tiles + tile];
   const int first = hl.x, n_rows = max(0, hl.y - hl.x);
-  const float* feats_b = feats + (size_t)b * c_fine * f_in;
+  const T* feats_b = feats + (size_t)b * c_fine * f_in;
   const int32_t* par_b = up_parent + (size_t)b * c_fine;
   const int32_t* ko_b = up_koffset + (size_t)b * c_fine;
 
-  // the epilogue at the single store, 16 bytes a thread
+  // the epilogue at the single store
   auto put = [&](int r, int q, float4 v) {
     const int row = row0 + r, cc = col0 + 4 * q;
     if (row >= c_coarse) return;
-    if (scale) {
-      v.x = v.x * scale[cc] + bias[cc];
-      v.y = v.y * scale[cc + 1] + bias[cc + 1];
-      v.z = v.z * scale[cc + 2] + bias[cc + 2];
-      v.w = v.w * scale[cc + 3] + bias[cc + 3];
-    }
-    if (relu) {
-      v.x = fmaxf(v.x, 0.f);
-      v.y = fmaxf(v.y, 0.f);
-      v.z = fmaxf(v.z, 0.f);
-      v.w = fmaxf(v.w, 0.f);
-    }
-    if (mask && !mask[(size_t)b * c_coarse + row]) v = make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(out + ((size_t)b * c_coarse + row) * f_out + cc) = v;
+    store4(out + ((size_t)b * c_coarse + row) * f_out + cc,
+           epi4(v, scale, bias, cc, relu, !mask || mask[(size_t)b * c_coarse + row]));
   };
   if (n_rows == 0) {  // no children: epi(0)
     for (int e = tid; e < kGatherRows * (NS / 4); e += kThreads)
@@ -552,78 +620,99 @@ tdown_gather_kernel(const float* __restrict__ feats, const int32_t* __restrict__
 
   const int n_chunks = (f_in + kGatherChunk - 1) / kGatherChunk;
   const int n_stages = list_s[kSlots] * n_chunks;  // (slot, F_in chunk) pairs
-  auto padded = [&](int c) { return (min(kGatherChunk, f_in - c * kGatherChunk) + 7) & ~7; };
+  auto padded = [&](int c) {
+    return (min(kGatherChunk, f_in - c * kGatherChunk) + E::kDepth - 1) & ~(E::kDepth - 1);
+  };
   // stage s -> buffer `buf`: slot k = list_s[s / n_chunks] and chunk c =
   // s % n_chunks: the slot's children's chunk c gathered into rows 0 .. n-1,
-  // and w[k]'s rows of chunk c in this block's columns
+  // and w[k]'s rows of chunk c in this block's columns (bf16: W^T's rows of
+  // the columns, chunk c)
   auto load_stage = [&](int s, int buf) {
     const int k = list_s[s / n_chunks], c = s % n_chunks;
-    float* a_s = stage_s + buf * kGatherStage;
-    float* b_s = a_s + kGatherRows * kLdG;
-    const int c0 = c * kGatherChunk, kc = min(kGatherChunk, f_in - c0), q4 = padded(c) / 4;
+    T* a_s = stage_s + buf * kStage;
+    T* b_s = a_s + kGatherRows * kLdG;
+    const int c0 = c * kGatherChunk, kc = min(kGatherChunk, f_in - c0);
+    const int qn = padded(c) / E::kVec;
     const int* pairs = pair_s + k * kGatherRows;
-    for (int e = tid; e < cnt_s[k] * q4; e += kThreads) {
-      const int j = e / q4, q = e - j * q4;
-      const bool ok = 4 * q < kc;
-      const float* src = feats_b + (size_t)(pairs[j] & 0xffffff) * f_in + c0 + 4 * q;
-      cp_async16(a_s + j * kLdG + 4 * q, ok ? src : feats, ok ? 16 : 0);
+    for (int e = tid; e < cnt_s[k] * qn; e += kThreads) {
+      const int j = e / qn, q = e - j * qn;
+      const bool ok = E::kVec * q < kc;
+      const T* src = feats_b + (size_t)(pairs[j] & 0xffffff) * f_in + c0 + E::kVec * q;
+      cp_async16(a_s + j * kLdG + E::kVec * q, ok ? src : feats, ok ? 16 : 0);
     }
-    const float* w_k = w + ((size_t)k * f_in + c0) * f_out + col0;
-    for (int e = tid; e < 4 * q4 * (NS / 4); e += kThreads) {
-      const int rr = e / (NS / 4), q = e % (NS / 4);
-      const bool ok = rr < kc;
-      cp_async16(b_s + rr * kLdW + 4 * q, ok ? w_k + (size_t)rr * f_out + 4 * q : w, ok ? 16 : 0);
+    if constexpr (kF32) {
+      const float* w_k = w + ((size_t)k * f_in + c0) * f_out + col0;
+      for (int e = tid; e < 4 * qn * (NS / 4); e += kThreads) {
+        const int rr = e / (NS / 4), q = e % (NS / 4);
+        const bool ok = rr < kc;
+        cp_async16(b_s + rr * kLdW + 4 * q, ok ? w_k + (size_t)rr * f_out + 4 * q : w,
+                   ok ? 16 : 0);
+      }
+    } else {
+      const T* w_k = w + ((size_t)k * f_out + col0) * f_in + c0;
+      for (int e = tid; e < NS * qn; e += kThreads) {
+        const int n = e / qn, q = e - n * qn;
+        const bool ok = E::kVec * q < kc;
+        cp_async16(b_s + n * kLdG + E::kVec * q, ok ? w_k + (size_t)n * f_in + E::kVec * q : w,
+                   ok ? 16 : 0);
+      }
     }
   };
   // warp (np, mg): the stage's 16-row tiles mg, mg + 4, ... by its 16
-  // columns np, six independent accumulators (2 column tiles x 3 split
-  // products), added into the accumulator at the rows' places; within a
-  // stage every (row, column) has one owner
+  // columns np, added into the accumulator at the rows' places; within a
+  // stage every (row, column) has one owner.  f32: six independent
+  // accumulators (2 column tiles x 3 split products); bf16: mma_stage_bf16
   auto compute_stage = [&](int s, int buf) {
     const int k = list_s[s / n_chunks], c = s % n_chunks;
     const int n = cnt_s[k];
     const int* pairs = pair_s + k * kGatherRows;
-    const float* a_s = stage_s + buf * kGatherStage;
-    const float* b_s = a_s + kGatherRows * kLdG + np * 16;
+    const T* a_s = stage_s + buf * kStage;
     const int kcp = padded(c);
-    for (int mt = mg; mt * 16 < n; mt += 4) {
-      const int j0 = mt * 16 + g, j1 = j0 + 8;
-      const bool v0 = j0 < n, v1 = j1 < n;  // rows past n hold stale data
-      float part[2][3][4];
+    if constexpr (!kF32) {
+      mma_stage_bf16(a_s, kLdG, a_s + (kGatherRows + np * 16) * kLdG, kLdG, pairs, n, kcp, mg,
+                     4, acc_s, kLdC, np * 16);
+    } else {
+      const float* b_s = a_s + kGatherRows * kLdG + np * 16;
+      for (int mt = mg; mt * 16 < n; mt += 4) {
+        const int j0 = mt * 16 + g, j1 = j0 + 8;
+        const bool v0 = j0 < n, v1 = j1 < n;  // rows past n hold stale data
+        float part[2][3][4];
 #pragma unroll
-      for (int e = 0; e < 24; ++e) part[e / 12][(e / 4) % 3][e % 4] = 0.f;
+        for (int e = 0; e < 24; ++e) part[e / 12][(e / 4) % 3][e % 4] = 0.f;
 #pragma unroll 2
-      for (int kk = 0; kk < kcp; kk += 8) {
-        uint32_t a_hi[4], a_lo[4], b_hi[2][2], b_lo[2][2];
-        const float* p = a_s + j0 * kLdG + kk + t;
-        split_tf32(v0 ? p[0] : 0.f, a_hi[0], a_lo[0]);
-        split_tf32(v1 ? p[8 * kLdG] : 0.f, a_hi[1], a_lo[1]);
-        split_tf32(v0 ? p[4] : 0.f, a_hi[2], a_lo[2]);
-        split_tf32(v1 ? p[8 * kLdG + 4] : 0.f, a_hi[3], a_lo[3]);
+        for (int kk = 0; kk < kcp; kk += 8) {
+          uint32_t a_hi[4], a_lo[4], b_hi[2][2], b_lo[2][2];
+          const float* p = a_s + j0 * kLdG + kk + t;
+          split_tf32(v0 ? p[0] : 0.f, a_hi[0], a_lo[0]);
+          split_tf32(v1 ? p[8 * kLdG] : 0.f, a_hi[1], a_lo[1]);
+          split_tf32(v0 ? p[4] : 0.f, a_hi[2], a_lo[2]);
+          split_tf32(v1 ? p[8 * kLdG + 4] : 0.f, a_hi[3], a_lo[3]);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const float* q = b_s + (kk + t) * kLdW + nt * 8 + g;
+            split_tf32(q[0], b_hi[nt][0], b_lo[nt][0]);
+            split_tf32(q[4 * kLdW], b_hi[nt][1], b_lo[nt][1]);
+          }
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            mma_3xtf32_sets(part[nt], a_hi, a_lo, b_hi[nt], b_lo[nt]);
+        }
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt) {
-          const float* q = b_s + (kk + t) * kLdW + nt * 8 + g;
-          split_tf32(q[0], b_hi[nt][0], b_lo[nt][0]);
-          split_tf32(q[4 * kLdW], b_hi[nt][1], b_lo[nt][1]);
-        }
+          float v[4];
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) mma_3xtf32_sets(part[nt], a_hi, a_lo, b_hi[nt], b_lo[nt]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        float v[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) v[e] = part[nt][0][e] + (part[nt][1][e] + part[nt][2][e]);
-        const int col = np * 16 + nt * 8 + 2 * t;
-        if (v0) {
-          float2* dst = reinterpret_cast<float2*>(acc_s + (pairs[j0] >> 24) * kLdC + col);
-          const float2 o = *dst;
-          *dst = make_float2(o.x + v[0], o.y + v[1]);
-        }
-        if (v1) {
-          float2* dst = reinterpret_cast<float2*>(acc_s + (pairs[j1] >> 24) * kLdC + col);
-          const float2 o = *dst;
-          *dst = make_float2(o.x + v[2], o.y + v[3]);
+          for (int e = 0; e < 4; ++e) v[e] = part[nt][0][e] + (part[nt][1][e] + part[nt][2][e]);
+          const int col = np * 16 + nt * 8 + 2 * t;
+          if (v0) {
+            float2* dst = reinterpret_cast<float2*>(acc_s + (pairs[j0] >> 24) * kLdC + col);
+            const float2 o = *dst;
+            *dst = make_float2(o.x + v[0], o.y + v[1]);
+          }
+          if (v1) {
+            float2* dst = reinterpret_cast<float2*>(acc_s + (pairs[j1] >> 24) * kLdC + col);
+            const float2 o = *dst;
+            *dst = make_float2(o.x + v[2], o.y + v[3]);
+          }
         }
       }
     }
@@ -684,6 +773,49 @@ int launch_body(void (*kern)(Params...), dim3 grid, size_t smem, cudaStream_t st
   return (int)cudaLaunchKernelEx(&cfg, kern, static_cast<Params>(args)...);
 }
 
+// hull: (batch, ceil(c_coarse / rows)) int2 scratch.  gather: the
+// gathering body (rows 128, rc unused), else the streaming body (rows and rc
+// 32, 64 or 128).  f_out a multiple of 32 (the column slice), f_in of 4
+// (f32) or 8 (bf16, w as W^T (8, f_out, f_in)).  Two launches; returns the
+// first error (or the attribute call's).
+template <typename T>
+int launch_tdown(const T* feats, const int32_t* up_parent, const int32_t* up_koffset,
+                 const T* w, const float* scale, const float* bias, const uint8_t* mask,
+                 int32_t* hull, T* out, int batch, int c_fine, int f_in, int c_coarse,
+                 int f_out, int rows, int rc, int gather, int relu, cudaStream_t st) {
+  constexpr int cols = kSliceCols;
+  if ((rows != 32 && rows != 64 && rows != 128) || (gather && rows != kGatherRows) ||
+      f_out % cols || f_in % TdElt<T>::kVec || f_in <= 0 || c_fine <= 0 || c_coarse <= 0 ||
+      c_fine >= (1 << 24))
+    return (int)cudaErrorInvalidValue;
+  int2* hull2 = reinterpret_cast<int2*>(hull);
+  const int n_tiles = (c_coarse + rows - 1) / rows;
+  const dim3 grid(f_out / cols, n_tiles, batch);
+  if (gather) {
+    const size_t smem = tdown_gather_smem_bytes<T>();
+    int err = launch_hulls(up_parent, hull2, batch, c_fine, c_coarse, rows, st);
+    if (err != 0) return err;
+    return launch_body(tdown_gather_kernel<T>, grid, smem, st, feats, up_parent, up_koffset,
+                       (const int2*)hull2, w, scale, bias, mask, out, c_fine, f_in, c_coarse,
+                       f_out, n_tiles, relu);
+  }
+  const int n_groups = (f_in + kGroup - 1) / kGroup;
+  constexpr int depth = TdElt<T>::kDepth;
+  const int gwp = n_groups > 1 ? kGroup : (f_in + depth - 1) & ~(depth - 1);
+  if (rc != 32 && rc != 64 && rc != kMaxRowChunk) return (int)cudaErrorInvalidValue;
+  // two stage buffers (the next stage loads while one multiplies) where
+  // they fit and w stays (one F_in group)
+  const int n_abuf =
+      n_groups == 1 && tdown_smem_bytes<T>(cols, rows, gwp, rc, 2) <= kMaxSmem ? 2 : 1;
+  const size_t smem = tdown_smem_bytes<T>(cols, rows, gwp, rc, n_abuf);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  int err = launch_hulls(up_parent, hull2, batch, c_fine, c_coarse, rows, st);
+  if (err != 0) return err;
+  return launch_body(tdown_kernel<cols, T>, grid, smem, st, feats, up_parent, up_koffset,
+                     (const int2*)hull2, w, scale, bias, mask, out, c_fine, f_in, c_coarse,
+                     f_out, rows, n_tiles, gwp, rc, n_abuf, relu);
+}
+
 }  // namespace egonn
 
 // The hulls alone, for tests and launch sweeps: hull (batch, ceil(c_coarse /
@@ -694,44 +826,25 @@ extern "C" int egonn_tdown_hulls(const int32_t* up_parent, int32_t* hull, int ba
                              rows, static_cast<cudaStream_t>(stream));
 }
 
-// hull: (batch, ceil(c_coarse / rows)) int2 scratch.  gather: the
-// gathering body (rows 128, rc unused), else the streaming body (rows and rc
-// 32, 64 or 128).  f_out a multiple of 32 (the column slice), f_in of 4.
-// Two launches; returns the first error (or the attribute call's).
+// f32 features, weights and output (split TF32)
 extern "C" int egonn_tdown(const float* feats, const int32_t* up_parent,
                            const int32_t* up_koffset, const float* w, const float* scale,
                            const float* bias, const uint8_t* mask, int32_t* hull, float* out,
                            int batch, int c_fine, int f_in, int c_coarse, int f_out, int rows,
                            int rc, int gather, int relu, void* stream) {
-  constexpr int cols = egonn::kSliceCols;
-  if ((rows != 32 && rows != 64 && rows != 128) || (gather && rows != egonn::kGatherRows) ||
-      f_out % cols || f_in % 4 || f_in <= 0 || c_fine <= 0 || c_coarse <= 0 ||
-      c_fine >= (1 << 24))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int2* hull2 = reinterpret_cast<int2*>(hull);
-  const int n_tiles = (c_coarse + rows - 1) / rows;
-  const dim3 grid(f_out / cols, n_tiles, batch);
-  if (gather) {
-    const size_t smem = egonn::tdown_gather_smem_bytes();
-    int err = egonn::launch_hulls(up_parent, hull2, batch, c_fine, c_coarse, rows, st);
-    if (err != 0) return err;
-    return egonn::launch_body(egonn::tdown_gather_kernel, grid, smem, st, feats, up_parent,
-                              up_koffset, (const int2*)hull2, w, scale, bias, mask, out, c_fine,
-                              f_in, c_coarse, f_out, n_tiles, relu);
-  }
-  const int n_groups = (f_in + egonn::kGroup - 1) / egonn::kGroup;
-  const int gwp = n_groups > 1 ? egonn::kGroup : (f_in + 7) & ~7;
-  if (rc != 32 && rc != 64 && rc != egonn::kMaxRowChunk) return (int)cudaErrorInvalidValue;
-  // two stage buffers (the next stage loads while one multiplies) where
-  // they fit and w stays (one F_in group)
-  const int n_abuf =
-      n_groups == 1 && egonn::tdown_smem_bytes(cols, rows, gwp, rc, 2) <= egonn::kMaxSmem ? 2 : 1;
-  const size_t smem = egonn::tdown_smem_bytes(cols, rows, gwp, rc, n_abuf);
-  if (smem > egonn::kMaxSmem) return (int)cudaErrorInvalidValue;
-  int err = egonn::launch_hulls(up_parent, hull2, batch, c_fine, c_coarse, rows, st);
-  if (err != 0) return err;
-  return egonn::launch_body(egonn::tdown_kernel<cols>, grid, smem, st, feats, up_parent,
-                            up_koffset, (const int2*)hull2, w, scale, bias, mask, out, c_fine, f_in,
-                            c_coarse, f_out, rows, n_tiles, gwp, rc, n_abuf, relu);
+  return egonn::launch_tdown(feats, up_parent, up_koffset, w, scale, bias, mask, hull, out, batch,
+                             c_fine, f_in, c_coarse, f_out, rows, rc, gather, relu,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// bf16 features and output, w_t = W^T (8, f_out, f_in) rounded to bf16
+extern "C" int egonn_tdown_bf16(const egonn::bf16* feats, const int32_t* up_parent,
+                                const int32_t* up_koffset, const egonn::bf16* w_t,
+                                const float* scale, const float* bias, const uint8_t* mask,
+                                int32_t* hull, egonn::bf16* out, int batch, int c_fine, int f_in,
+                                int c_coarse, int f_out, int rows, int rc, int gather, int relu,
+                                void* stream) {
+  return egonn::launch_tdown(feats, up_parent, up_koffset, w_t, scale, bias, mask, hull, out,
+                             batch, c_fine, f_in, c_coarse, f_out, rows, rc, gather, relu,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -159,7 +159,9 @@ class Linear(nn.Module):
         self.bias = _uniform((out_features,), bound, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.weight + self.bias
+        """In the promoted type of x and the weight, as flax's Dense: bf16
+        activations give f32 outputs."""
+        return x.to(torch.promote_types(x.dtype, self.weight.dtype)) @ self.weight + self.bias
 
 
 class ECALayer(nn.Module):

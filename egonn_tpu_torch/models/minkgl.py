@@ -12,6 +12,11 @@
   Either head can be switched off per call (its keys are then absent);
   `ignore_keypoint_regressor` puts the keypoints at the supervoxel centres
   (the reference's ablation).
+
+Under `EGONN_BF16_ACTS=1` on a CUDA card the trunk's and heads' activations
+are bf16 from the stem on (`sparse/conv.py::activation_dtype`, looked up at
+each call); the heads' Linear layers promote them to f32, so every output
+is f32, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from egonn_tpu_torch.models.layers import (
     down_conv,
     l2_normalize,
 )
+from egonn_tpu_torch.sparse import conv as sconv
 from egonn_tpu_torch.sparse.norm import SparseBatchNorm
 from egonn_tpu_torch.sparse.types import Pyramid, masked
 
@@ -64,6 +70,8 @@ class MinkTrunk(nn.Module):
     def forward(self, pyramid: Pyramid) -> Dict[int, torch.Tensor]:
         lvl0 = pyramid[0]
         x = self.conv0(None, lvl0.kmap_self)
+        # bf16 activations from here on where EGONN_BF16_ACTS=1 on the card
+        x = x.to(sconv.activation_dtype(x.device))
         x = masked(torch.relu(self.bn0(x, lvl0.mask)), lvl0.mask)
         out: Dict[int, torch.Tensor] = {}
         for i, n_blocks in enumerate(self.layers, start=1):

@@ -8,6 +8,12 @@
 * `sparse_conv_ones`, `sparse_conv1x1`, `sparse_tconv2x2`: plain products
   (the JAX package leaves them to XLA), written with torch matmuls.
 
+Activations may be bf16 (`activation_dtype`, `EGONN_BF16_ACTS=1` on a CUDA
+device, as the JAX package's on a TPU): every conv returns its features'
+type.  The gather convs then run the bf16 kernels; the plain products
+compute in f32 on the bf16 values (torch's matmul does not promote, JAX's
+einsum does) and round once to bf16.
+
 The custom gradients of the JAX package (`conv.py:124-217`), as
 `torch.autograd.Function`s.  Each saves its inputs, never the gathered
 activations, and its backward is a gather program again:
@@ -36,6 +42,17 @@ from egonn_tpu_torch.sparse import kernels
 FUSE_BN_EVAL = os.environ.get("EGONN_FUSE_BN", "1") == "1"
 
 
+def activation_dtype(device) -> torch.dtype:
+    """Storage type of the EgoNN trunk's and heads' activations on `device`:
+    bf16 where EGONN_BF16_ACTS=1 (read at each call; default 0) and the
+    device is a CUDA card, as the JAX package stores them in bf16 on a TPU
+    alone; else f32.  Halves the activations' memory; the conv kernels then
+    compute as the TPU kernels do (`sparse/kernels.py`)."""
+    if os.environ.get("EGONN_BF16_ACTS", "0") == "1" and torch.device(device).type == "cuda":
+        return torch.bfloat16
+    return torch.float32
+
+
 def set_fuse_bn(enabled: bool) -> None:
     """Fuse the eval-mode BN / ReLU epilogue into the convs (default) or not."""
     global FUSE_BN_EVAL
@@ -61,7 +78,7 @@ def sparse_conv(feats: torch.Tensor, kmap: torch.Tensor, kernel: torch.Tensor,
 
     feats (B, C_in, F_in) with zero padding rows; kmap (B, K, C_out) int32
     gather indices into C_in (sentinel C_in -> zero row); kernel
-    (K, F_in, F_out).  Returns (B, C_out, F_out).
+    (K, F_in, F_out).  Returns (B, C_out, F_out) in the features' type.
 
     epi = (scale (F_out,), bias (F_out,), relu: bool, mask (B, C_out)) fuses
     the eval-mode BN affine + ReLU + row mask into the output store.  Raises
@@ -160,23 +177,26 @@ def sparse_tdown(feats: torch.Tensor, up_parent: torch.Tensor, up_koffset: torch
                  ) -> torch.Tensor:
     """k=2 s=2 down conv from the fine level's up map (up_parent/up_koffset,
     both (B, C_fine)); the same sum as sparse_conv over kmap_down, since each
-    (parent, slot) pair has at most one child.  Returns (B, c_coarse, F_out).
+    (parent, slot) pair has at most one child.  Returns (B, c_coarse, F_out)
+    in the features' type.
     Inference only: raises where a gradient is asked for."""
     _refuse_grad("sparse_tdown", feats, kernel)
     return kernels.tdown(feats, up_parent, up_koffset, kernel, c_coarse, epi=epi)
 
 
-def sparse_conv_ones(kmap: torch.Tensor, kernel: torch.Tensor, n_in_rows: int
-                     ) -> torch.Tensor:
+def sparse_conv_ones(kmap: torch.Tensor, kernel: torch.Tensor, n_in_rows: int,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Stem conv over constant-ones 1-channel features:
-    out[b, c] = sum_k [kmap[b, k, c] valid] * kernel[k, 0, :]."""
+    out[b, c] = sum_k [kmap[b, k, c] valid] * kernel[k, 0, :], summed in
+    the kernel's type and returned in `dtype`."""
     valid = (kmap < n_in_rows).to(kernel.dtype)  # (B, K, C_out)
-    return torch.matmul(valid.transpose(1, 2), kernel[:, 0, :])
+    return torch.matmul(valid.transpose(1, 2), kernel[:, 0, :]).to(dtype)
 
 
 def sparse_conv1x1(feats: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """1x1 convolution: feats (B, C, F_in) @ kernel (F_in, F_out)."""
-    return torch.matmul(feats, kernel)
+    """1x1 convolution: feats (B, C, F_in) @ kernel (F_in, F_out), in the
+    kernel's type, returned in the features'."""
+    return torch.matmul(feats.to(kernel.dtype), kernel).to(feats.dtype)
 
 
 def sparse_tconv2x2(feats_coarse: torch.Tensor, up_parent: torch.Tensor,
@@ -186,13 +206,15 @@ def sparse_tconv2x2(feats_coarse: torch.Tensor, up_parent: torch.Tensor,
     up_parent is the sentinel C_coarse).
 
     feats_coarse (B, C_coarse, F_in); up_parent, up_koffset (B, C_fine);
-    kernel (8, F_in, F_out)."""
+    kernel (8, F_in, F_out).  Computed in the kernel's type, returned in the
+    features'."""
     b, c_coarse, f_in = feats_coarse.shape
     n_slots, _, f_out = kernel.shape
     feats_p = torch.cat([feats_coarse, feats_coarse.new_zeros(b, 1, f_in)], dim=1)
     g = torch.gather(feats_p, 1, up_parent.long()[..., None].expand(-1, -1, f_in))
     # every slot's product in one matmul, then each voxel keeps its own slot
-    all_slots = torch.matmul(g, kernel.permute(1, 0, 2).reshape(f_in, n_slots * f_out))
+    all_slots = torch.matmul(g.to(kernel.dtype),
+                             kernel.permute(1, 0, 2).reshape(f_in, n_slots * f_out))
     all_slots = all_slots.reshape(b, -1, n_slots, f_out)
     slot = up_koffset.long()[..., None, None].expand(-1, -1, 1, f_out)
-    return torch.gather(all_slots, 2, slot)[:, :, 0, :]
+    return torch.gather(all_slots, 2, slot)[:, :, 0, :].to(feats_coarse.dtype)

@@ -35,13 +35,13 @@ SIGNATURES = {
         "egonn_zrun_presence": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "egonn_zrun_rank": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
-    "gather_conv.cu": {
-        "egonn_gather_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _P],
+    "gather_conv.cu": {  # the f32 and the bf16 entry points take the same arguments
+        name: [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+        for name in ("egonn_gather_conv", "egonn_gather_conv_bf16")
     },
     "tdown.cu": {
-        "egonn_tdown": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _P],
+        **{name: [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+           for name in ("egonn_tdown", "egonn_tdown_bf16")},
         "egonn_tdown_hulls": [_P, _P, _I, _I, _I, _I, _P],
     },
     "gather_dw.cu": {

@@ -46,13 +46,24 @@ needs into shared memory and search there (`zrun_chunk` picks the chunk).
 (`lookup_down`) forms the child queries itself, for every lookup-built level
 of a pyramid in one launch.
 
+bf16 features (the activations under `EGONN_BF16_ACTS=1`, `sparse/conv.py`)
+take the bf16 kernels of `gather_conv` and `tdown` (`csrc/bf16.cuh`): the
+TPU kernels' numerics, the weights rounded to bf16 (to nearest even) and
+transposed by the wrapper, bf16 x bf16 products on the tensor cores
+(`mma.sync` m16n8k16) summed in f32, the epilogue in f32 and one rounding of
+the output to bf16; their plain versions compute the same from the
+bf16-rounded weights.  They count under `gather_conv_bf16` and `tdown_bf16`.
+f32 features take the split-TF32 kernels as before; any other type raises.
+`gather_dw` takes f32 only.
+
 Widths: the kernels take F_out a multiple of 32 up to 512 and F_in a
-multiple of 4 up to 128 or of 32 up to 512 (gather_conv, tdown:
+multiple of 4 (bf16: 8) up to 128 or of 32 up to 512 (gather_conv, tdown:
 `conv_widths_ok`), or multiples of 32 up to 512 (gather_dw: `dw_widths_ok`).
 The wrappers take any width: `width_plan` zero-pads each width up to the
 next one the kernel takes and splits widths above 512 into launches of at
 most 512 (exact: a split F_in's partial sums are added before the
-epilogue).  No float atomics anywhere: equal inputs give bit-equal outputs.
+epilogue; bf16 features, whose output is rounded once, take F_in up to
+512).  No float atomics anywhere: equal inputs give bit-equal outputs.
 
 Dispatch: a wrapper given CUDA tensors launches its kernel (building the
 kernels on first use) or raises; given CPU tensors it runs the plain version.
@@ -91,7 +102,7 @@ _DW_BLOCKS = 8 * 132  # gather_dw's partial-pass blocks: eight per SM of an H100
 _SPLIT_BLOCKS, _SPLIT_STAGES = 1280, 24
 # kernel launches per wrapper (CUDA tensors only; the plain versions do not count)
 LAUNCHES = {"zrun_presence": 0, "zrun_rank": 0, "gather_conv": 0, "tdown": 0, "gather_dw": 0,
-            "lookup": 0}
+            "lookup": 0, "gather_conv_bf16": 0, "tdown_bf16": 0}
 # per CUDA device: zrun and lookup blocks whose table slice did not fit
 # (`zrun_overflow_blocks`, `lookup_overflow_blocks`)
 _ZRUN_OVERFLOW: dict = {}
@@ -136,6 +147,33 @@ def _stream(t: torch.Tensor) -> int:
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def _is_bf16(feats: torch.Tensor) -> bool:
+    """Whether conv features take the bf16 kernels (f32: the split-TF32
+    ones); any other type raises."""
+    if feats.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"feats: dtype {feats.dtype}, expected torch.float32 or torch.bfloat16")
+    return feats.dtype == torch.bfloat16
+
+
+def _bf16_transposed(kernel: torch.Tensor) -> torch.Tensor:
+    """W^T (K, F_out, F_in), rounded to bf16 (to nearest even): the weights
+    as the bf16 kernels read them."""
+    out = torch.empty((kernel.shape[0], kernel.shape[2], kernel.shape[1]), dtype=torch.bfloat16,
+                      device=kernel.device)
+    return out.copy_(kernel.transpose(1, 2))
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Elementwise distance of two bf16 tensors in bf16 units in the last
+    place (+0 and -0 equal): the bf16 kernels round the same f32 sums as
+    their plain versions, summed in another order, so they are held within
+    one."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(got) - ordered(want)).abs()
 
 
 def _apply_epi(out: torch.Tensor, epi: Optional[tuple]) -> torch.Tensor:
@@ -265,7 +303,18 @@ def zrun_rank(sorted_keys: torch.Tensor, q_lo: torch.Tensor, kz: int):
 def gather_conv_plain(feats: torch.Tensor, kmap: torch.Tensor, kernel: torch.Tensor,
                       epi: Optional[tuple] = None) -> torch.Tensor:
     """out[b, c] = sum_k feats[b, kmap[b, k, c]] @ kernel[k] (+ epi); an index
-    outside [0, C_in) gathers a zero row."""
+    outside [0, C_in) gathers a zero row.
+
+    bf16 feats: the bf16 kernels' (and the TPU kernel's) numerics: the
+    kernel rounded to bf16, the f32 sums of the exact bf16 x bf16 products,
+    the epilogue in f32, one rounding of the output to bf16."""
+    if feats.dtype == torch.bfloat16:
+        out = _gather_sum(feats.float(), kmap, kernel.to(torch.bfloat16).float())
+        return _apply_epi(out, epi).to(torch.bfloat16)
+    return _apply_epi(_gather_sum(feats, kmap, kernel), epi)
+
+
+def _gather_sum(feats: torch.Tensor, kmap: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     b, c_in, f_in = feats.shape
     feats_p = torch.cat([feats, feats.new_zeros(b, 1, f_in)], dim=1)
     idx = torch.where((kmap >= 0) & (kmap < c_in), kmap, c_in).long()
@@ -273,7 +322,7 @@ def gather_conv_plain(feats: torch.Tensor, kmap: torch.Tensor, kernel: torch.Ten
     for k in range(kmap.shape[1]):
         g = torch.gather(feats_p, 1, idx[:, k, :, None].expand(-1, -1, f_in))
         acc = acc + torch.matmul(g, kernel[k])
-    return _apply_epi(acc, epi)
+    return acc
 
 
 def _check_epi(epi, b: int, c_out: int, f_out: int):
@@ -286,11 +335,13 @@ def _check_epi(epi, b: int, c_out: int, f_out: int):
     return scale, bias, int(bool(relu)), mask
 
 
-def conv_widths_ok(f_in: int, f_out: int) -> bool:
+def conv_widths_ok(f_in: int, f_out: int, bf16: bool = False) -> bool:
     """The widths gather_conv and tdown take: F_out a multiple of 32 up to
-    512; F_in a multiple of 4 up to 128, or a multiple of 32 up to 512."""
+    512; F_in a multiple of 4 (`bf16` features: 8, a 16-byte row piece) up
+    to 128, or a multiple of 32 up to 512."""
+    m = 8 if bf16 else 4
     return (f_out % 32 == 0 and 32 <= f_out <= 512
-            and ((f_in % 4 == 0 and 4 <= f_in <= 128) or (f_in % 32 == 0 and 32 <= f_in <= 512)))
+            and ((f_in % m == 0 and m <= f_in <= 128) or (f_in % 32 == 0 and 32 <= f_in <= 512)))
 
 
 def dw_widths_ok(f_in: int, f_out: int) -> bool:
@@ -298,11 +349,11 @@ def dw_widths_ok(f_in: int, f_out: int) -> bool:
     return all(f % 32 == 0 and 32 <= f <= 512 for f in (f_in, f_out))
 
 
-def _check_widths(f_in: int, f_out: int, name: str, c_in: int) -> None:
-    if not conv_widths_ok(f_in, f_out):
+def _check_widths(f_in: int, f_out: int, name: str, c_in: int, bf16: bool = False) -> None:
+    if not conv_widths_ok(f_in, f_out, bf16):
         raise ValueError(f"{name}: F_in={f_in}, F_out={f_out}; the kernel takes F_out a "
-                         "multiple of 32 up to 512 and F_in a multiple of 4 up to 128 or of "
-                         "32 up to 512")
+                         f"multiple of 32 up to 512 and F_in a multiple of {8 if bf16 else 4} up "
+                         "to 128 or of 32 up to 512")
     if c_in >= 1 << 24:  # the kernel packs (row, source) into one int
         raise ValueError(f"{name}: {c_in} input rows; the kernel takes fewer than 2^24")
 
@@ -320,11 +371,12 @@ class WidthPlan(NamedTuple):
 _MAX_WIDTH = 512  # the widest F_in / F_out chunk of one launch
 
 
-def width_plan(f_in: int, f_out: int, dw: bool = False) -> WidthPlan:
+def width_plan(f_in: int, f_out: int, dw: bool = False, bf16: bool = False) -> WidthPlan:
     """The launches of a call at widths (F_in, F_out).
 
-    F_out is padded to a multiple of 32; F_in to a multiple of 4 up to 128,
-    else of 32 (gather_conv, tdown), or of 32 (`dw`: gather_dw).  Widths
+    F_out is padded to a multiple of 32; F_in to a multiple of 4 (`bf16`
+    features: 8) up to 128, else of 32 (gather_conv, tdown), or of 32
+    (`dw`: gather_dw).  Widths
     above 512 are cut into chunks of 512 and a remainder: F_out chunks are
     separate columns of the output (of dW); F_in chunks of a conv are
     partial sums, added before the epilogue is applied once, and of dW
@@ -336,7 +388,7 @@ def width_plan(f_in: int, f_out: int, dw: bool = False) -> WidthPlan:
     def chunks(f):
         return tuple((s, min(s + _MAX_WIDTH, f)) for s in range(0, f, _MAX_WIDTH))
 
-    fi = up(f_in, 32) if dw or f_in > 128 else up(f_in, 4)
+    fi = up(f_in, 32) if dw or f_in > 128 else up(f_in, 8 if bf16 else 4)
     fo = up(f_out, 32)
     return WidthPlan(fi, fo, chunks(fi), chunks(fo))
 
@@ -360,6 +412,10 @@ def planned_conv(launch: Callable, feats: torch.Tensor, kernel: torch.Tensor,
     if epi is not None:
         epi = (_pad_last(epi[0], plan.f_out), _pad_last(epi[1], plan.f_out), epi[2], epi[3])
     split_in = len(plan.in_chunks) > 1
+    if split_in and feats.dtype == torch.bfloat16:
+        # the partial sums would be rounded to bf16 before they are added
+        raise ValueError(f"bf16 features: F_in={f_in}; the bf16 kernels take F_in up to "
+                         f"{_MAX_WIDTH}")
     feats_in = [feats[..., i0:i1].contiguous() if split_in else feats
                 for i0, i1 in plan.in_chunks]
     cols = []
@@ -413,7 +469,11 @@ def conv_cols(b: int, c_out: int, f_out: int, k_vol: int) -> int:
 
 def offset_groups(b: int, c_out: int, f_in: int, f_out: int, k_vol: int) -> int:
     """How many blocks share one output tile of gather_conv, each summing a
-    contiguous range of the offsets."""
+    contiguous range of the offsets.  Stages are counted in 32 F_in
+    columns (the f32 kernel's) for bf16 features too: on an H100 this picks
+    the bf16 kernel's fastest split, or within 11% of it, at every call of
+    the bf16 forward, where counting its own 64-column stages splits too
+    little (up to 38% slower at the deep levels; `probe_kernels.py`)."""
     cols = conv_cols(b, c_out, f_out, k_vol)
     if b * -(-c_out // 128) * (f_out // cols) > _SPLIT_BLOCKS:
         return 1
@@ -422,26 +482,30 @@ def offset_groups(b: int, c_out: int, f_in: int, f_out: int, k_vol: int) -> int:
 
 
 def _gather_conv_cuda(feats, kmap, kernel, epi):
-    """One gather_conv launch at widths the kernel takes."""
+    """One gather_conv launch at widths the kernel takes: f32 features on
+    the split-TF32 kernel, bf16 features on the bf16 one."""
     b, c_in, f_in = feats.shape
     k_vol, _, f_out = kernel.shape
     c_out = kmap.shape[2]
-    _check_widths(f_in, f_out, "gather_conv", c_in)
-    _check(feats, "feats", torch.float32, (b, c_in, f_in), align16=True)
+    bf16 = _is_bf16(feats)
+    _check_widths(f_in, f_out, "gather_conv", c_in, bf16)
+    _check(feats, "feats", feats.dtype, (b, c_in, f_in), align16=True)
     _check(kmap, "kmap", torch.int32, (b, k_vol, c_out))
     _check(kernel, "kernel", torch.float32, (k_vol, f_in, f_out), align16=True)
     scale, bias, relu, mask = _check_epi(epi, b, c_out, f_out)
-    out = torch.empty((b, c_out, f_out), dtype=torch.float32, device=feats.device)
+    out = torch.empty((b, c_out, f_out), dtype=feats.dtype, device=feats.device)
     cols = conv_cols(b, c_out, f_out, k_vol)
     n_groups = offset_groups(b, c_out, f_in, f_out, k_vol)
     partial = (torch.empty((n_groups, b, c_out, f_out), dtype=torch.float32, device=feats.device)
                if n_groups > 1 else None)
-    fn = cuda_lib.function("gather_conv.cu", "egonn_gather_conv")
-    err = fn(feats.data_ptr(), kmap.data_ptr(), kernel.data_ptr(), _ptr(scale), _ptr(bias),
+    name = "gather_conv_bf16" if bf16 else "gather_conv"
+    w = _bf16_transposed(kernel) if bf16 else kernel
+    fn = cuda_lib.function("gather_conv.cu", f"egonn_{name}")
+    err = fn(feats.data_ptr(), kmap.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(bias),
              _ptr(mask), out.data_ptr(), _ptr(partial), n_groups, b, c_in, f_in, k_vol, c_out,
              f_out, cols, relu, _stream(feats))
-    _raise_on(err, "gather_conv")
-    LAUNCHES["gather_conv"] += 1
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -449,17 +513,19 @@ def gather_conv(feats: torch.Tensor, kmap: torch.Tensor, kernel: torch.Tensor,
                 epi: Optional[tuple] = None) -> torch.Tensor:
     """Sparse conv over a gather map with the optional fused epilogue.
 
-    feats (B, C_in, F_in) f32; kmap (B, K, C_out) int32 (sentinel C_in);
-    kernel (K, F_in, F_out) f32.  Returns (B, C_out, F_out) f32.  Any
-    widths: on the card through `width_plan`'s launches."""
+    feats (B, C_in, F_in) f32 or bf16; kmap (B, K, C_out) int32 (sentinel
+    C_in); kernel (K, F_in, F_out) f32.  Returns (B, C_out, F_out) in the
+    features' type.  Any widths: on the card through `width_plan`'s
+    launches."""
     tensors = [feats, kmap, kernel] + ([epi[0], epi[1], epi[3]] if epi else [])
     if not _on_cuda(*tensors):
         return gather_conv_plain(feats, kmap, kernel, epi)
     if feats.dim() != 3 or kernel.dim() != 3 or feats.shape[2] != kernel.shape[1]:
         raise ValueError(f"feats {tuple(feats.shape)} and kernel {tuple(kernel.shape)}: "
                          "expected (B, C_in, F_in) and (K, F_in, F_out)")
+    plan = width_plan(kernel.shape[1], kernel.shape[2], bf16=_is_bf16(feats))
     return planned_conv(lambda f, w, e: _gather_conv_cuda(f, kmap, w, e), feats, kernel, epi,
-                        width_plan(kernel.shape[1], kernel.shape[2]))
+                        plan)
 
 
 # ---------------------------------------------------------------------------
@@ -517,24 +583,29 @@ def tdown_tiling(b: int, c_fine: int, f_in: int):
     tiling within 11 us of its best (`probe_kernels.py`): the gathering
     body walks 8 x F_in / 64 stages of a slot's children each, which the
     deep levels' few children do not fill, while the streaming body loads
-    all of w and its hull's rows at once."""
+    all of w and its hull's rows at once.  The bf16 bodies take the same
+    rule: within 5 us of the fastest tiling at every bf16 forward call,
+    where tilings that fit only in bf16 ((64, 128), (128, 128)) win by up to
+    5 us."""
     if f_in <= 64 or b * c_fine >= 49152:
         return 128, 0, True
     return 32, 128, False
 
 
-def tdown_tiling_ok(f_in: int, f_out: int, rows: int, rc: int, gather: bool = False) -> bool:
+def tdown_tiling_ok(f_in: int, f_out: int, rows: int, rc: int, gather: bool = False,
+                    bf16: bool = False) -> bool:
     """Whether the tdown kernel takes this tiling: the gathering body with
     128-row tiles, or the streaming body with 32, 64 or 128 rows and row
-    chunks, all of which fit a block's shared memory but chunks of 128 rows
-    beside more than 32 rows above 64 F_in columns; F_out a multiple of the
-    32-column slice."""
+    chunks, all of which fit a block's shared memory but, in f32, chunks of
+    128 rows beside more than 32 rows above 64 F_in columns (the bf16 body's
+    w and rows take half the bytes: every tiling fits); F_out a multiple of
+    the 32-column slice."""
     if f_out % 32:
         return False
     if gather:
         return rows == 128
     return (rows in (32, 64, 128) and rc in (32, 64, 128)
-            and not (f_in > 64 and rc == 128 and rows > 32))
+            and (bf16 or not (f_in > 64 and rc == 128 and rows > 32)))
 
 
 def _tdown_hulls_cuda(up_parent: torch.Tensor, c_coarse: int, rows: int) -> torch.Tensor:
@@ -550,24 +621,29 @@ def _tdown_hulls_cuda(up_parent: torch.Tensor, c_coarse: int, rows: int) -> torc
 
 
 def _tdown_cuda(feats, up_parent, up_koffset, kernel, c_coarse, epi, rows, rc, gather=False):
+    """One tdown call (hull launch + body) at widths and a tiling the kernel
+    takes: f32 features on the split-TF32 bodies, bf16 on the bf16 ones."""
     b, c_fine, f_in = feats.shape
     f_out = kernel.shape[2]
-    _check_widths(f_in, f_out, "tdown", c_fine)
-    if not tdown_tiling_ok(f_in, f_out, rows, rc, gather):
+    bf16 = _is_bf16(feats)
+    _check_widths(f_in, f_out, "tdown", c_fine, bf16)
+    if not tdown_tiling_ok(f_in, f_out, rows, rc, gather, bf16):
         raise ValueError(f"tdown: {rows}-row tiles, {rc}-row stages at F_in={f_in}; "
                          "see tdown_tiling_ok")
-    _check(feats, "feats", torch.float32, (b, c_fine, f_in), align16=True)
+    _check(feats, "feats", feats.dtype, (b, c_fine, f_in), align16=True)
     _check(up_parent, "up_parent", torch.int32, (b, c_fine))
     _check(up_koffset, "up_koffset", torch.int32, (b, c_fine))
     _check(kernel, "kernel", torch.float32, (8, f_in, f_out), align16=True)
     scale, bias, relu, mask = _check_epi(epi, b, c_coarse, f_out)
     hull = torch.empty((b, -(-c_coarse // rows), 2), dtype=torch.int32, device=feats.device)
-    out = torch.empty((b, c_coarse, f_out), dtype=torch.float32, device=feats.device)
-    fn = cuda_lib.function("tdown.cu", "egonn_tdown")
-    err = fn(feats.data_ptr(), up_parent.data_ptr(), up_koffset.data_ptr(), kernel.data_ptr(),
+    out = torch.empty((b, c_coarse, f_out), dtype=feats.dtype, device=feats.device)
+    name = "tdown_bf16" if bf16 else "tdown"
+    w = _bf16_transposed(kernel) if bf16 else kernel
+    fn = cuda_lib.function("tdown.cu", f"egonn_{name}")
+    err = fn(feats.data_ptr(), up_parent.data_ptr(), up_koffset.data_ptr(), w.data_ptr(),
              _ptr(scale), _ptr(bias), _ptr(mask), hull.data_ptr(), out.data_ptr(),
              b, c_fine, f_in, c_coarse, f_out, rows, rc, int(gather), relu, _stream(feats))
-    _raise_on(err, "tdown")
+    _raise_on(err, name)
     return out
 
 
@@ -575,9 +651,10 @@ def tdown(feats: torch.Tensor, up_parent: torch.Tensor, up_koffset: torch.Tensor
           kernel: torch.Tensor, c_coarse: int, epi: Optional[tuple] = None) -> torch.Tensor:
     """k=2 s=2 down conv driven by the fine level's up map.
 
-    feats (B, C_fine, F_in) f32; up_parent/up_koffset (B, C_fine) int32;
-    kernel (8, F_in, F_out) f32.  Returns (B, c_coarse, F_out) f32.  Any
-    widths: on the card through `width_plan`'s launches."""
+    feats (B, C_fine, F_in) f32 or bf16; up_parent/up_koffset (B, C_fine)
+    int32; kernel (8, F_in, F_out) f32.  Returns (B, c_coarse, F_out) in the
+    features' type.  Any widths: on the card through `width_plan`'s
+    launches."""
     tensors = [feats, up_parent, up_koffset, kernel] + ([epi[0], epi[1], epi[3]] if epi else [])
     if not _on_cuda(*tensors):
         return tdown_plain(feats, up_parent, up_koffset, kernel, c_coarse, epi)
@@ -585,11 +662,14 @@ def tdown(feats: torch.Tensor, up_parent: torch.Tensor, up_koffset: torch.Tensor
         raise ValueError(f"feats {tuple(feats.shape)} and kernel {tuple(kernel.shape)}: "
                          "expected (B, C_fine, F_in) and (8, F_in, F_out)")
 
+    bf16 = _is_bf16(feats)
+
     def launch(f, w, e):
         out = _tdown_cuda(f, up_parent, up_koffset, w, c_coarse, e, *tdown_tiling(*f.shape))
-        LAUNCHES["tdown"] += 1
+        LAUNCHES["tdown_bf16" if bf16 else "tdown"] += 1
         return out
-    return planned_conv(launch, feats, kernel, epi, width_plan(kernel.shape[1], kernel.shape[2]))
+    return planned_conv(launch, feats, kernel, epi,
+                        width_plan(kernel.shape[1], kernel.shape[2], bf16=bf16))
 
 
 # ---------------------------------------------------------------------------

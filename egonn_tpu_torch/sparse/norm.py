@@ -15,6 +15,10 @@ the global batch: the two passes' sums are summed over the ranks, first
 [sum x*m, sum m] for the mean, then sum (x - mean)^2 * m for the variance (the
 two-pass form of the single process), so every rank's running statistics
 come out equal.
+
+Statistics and the normalisation are computed in f32 whatever the input's
+type, and the output comes back in the input's type (bf16 activations,
+`sparse/conv.py::activation_dtype`), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -64,9 +68,9 @@ class SparseBatchNorm(nn.Module):
                 self.var.copy_((1 - self.momentum) * self.var + self.momentum * unbiased)
         else:
             mean, var = self.mean, self.var
-        y = (feats - mean) * torch.rsqrt(var + self.eps)
+        y = (feats.to(torch.float32) - mean) * torch.rsqrt(var + self.eps)
         y = y * self.scale + self.bias
-        return y * mask[..., None].to(y.dtype)
+        return (y * mask[..., None].to(y.dtype)).to(feats.dtype)
 
 
 def global_avg_pool(feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

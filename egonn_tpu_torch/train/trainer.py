@@ -78,6 +78,7 @@ from egonn_tpu_torch.parallel.mesh import (
     set_process_group,
     world_size,
 )
+from egonn_tpu_torch.sparse.conv import activation_dtype
 from egonn_tpu_torch.sparse.pyramid import capacity_report
 from egonn_tpu_torch.train.state import (
     TrainState,
@@ -125,9 +126,17 @@ class TrainStep:
     With a data-parallel `group` the clouds, point masks, pairs and t_gt are
     this rank's rows (the (B, B) masks whole) and gen is the generator every
     rank shares; the stats are the global batch's, equal on every rank.
-    The model takes rank 0's weights at construction."""
+    The model takes rank 0's weights at construction.
+
+    bf16 activations (EGONN_BF16_ACTS=1 on the card) are refused: the
+    port's bf16 path is the serving path's; the train step's bf16 gradients
+    (the dX convs and a bf16 gather_dw) are ROADMAP A.12."""
 
     def __init__(self, built: BuiltModel, params, group=None):
+        if activation_dtype(built.device) != torch.float32:
+            raise NotImplementedError("EGONN_BF16_ACTS=1: the train step runs f32 activations "
+                                      "only (its bf16 gradients are ROADMAP A.12); unset it "
+                                      "to train")
         self.built = built
         self.aug_mode = params.aug_mode
         self.group = group

@@ -3,12 +3,14 @@
 the rules in `egonn_tpu_torch/sparse/kernels.py` that choose them:
 
 - gather_conv: the column slice (32 or 64, `conv_cols`) and the number of
-  blocks that share a tile's offsets (1-4, `offset_groups`);
+  blocks that share a tile's offsets (1-4, `offset_groups`), for f32 and,
+  on the bf16 forward's calls, bf16 features (the bf16 kernel);
 - gather_dw: the number of chunks of its partial pass (`dw_tiling`), at 1/4,
   1/2, 1 and 2 times the rule's choice;
 - tdown: the gathering body, and the streaming body's coarse rows of a
   tile (32, 64, 128) by fine rows of a stage (32, 64, 128) (`tdown_tiling`),
-  and its hull launch alone;
+  and its hull launch alone; f32 and, on the bf16 forward's calls, bf16
+  (every tiling fits the bf16 bodies, `tdown_tiling_ok`);
 - zrun_presence / zrun_rank: the queries of a block (256, 512, 1024,
   `zrun_chunk`);
 - lookup (the grouped down-map launch, `lookup_down`): the coarse rows of a
@@ -19,9 +21,11 @@ the rules in `egonn_tpu_torch/sparse/kernels.py` that choose them:
   in one grouped launch against the per-level form they replace (each
   level's queries formed by torch ops, then one lookup launch per level).
 
-    python3 probe_kernels.py     # from the repository root; one CUDA card, nvcc
+    python3 probe_kernels.py       # from the repository root; one CUDA card, nvcc
+    python3 probe_kernels.py bf16  # the bf16 forward's calls alone
 
-The calls are those of one EgoNN forward and one training step at full width
+The calls are those of one EgoNN forward (f32, and bf16 under
+EGONN_BF16_ACTS=1: chip_smoke's phase 3b) and one training step at full width
 (recorded as `chip_smoke.py` records them: 8 x 65,536 points, cap0 16384; the
 train step of config/config_egonn.txt), the tdown calls of its validation
 step (32 + 8 + 8 clouds), one MinkLoc forward
@@ -40,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import os
 import sys
 import types
 
@@ -56,12 +61,15 @@ def _conv_setting(kernels, cuda_lib, args, kwargs, cols: int, n_groups: int):
     k_vol, _, f_out = kernel.shape
     c_out = kmap.shape[2]
     scale, bias, relu, mask = kernels._check_epi(kwargs.get("epi"), b, c_out, f_out)
-    out = torch.empty((b, c_out, f_out), device=feats.device)
+    out = torch.empty((b, c_out, f_out), dtype=feats.dtype, device=feats.device)
     partial = torch.empty((n_groups, b, c_out, f_out), device=feats.device)
-    fn = cuda_lib.function("gather_conv.cu", "egonn_gather_conv")
+    bf16 = kernels._is_bf16(feats)
+    w = kernels._bf16_transposed(kernel) if bf16 else kernel
+    fn = cuda_lib.function("gather_conv.cu", "egonn_gather_conv_bf16" if bf16 else
+                           "egonn_gather_conv")
 
     def run():
-        kernels._raise_on(fn(feats.data_ptr(), kmap.data_ptr(), kernel.data_ptr(),
+        kernels._raise_on(fn(feats.data_ptr(), kmap.data_ptr(), w.data_ptr(),
                              kernels._ptr(scale), kernels._ptr(bias), kernels._ptr(mask),
                              out.data_ptr(), partial.data_ptr(), n_groups, b, c_in, f_in, k_vol,
                              c_out, f_out, cols, relu, kernels._stream(feats)), "gather_conv")
@@ -120,9 +128,10 @@ def _settings(name, args, kwargs, kernels, cuda_lib):
         children = int((up_parent < c_coarse).sum())
         desc = f"{chip_smoke.call_desc(name, args)} children {children}"
         rule = kernels.tdown_tiling(*feats.shape)
+        bf16 = kernels._is_bf16(feats)
         settings = [(128, 0, True)] + [
             (rows, rc, False) for rows, rc in itertools.product((32, 64, 128), (32, 64, 128))
-            if kernels.tdown_tiling_ok(feats.shape[2], kernel.shape[2], rows, rc)]
+            if kernels.tdown_tiling_ok(feats.shape[2], kernel.shape[2], rows, rc, bf16=bf16)]
         return desc, rule, settings, lambda s: _tdown_setting(kernels, args, kwargs, s)
     feats, kmap = args[0], args[1]
     b, _, f_in = feats.shape
@@ -204,16 +213,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("probe_kernels: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:] not in ([], ["bf16"]):
+        print(f"probe_kernels: unknown arguments {sys.argv[1:]} (none, or `bf16`)",
+              file=sys.stderr)
+        return 2
     from egonn_tpu_torch import inference
-    from egonn_tpu_torch.config import TrainingParams
-    from egonn_tpu_torch.data.train_batch import make_train_batch
-    from egonn_tpu_torch.models.factory import create_egonn_model, model_factory
+    from egonn_tpu_torch.models.factory import create_egonn_model
     from egonn_tpu_torch.ops.quantization import PolarQuantizer
     from egonn_tpu_torch.sparse import cuda_lib, kernels
-    from egonn_tpu_torch.sparse import pyramid as pyramid_mod
-    from egonn_tpu_torch.train.state import make_lr_schedule
-    from egonn_tpu_torch.train.trainer import make_train_step
 
+    os.environ.pop("EGONN_BF16_ACTS", None)
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = chip_smoke.phase_environment(cuda_lib)
     device = torch.device("cuda")
@@ -222,8 +231,48 @@ def main() -> int:
                                cap0=chip_smoke.CAP0)
     built = create_egonn_model(mp, cap0=chip_smoke.CAP0, device=device, seed=chip_smoke.SEED)
     clouds, mask = chip_smoke.make_inputs(device)
-    paths = {"forward": chip_smoke.record_calls(
-        kernels, lambda: inference.forward(built, clouds, mask))}
+    os.environ["EGONN_BF16_ACTS"] = "1"
+    try:
+        paths = {"bf16_forward": chip_smoke.record_calls(
+            kernels, lambda: inference.forward(built, clouds, mask))}
+    finally:
+        os.environ.pop("EGONN_BF16_ACTS", None)
+    builds = []
+    if sys.argv[1:] != ["bf16"]:
+        builds = _f32_paths(paths, built, clouds, mask, device)
+    rows, seen = [], set()
+    with torch.no_grad():
+        for tag, calls in paths.items():
+            for name, args, kwargs, _ in calls:
+                if name == "lookup" or (tag == "val" and name != "tdown"):
+                    continue
+                shapes = chip_smoke._shape(args)
+                key = (tag, name, str(shapes), kwargs.get("epi") is not None)
+                if key not in seen:
+                    seen.add(key)
+                    rows.append(sweep(tag, name, args, kwargs, kernels, cuda_lib,
+                                      cycles_per_ms))
+    chip_smoke.OUT_DIR.mkdir(exist_ok=True)
+    (chip_smoke.OUT_DIR / "probe_kernels.json").write_text(
+        json.dumps(dict(card=smi, rows=rows, map_builds=builds), indent=1))
+    chip_smoke.log(f"card: {smi}")
+    return 0
+
+
+def _f32_paths(paths, built, clouds, mask, device) -> list:
+    """Adds the f32 paths' recorded calls to `paths`; returns the lookup-built
+    map builds' device kernels."""
+    from egonn_tpu_torch import inference
+    from egonn_tpu_torch.config import TrainingParams
+    from egonn_tpu_torch.data.train_batch import make_train_batch
+    from egonn_tpu_torch.models.factory import create_egonn_model, model_factory
+    from egonn_tpu_torch.sparse import kernels
+    from egonn_tpu_torch.sparse import pyramid as pyramid_mod
+    from egonn_tpu_torch.train.state import make_lr_schedule
+    from egonn_tpu_torch.train.trainer import make_train_step
+
+    paths["forward"] = chip_smoke.record_calls(
+        kernels, lambda: inference.forward(built, clouds, mask))
     root = chip_smoke.ROOT
     tp = TrainingParams(str(root / "config" / "config_egonn.txt"),
                         str(root / "model_configs" / "egonn.txt"), require_dataset=False)
@@ -258,26 +307,8 @@ def main() -> int:
         res = q.quantize(clouds, mask, spec.capacities[0], need_index=False)
         paths[tag] = [c for c in chip_smoke.record_calls(kernels, lambda: pyramid_mod.build_pyramid(
             res.coords_t, res.mask, spec, keys0=res.keys)) if c[0] == "lookup_down"]
-
-    builds = [map_build_kernels(tag, kernels, paths[tag][0][1])
-              for tag in ("maps", "minkloc_lookup", "resnet")]
-    rows, seen = [], set()
-    with torch.no_grad():
-        for tag, calls in paths.items():
-            for name, args, kwargs, _ in calls:
-                if name == "lookup" or (tag == "val" and name != "tdown"):
-                    continue
-                shapes = chip_smoke._shape(args)
-                key = (tag, name, str(shapes), kwargs.get("epi") is not None)
-                if key not in seen:
-                    seen.add(key)
-                    rows.append(sweep(tag, name, args, kwargs, kernels, cuda_lib,
-                                      cycles_per_ms))
-    chip_smoke.OUT_DIR.mkdir(exist_ok=True)
-    (chip_smoke.OUT_DIR / "probe_kernels.json").write_text(
-        json.dumps(dict(card=smi, rows=rows, map_builds=builds), indent=1))
-    chip_smoke.log(f"card: {smi}")
-    return 0
+    return [map_build_kernels(tag, kernels, paths[tag][0][1])
+            for tag in ("maps", "minkloc_lookup", "resnet")]
 
 
 if __name__ == "__main__":

@@ -177,6 +177,27 @@ def test_embeddings_match_jax(setup):
     assert swaps <= 4, swaps  # these clouds: one pair of ranks within 1e-7 of sigma
 
 
+def test_embeddings_bf16_host_arrays(setup, monkeypatch):
+    """The embedding pass with bf16 activations (`activation_dtype` patched,
+    as EGONN_BF16_ACTS=1 gives on the card) hands the host the arrays of
+    the f32 pass: the same keys, shapes and types (f32 and bool, as JAX's
+    evaluator gets), `global` within 3e-2 of max |JAX's f32 global| (the bf16
+    rule of tests/test_torch_bf16.py)."""
+    from egonn_tpu_torch.sparse import conv as tconv
+
+    ev = GLEvaluator(setup["root"], "synthetic", setup["eval_p"], setup["built_t"],
+                     num_points=N_POINTS, n_k=N_K, n_hypotheses=N_HYP)
+    subset = ev.eval_set.map_set
+    f32 = ev.compute_embeddings(subset, with_local=True, n_k=max(N_K))
+    monkeypatch.setattr(tconv, "activation_dtype", lambda device: torch.bfloat16)
+    bf16 = ev.compute_embeddings(subset, with_local=True, n_k=max(N_K))
+    assert set(bf16) == set(f32)
+    for k, v in bf16.items():
+        assert v.dtype == f32[k].dtype and v.shape == f32[k].shape, k
+    want = setup["j_map"]["global"]
+    assert np.abs(bf16["global"] - want).max() <= 3e-2 * np.abs(want).max()
+
+
 def test_recall_matches_jax(setup):
     """compute_recall on the same embeddings equals JAX's, and the port's
     Evaluator from its own embeddings gives JAX's recall dicts."""

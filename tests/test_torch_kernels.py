@@ -5,6 +5,7 @@ rules: the width rules of the conv kernels, the width plan that pads and
 splits any other width (run with the plain versions as the launches), and
 the split-TF32 arithmetic of gather_conv / tdown / gather_dw emulated in
 numpy.  Cases marked `cuda` hold each CUDA kernel against its plain version
+(the bf16 gather_conv and tdown within one bf16 ulp of theirs)
 on odd shapes and edge cases (ragged tiles, all-sentinel maps, a deep
 level's single occupied tile, widths to 512, F_in != F_out at K = 8 and 27,
 widths the kernels take only through the plan: 1, 3, 48, 1024; the grouped
@@ -31,6 +32,10 @@ REL_TOL = 1e-5
 # partials, then the chunks) than the plain einsum: max abs error <= 1e-4 x
 # max |plain|
 DW_REL_TOL = 1e-4
+# bf16 kernels against their bf16 plain versions: both round the same f32
+# sums once, summed in another order, so an output may land one bf16 ulp
+# away; outputs near 0 (cancellations, ReLU's edge) within 1e-6 x max |plain|
+BF16_ABS_TOL = 1e-6
 
 
 @pytest.fixture
@@ -837,3 +842,139 @@ def test_lookup_cuda_unsorted_queries(cuda, rows):
     for cap in (4096, 64):
         got = kernels._lookup_cuda([keys_t], [q_t], [8], None, rows=rows, slice_cap=cap)[0]
         assert torch.equal(got, want), cap
+
+
+def _one_bf16_ulp(got, want):
+    """bf16 outputs within one bf16 ulp of the plain version's, or within
+    BF16_ABS_TOL x max |plain|."""
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    near = (got.float() - want.float()).abs() <= BF16_ABS_TOL * float(want.float().abs().max())
+    ulps = kernels.bf16_ulps(got, want)
+    assert bool(((ulps <= 1) | near).all()), int(ulps[~near].max())
+
+
+def _bf16(gen, shape, device, scale=1.0):
+    return torch.from_numpy((gen.standard_normal(shape) * scale).astype(np.float32)).to(
+        device, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f_in,f_out", [(8, 32), (40, 64), (64, 128), (128, 128), (128, 32),
+                                        (32, 96)])
+@pytest.mark.parametrize("k_vol", [8, 27])
+@pytest.mark.parametrize("with_epi", [False, True])
+def test_gather_conv_bf16_cuda_matches_plain(cuda, f_in, f_out, k_vol, with_epi):
+    """bf16 features take the bf16 kernel (its own launch count, the f32
+    count untouched): within one ulp of the bf16 plain version at F_in 8-128,
+    F_out 32-128, K 8 and 27, ragged tiles and whole tiles of sentinels;
+    bit-equal on repeat."""
+    gen = np.random.default_rng(f_in * f_out + k_vol)
+    b, c_in, c_out = 3, 1000, 777
+    feats = _bf16(gen, (b, c_in, f_in), cuda)
+    kmap = np.where(gen.random((b, k_vol, c_out)) < 0.6, c_in,
+                    gen.integers(0, c_in, size=(b, k_vol, c_out))).astype(np.int32)
+    kmap[:, :, 500:] = c_in
+    kmap = torch.from_numpy(kmap).to(cuda)
+    kernel = torch.from_numpy((gen.standard_normal((k_vol, f_in, f_out)) / np.sqrt(f_in))
+                              .astype(np.float32)).to(cuda)
+    epi = _epi(gen, f_out, b, c_out, cuda) if with_epi else None
+    before = kernels.launch_counts()
+    got = kernels.gather_conv(feats, kmap, kernel, epi=epi)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["gather_conv_bf16"] == before["gather_conv_bf16"] + 1
+    assert after["gather_conv"] == before["gather_conv"]
+    _one_bf16_ulp(got, kernels.gather_conv_plain(feats, kmap, kernel, epi=epi))
+    if not with_epi:
+        assert float(got[:, 512:].float().abs().max()) == 0.0
+    assert torch.equal(kernels.gather_conv(feats, kmap, kernel, epi=epi), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_epi", [False, True])
+def test_gather_conv_bf16_cuda_offset_groups(cuda, with_epi):
+    """A deep level's small grid (8 clouds, one occupied tile each, 128 x
+    128 at K = 27): the offsets split over blocks, the f32 partial sums added
+    in order by the second launch, then the epilogue and the one rounding."""
+    gen = np.random.default_rng(17)
+    b, c, n_valid, k_vol, f = 8, 1024, 18, 27, 128
+    assert kernels.offset_groups(b, c, f, f, k_vol) > 1
+    feats = np.zeros((b, c, f), np.float32)
+    feats[:, :n_valid] = gen.standard_normal((b, n_valid, f))
+    feats = torch.from_numpy(feats).to(cuda, torch.bfloat16)
+    kmap = torch.from_numpy(_sparse_kmap(gen, b, k_vol, c, c, n_valid, 0.5)).to(cuda)
+    kernel = torch.from_numpy((gen.standard_normal((k_vol, f, f)) / np.sqrt(f))
+                              .astype(np.float32)).to(cuda)
+    epi = _epi(gen, f, b, c, cuda) if with_epi else None
+    got = kernels.gather_conv(feats, kmap, kernel, epi=epi)
+    _one_bf16_ulp(got, kernels.gather_conv_plain(feats, kmap, kernel, epi=epi))
+    assert torch.equal(kernels.gather_conv(feats, kmap, kernel, epi=epi), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empty", "full", "dropped", "shuffled", "tiles"])
+@pytest.mark.parametrize("f_in,f_out", [(8, 32), (32, 32), (40, 64), (128, 128)])
+def test_tdown_bf16_cuda_edge_cases(cuda, case, f_in, f_out):
+    """The bf16 tdown bodies on test_tdown_cuda_edge_cases's up maps, at
+    every tiling they take, with and without the epilogue: within one ulp
+    of the bf16 plain version, bit-equal on repeat."""
+    gen = np.random.default_rng(f_in + 3 * len(case))
+    b, c_fine, c_coarse = 3, 2000, 700
+    parent, slot = _edge_up_map(case, gen, b, c_fine, c_coarse)
+    feats = _bf16(gen, (b, c_fine, f_in), cuda)
+    kernel = torch.from_numpy((gen.standard_normal((8, f_in, f_out)) / np.sqrt(f_in))
+                              .astype(np.float32)).to(cuda)
+    args = (feats, torch.from_numpy(parent).to(cuda), torch.from_numpy(slot).to(cuda), kernel,
+            c_coarse)
+    tilings = [(128, 0, True)] + [(rows, rc, False) for rows, rc in
+                                  itertools.product((32, 64, 128), (32, 64, 128))]
+    for epi in (None, _epi(gen, f_out, b, c_coarse, cuda)):
+        want = kernels.tdown_plain(*args, epi=epi)
+        for tiling in tilings:
+            assert kernels.tdown_tiling_ok(f_in, f_out, *tiling, bf16=True)
+            got = kernels._tdown_cuda(*args, epi, *tiling)
+            _one_bf16_ulp(got, want)
+            assert torch.equal(kernels._tdown_cuda(*args, epi, *tiling), got)
+    before = kernels.launch_counts()
+    kernels.tdown(*args)
+    after = kernels.launch_counts()
+    assert (after["tdown_bf16"], after["tdown"]) == (before["tdown_bf16"] + 1, before["tdown"])
+
+
+@pytest.mark.cuda
+def test_tdown_bf16_cuda_at_pyramid_levels(cuda):
+    """Every down conv of the EgoNN forward on its real up maps and widths,
+    bf16 features: within one ulp of the bf16 plain version."""
+    pyr, spec, widths = _full_pyramid("egonn", cuda)
+    gen = np.random.default_rng(13)
+    for l, (f_in, f_out) in zip(spec.up_levels, widths):
+        b, c_fine = pyr[l].up_parent.shape
+        c_coarse = spec.capacities[l + 1]
+        feats = _bf16(gen, (b, c_fine, f_in), cuda)
+        kernel = torch.from_numpy((gen.standard_normal((8, f_in, f_out)) / np.sqrt(f_in))
+                                  .astype(np.float32)).to(cuda)
+        args = (feats, pyr[l].up_parent, pyr[l].up_koffset, kernel, c_coarse)
+        for epi in (None, _epi(gen, f_out, b, c_coarse, cuda)):
+            got = kernels.tdown(*args, epi=epi)
+            _one_bf16_ulp(got, kernels.tdown_plain(*args, epi=epi))
+            assert torch.equal(kernels.tdown(*args, epi=epi), got)
+
+
+@pytest.mark.cuda
+def test_conv_bf16_cuda_planned_widths_and_refusals(cuda):
+    """bf16 at widths the kernels take only through the plan (F_in 3 padded
+    to 8, F_out 48 to 64) within one ulp; F_in above 512 and gather_dw on
+    bf16 features raise."""
+    gen = np.random.default_rng(5)
+    b, c_in, c_out = 2, 900, 700
+    feats = _bf16(gen, (b, c_in, 3), cuda)
+    kmap = torch.from_numpy(_sparse_kmap(gen, b, 27, c_in, c_out, 600)).to(cuda)
+    kernel = torch.from_numpy(gen.standard_normal((27, 3, 48)).astype(np.float32)).to(cuda)
+    got = kernels.gather_conv(feats, kmap, kernel)
+    assert got.shape == (b, c_out, 48) and got.dtype == torch.bfloat16
+    _one_bf16_ulp(got, kernels.gather_conv_plain(feats, kmap, kernel))
+    with pytest.raises(ValueError, match="F_in"):
+        kernels.gather_conv(_bf16(gen, (b, c_in, 600), cuda), kmap,
+                            torch.zeros(27, 600, 32, device=cuda))
+    with pytest.raises(TypeError):
+        kernels.gather_dw(feats, kmap, torch.zeros(b, c_out, 32, device=cuda, dtype=torch.bfloat16))
