@@ -4,7 +4,7 @@ loop, evaluation, data parallel), of MinkLoc (inference) and of ResNet14
 (inference) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
-    python3 chip_smoke.py bf16   # phases 1-3 and 3b alone (the bf16 forward)
+    python3 chip_smoke.py bf16   # phases 1-3, 3b and 5b alone (bf16 activations)
 
 Phases, each printing its lines:
 
@@ -74,6 +74,29 @@ Phases, each printing its lines:
    norm (ReLU branches and argmin matches flip on near-ties), the BN
    statistics within rel 1e-4, and on each side the first Adam update equal
    to its closed form within 1e-6.
+5b. bf16 train step: phases 4-5's batch and step with EGONN_BF16_ACTS=1
+   (set by the phase alone): activations and their cotangents bf16, every
+   conv, dX and dW on the bf16 kernels (BF16_TRAIN_STEP_LAUNCHES per train
+   step, BF16_VAL_STEP_LAUNCHES per validation step: no split-TF32 conv or
+   dW launch); every kernel call of one train step and one validation step
+   held against its plain version (the bf16 convs within one bf16 ulp,
+   gather_dw_bf16 within 1e-4 x max |plain|: both sum exact products in
+   f32) and each distinct shape timed (median of 10), the train step's conv
+   and dW calls and the validation step's tdown calls beside the
+   split-TF32 kernels on the same calls cast to f32 (the `bf16_train_step`
+   and `bf16_val_step` paths); the largest gather_dw_bf16 call re-run twice,
+   bit-equal; phase 5's card vs CPU step with bf16 forced on the CPU:
+   stats and BN statistics within BF16_REL_TOL, gradients by
+   `bf16_grad_check` (the rule tests/test_torch_bf16_train.py measured),
+   f32 gradients, each side's first Adam update its closed form; train
+   steps/s and peak memory of the bf16 step beside the f32 step's in
+   BF16_TRAIN_ROUNDS rounds f32 / bf16 / bf16 / f32.  Then `do_train`
+   under the flag: one step at bucket LOOP_BUCKET on phase 10's set beside
+   the f32 step on the same batch (launches, peak memory), and
+   BF16_LOOP_EPOCHS epochs checkpointed every epoch (only bf16 conv and dW
+   launches), resumed from a copy of the epoch-1 checkpoint: parameters,
+   BatchNorm statistics and Adam's state f32 and bit-equal to the
+   uninterrupted run's.  Numbers under "bf16_train".
 6. MinkLoc and lookup.  (a) Phase 2's 8 clouds and EgoNN spec with no up
    maps recorded: one launch of the lookup kernel in down mode
    (`kernels.lookup_down`, the queries formed in the kernel) builds
@@ -207,7 +230,8 @@ Phases, each printing its lines:
 The last three lines are the card's name and power limit, one JSON object
 with every kernel's numbers (summed over the calls of all the paths: the
 inference forward, the bf16 forward (the rows gather_conv_bf16 and
-tdown_bf16), the training step, the validation step, the pyramid
+tdown_bf16), the training step, the validation step, the bf16 training
+and validation steps (the row gather_dw_bf16), the pyramid
 without up maps, the two MinkLoc forwards, the ResNet14 forward, one
 embedding batch of the evaluation, the training loop's first train and
 validation steps, and rank 0's train and validation steps in phase 11;
@@ -242,15 +266,16 @@ F32_OPS_PER_S = 67e12       # f32 FMA pipes, outside the tensor cores (data shee
 TF32_OPS_PER_S = 495e12     # dense TF32 tensor cores (data sheet)
 BF16_OPS_PER_S = 989e12     # dense bf16 tensor cores (data sheet)
 TC_KERNELS = ("gather_conv", "tdown", "gather_dw")  # split TF32: 3 TF32 MMAs per product
-# the bf16 kernels of gather_conv and tdown (bf16 features), one MMA per
-# product, with their own rows and launch counts
-BF16_ROWS = {"gather_conv": "gather_conv_bf16", "tdown": "tdown_bf16"}
+# the bf16 kernels of gather_conv, tdown and gather_dw (bf16 features), one
+# MMA per product, with their own rows and launch counts
+BF16_ROWS = {"gather_conv": "gather_conv_bf16", "tdown": "tdown_bf16",
+             "gather_dw": "gather_dw_bf16"}
 SPILL_FREE = ("gather_conv.cu", "tdown.cu", "gather_dw.cu")  # ptxas must report no spills
 INT32_OPS_PER_S = 33.5e12   # 64 INT32 lanes per SM against 128 FP32 lanes
 B, N_POINTS, CAP0, SEED = 8, 65536, 16384, 0
 EXPECTED_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 14, "tdown": 7,
                      "gather_dw": 0, "lookup": 0,
-                     "gather_conv_bf16": 0, "tdown_bf16": 0}
+                     "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0}
 # Kernel launches of one training step: three train-mode forwards (global,
 # anchor, positive), each 1 zrun_presence + 7 zrun_rank (the pyramid), 7 down
 # convs + 14 self convs through gather_conv; then one backward, which reaches
@@ -264,26 +289,26 @@ EXPECTED_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 14, "tdo
 # 21 + 2 x 12 = 45.  The down convs' dX is the transposed conv in torch.
 TRAIN_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 97, "tdown": 0,
                        "gather_dw": 45, "lookup": 0,
-                       "gather_conv_bf16": 0, "tdown_bf16": 0}
+                       "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0}
 # The validation step: three eval forwards (7 tdown, 14 gather_conv each).
 VAL_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 42, "tdown": 21,
                      "gather_dw": 0, "lookup": 0,
-                     "gather_conv_bf16": 0, "tdown_bf16": 0}
+                     "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0}
 # Phase 6a: the EgoNN pyramid without up maps, kmap_down looked up at L1-L7
 # in one launch of the lookup kernel.
 LOOKUP_MAPS_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 0, "tdown": 0,
                         "gather_dw": 0, "lookup": 1,
-                        "gather_conv_bf16": 0, "tdown_bf16": 0}
+                        "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0}
 # Phase 6b: one MinkLoc forward: the stem map, 3 self maps, 2 convs in each
 # of 3 blocks; the factory pyramid runs the 3 down convs from the up maps,
 # the one with level 2's up map alone looks up L1 and L2's down maps (one
 # lookup launch) and runs those down convs as gathers.
 MINKLOC_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 3, "gather_conv": 6, "tdown": 3,
                     "gather_dw": 0, "lookup": 0,
-                    "gather_conv_bf16": 0, "tdown_bf16": 0}
+                    "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0}
 MINKLOC_LOOKUP_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 3, "gather_conv": 8, "tdown": 1,
                            "gather_dw": 0, "lookup": 1,
-                           "gather_conv_bf16": 0, "tdown_bf16": 0}
+                           "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0}
 MINKLOC_CAP0 = 40960
 MINKLOC_ROUNDS = 20  # throughput turns of each MinkLoc pyramid
 # Phase 8: ResNet14 at torchvision widths over MinkLoc's quantizer and
@@ -295,11 +320,22 @@ RESNET_CAPACITIES = (40960, 20480, 10240, 5120, 2560)
 RESNET_PLANES, RESNET_INIT_DIM = (64, 128, 256, 512), 64
 RESNET_LAUNCHES = {"zrun_presence": 0, "zrun_rank": 5, "gather_conv": 13, "tdown": 0,
                    "gather_dw": 0, "lookup": 1,
-                   "gather_conv_bf16": 0, "tdown_bf16": 0}
+                   "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0}
 # Phase 3b: the forward of phases 2-3 with EGONN_BF16_ACTS=1: the same maps,
 # the 21 convs on the bf16 kernels
 BF16_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 0, "tdown": 0,
-                 "gather_dw": 0, "lookup": 0, "gather_conv_bf16": 14, "tdown_bf16": 7}
+                 "gather_dw": 0, "lookup": 0, "gather_conv_bf16": 14, "tdown_bf16": 7,
+                 "gather_dw_bf16": 0}
+# Phase 5b: the train and validation steps of phases 4-5 with
+# EGONN_BF16_ACTS=1: TRAIN_STEP_LAUNCHES and VAL_STEP_LAUNCHES with every
+# conv, dX and dW on the bf16 kernels (the activations and their cotangents
+# are bf16 from the stem on)
+BF16_TRAIN_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 0, "tdown": 0,
+                            "gather_dw": 0, "lookup": 0, "gather_conv_bf16": 97,
+                            "tdown_bf16": 0, "gather_dw_bf16": 45}
+BF16_VAL_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 0, "tdown": 0,
+                          "gather_dw": 0, "lookup": 0, "gather_conv_bf16": 42,
+                          "tdown_bf16": 21, "gather_dw_bf16": 0}
 # card vs CPU bf16 forward, of each output's max |CPU| (tests/test_banded.py's
 # bf16 rule): roundings to bf16 at other places flip single activations by an ulp
 BF16_REL_TOL = 3e-2
@@ -308,6 +344,21 @@ BF16_REL_TOL = 3e-2
 # once, summed in another order)
 BF16_ABS_TOL = 1e-6
 BF16_ROUNDS = 3  # rounds of throughput turns f32, bf16, bf16, f32
+# Phase 5b: train steps/s in BF16_TRAIN_ROUNDS rounds of turns f32, bf16,
+# bf16, f32, each turn one warm-up step and BF16_TRAIN_TIMED timed steps;
+# do_train under the flag for BF16_LOOP_EPOCHS epochs, resumed from epoch 1
+BF16_TRAIN_ROUNDS, BF16_TRAIN_TIMED, BF16_LOOP_EPOCHS = 2, 3, 2
+# The bf16 step's gradients against a reference (`bf16_grad_check`: the card
+# against the CPU here, the port against JAX in
+# tests/test_torch_bf16_train.py): together within BF16_WHOLE_L2_TOL in l2,
+# each leaf at cosine >= BF16_COS_MIN.  Single bf16 roundings that two
+# summation orders round apart are magnified by the global loss's backward
+# through the deep levels' batch statistics, and by the local losses'
+# nearest-keypoint matches at full width.  Against JAX at the test's size
+# the local head's leaves (which only the local losses reach) are also held
+# each within BF16_GRAD_MAX_TOL of its max and BF16_GRAD_L2_TOL of its l2.
+BF16_WHOLE_L2_TOL, BF16_COS_MIN = 0.15, 0.8
+BF16_GRAD_MAX_TOL, BF16_GRAD_L2_TOL = 3e-2, 1e-2
 RESNET_Z_SCALE = 0.25  # the stem's one feature: the voxel centre's z, per 4 m
 RESNET_ROUNDS = 5      # throughput turns of 10 forwards
 # the wrappers recorded apart from KERNELS, and the kernel whose row they feed
@@ -315,6 +366,7 @@ ROW_OF = {"lookup_down": "lookup"}
 REPLACES = {
     "gather_conv_bf16": ("egonn_tpu_torch/csrc/gather_conv.cu", "egonn_tpu/sparse/banded.py:207"),
     "tdown_bf16": ("egonn_tpu_torch/csrc/tdown.cu", "egonn_tpu/sparse/banded.py:506"),
+    "gather_dw_bf16": ("egonn_tpu_torch/csrc/gather_dw.cu", "egonn_tpu/sparse/banded.py:688"),
     "zrun_presence": ("egonn_tpu_torch/csrc/zrun.cu", "egonn_tpu/sparse/banded.py:970"),
     "zrun_rank": ("egonn_tpu_torch/csrc/zrun.cu", "egonn_tpu/sparse/banded.py:1095"),
     "gather_conv": ("egonn_tpu_torch/csrc/gather_conv.cu", "egonn_tpu/sparse/banded.py:207"),
@@ -422,7 +474,7 @@ def _nbytes(*tensors) -> int:
 
 
 def row_of(name: str, args: tuple = ()) -> str:
-    """The kernel row a recorded wrapper's call feeds: a conv on bf16
+    """The kernel row a recorded wrapper's call feeds: a conv or dW on bf16
     features feeds its bf16 kernel's row."""
     if name in BF16_ROWS and args and args[0].dtype == torch.bfloat16:
         return BF16_ROWS[name]
@@ -479,12 +531,12 @@ def work(name: str, args: tuple, kwargs: dict, out) -> tuple:
         nbytes = sum(_nbytes(keys[l], keys[l - 1], pos) for l, pos in zip(levels, out))
         return (nbytes, _lookup_ops([keys[l - 1] for l in levels], _down_queries(args)),
                 INT32_OPS_PER_S)
+    # bf16 features: 2 bytes a feature (and g) element, bf16 tensor-core rate
+    rate = BF16_OPS_PER_S if args[0].dtype == torch.bfloat16 else F32_OPS_PER_S
     if name == "gather_dw":
         feats, kmap, g = args
         nnz = int(((kmap >= 0) & (kmap < feats.shape[1])).sum())
-        return _nbytes(feats, kmap, g, out), 2 * nnz * feats.shape[2] * g.shape[2], F32_OPS_PER_S
-    # bf16 features: 2 bytes a feature element in and out, bf16 tensor-core rate
-    rate = BF16_OPS_PER_S if args[0].dtype == torch.bfloat16 else F32_OPS_PER_S
+        return _nbytes(feats, kmap, g, out), 2 * nnz * feats.shape[2] * g.shape[2], rate
     epi = kwargs.get("epi")
     epi_t = (epi[0], epi[1], epi[3]) if epi else ()
     if name == "gather_conv":
@@ -1039,6 +1091,25 @@ def _clouds_per_s(inference, built, variants, mask) -> float:
     return B * len(variants) / (time.perf_counter() - t0)
 
 
+def split_tf32_ms(kernels, calls: list, names: tuple, cycles_per_ms: float, reps: int) -> dict:
+    """Device ms of the split-TF32 kernels on the recorded bf16 calls of
+    `names`, every bf16 tensor of a call cast to f32 (each distinct shape
+    timed once, as `measure_calls` times it), summed per wrapper."""
+    out, timed = {name: 0.0 for name in names}, {}
+    with torch.no_grad():
+        for name, args, kwargs, _ in calls:
+            if name not in names:
+                continue
+            key = json.dumps([name, [_shape(a) for a in args], kwargs.get("epi") is not None])
+            if key not in timed:
+                fn = getattr(kernels, name)
+                args32 = tuple(a.float() if torch.is_tensor(a) and a.dtype == torch.bfloat16
+                               else a for a in args)
+                timed[key] = device_ms(lambda: fn(*args32, **kwargs), cycles_per_ms, reps)
+            out[name] += timed[key]
+    return out
+
+
 def phase_bf16(built, kernels, inference, pyramid_mod, cycles_per_ms):
     """Phase 3b: the forward of phases 2-3 (same clouds, same weights) with
     EGONN_BF16_ACTS=1: activations in bf16 from the stem on, the 21 convs
@@ -1074,18 +1145,9 @@ def phase_bf16(built, kernels, inference, pyramid_mod, cycles_per_ms):
                                      launches, cycles_per_ms, 20, "bf16",
                                      level_of(spec.capacities))
         repeats = [check_repeat(kernels, calls, name, "bf16") for name in ("gather_conv", "tdown")]
-        # the split-TF32 kernels on the same calls in f32
-        f32_ms, timed = {name: 0.0 for name in BF16_ROWS}, {}
-        with torch.no_grad():
-            for name, args, kwargs, _ in calls:
-                if name not in BF16_ROWS:
-                    continue
-                key = json.dumps([name, [_shape(a) for a in args], kwargs.get("epi") is not None])
-                if key not in timed:
-                    fn, args32 = getattr(kernels, name), (args[0].float(), *args[1:])
-                    timed[key] = device_ms(lambda: fn(*args32, **kwargs), cycles_per_ms, 20)
-                f32_ms[name] += timed[key]
-        for name, row in BF16_ROWS.items():
+        f32_ms = split_tf32_ms(kernels, calls, ("gather_conv", "tdown"), cycles_per_ms, 20)
+        for name in ("gather_conv", "tdown"):
+            row = BF16_ROWS[name]
             r = rows[row]
             log(f"[bf16] {row}: {r['launches']} launches, {r['ms']:.4f} ms per forward (split TF32 "
                 f"on the same calls {f32_ms[name]:.4f}), bound {r['bound_ms']:.4f} "
@@ -1246,11 +1308,15 @@ def _voxel_centres(quantizer, pc):
     return quantizer.dequantize(quantizer.to_polar_voxels(pc).transpose(-1, -2))
 
 
-def phase_train_card_vs_cpu(tp, g, l, lr):
+def _card_and_cpu_steps(tp, g, l, lr, cpu_bf16: bool = False) -> tuple:
     """One train step on 4 global clouds (2 places) and 2 pairs, on the card
     and on the CPU, from the same weights, augmentation off; the points sit
-    at voxel centres, so both devices build the same pyramids."""
+    at voxel centres, so both devices build the same pyramids.  cpu_bf16:
+    the CPU step with bf16 activations (the flag keeps the CPU in f32, as
+    JAX's keeps it off the TPU).  (card, CPU, initial state), each side's
+    stats, seconds, gradients and state on the CPU."""
     from egonn_tpu_torch.models.factory import create_egonn_model
+    from egonn_tpu_torch.sparse import conv as sconv
     from egonn_tpu_torch.train.trainer import make_train_step
 
     device = g["clouds"].device
@@ -1266,18 +1332,46 @@ def phase_train_card_vs_cpu(tp, g, l, lr):
     for k in ("anc_clouds", "pos_clouds"):
         small_l[k] = _voxel_centres(q, small_l[k].cpu())
     results = []
+    flag_dtype = sconv.activation_dtype
     for b, dev in ((built, device), (built_cpu, cpu)):
         step = make_train_step(b, tp)
         gd = {k: v.to(dev) for k, v in small_g.items()}
         ld = {k: v.to(dev) for k, v in small_l.items()}
-        t0 = time.perf_counter()
-        stats = _finite_stats(step(gd, ld, None, lr, True), f"step on {dev}")
+        if cpu_bf16 and dev == cpu:
+            sconv.activation_dtype = lambda device: torch.bfloat16
+        try:
+            t0 = time.perf_counter()
+            stats = _finite_stats(step(gd, ld, None, lr, True), f"step on {dev}")
+        finally:
+            sconv.activation_dtype = flag_dtype
         results.append(dict(stats=stats, seconds=time.perf_counter() - t0,
                              grads={n: p.grad.detach().cpu() for n, p in
                                     b.model.named_parameters()},
                              state={k: v.detach().cpu() for k, v in
                                     b.model.state_dict().items()}))
-    card, host = results
+    return (*results, p0)
+
+
+def _adam_closed_form_err(side: dict, p0: dict, tp, lr) -> float:
+    """Adam's first step in closed form on a side's own gradient: m_hat = g,
+    v_hat = g^2, so p1 = p0 - lr * g / (|g| + eps), g with the L2 term."""
+    err = 0.0
+    for n, gr in side["grads"].items():
+        g_adam = gr + tp.weight_decay * p0[n]
+        want = p0[n] - lr * g_adam / (g_adam.abs() + 1e-8)
+        err = max(err, float((side["state"][n] - want).abs().max()))
+    return err
+
+
+def _bn_rel(got: dict, want: dict) -> float:
+    return max(float((got[k] - w).abs().max() / w.abs().max().clamp_min(1e-30))
+               for k, w in want.items() if k.endswith((".mean", ".var")))
+
+
+def phase_train_card_vs_cpu(tp, g, l, lr):
+    """One train step on the card and on the CPU (`_card_and_cpu_steps`):
+    stats, gradients, BatchNorm statistics and the first Adam update."""
+    card, host, p0 = _card_and_cpu_steps(tp, g, l, lr)
     stat_rel = max(abs(card["stats"][k] - host["stats"][k]) / max(abs(host["stats"][k]), 1e-12)
                    for k in host["stats"])
     per_leaf = sorted(((float((card["grads"][n] - w).abs().max() / w.abs().max().clamp_min(1e-30)),
@@ -1286,17 +1380,9 @@ def phase_train_card_vs_cpu(tp, g, l, lr):
     grad_rel = per_leaf[0][0]
     log(f"[train] card vs CPU, worst gradient leaves (max abs err / max, l2 err / l2): "
         f"{[(round(a, 6), round(b, 7), n) for a, b, n in per_leaf[:6]]}")
-    bn_rel = max(float((card["state"][k] - w).abs().max() / w.abs().max().clamp_min(1e-30))
-                 for k, w in host["state"].items() if k.endswith((".mean", ".var")))
+    bn_rel = _bn_rel(card["state"], host["state"])
     grad_l2 = max(b for _, b, _ in per_leaf)
-    # Adam's first step in closed form on each side's own gradient:
-    # m_hat = g, v_hat = g^2, so p1 = p0 - lr * g / (|g| + eps), g with the L2 term
-    upd_err = 0.0
-    for side in (card, host):
-        for n, gr in side["grads"].items():
-            g_adam = gr + tp.weight_decay * p0[n]
-            want = p0[n] - lr * g_adam / (g_adam.abs() + 1e-8)
-            upd_err = max(upd_err, float((side["state"][n] - want).abs().max()))
+    upd_err = max(_adam_closed_form_err(side, p0, tp, lr) for side in (card, host))
     log(f"[train] card vs CPU, one step on 4 global clouds + 2 pairs: stats rel {stat_rel:.3g}, "
         f"grads max abs err / leaf max {grad_rel:.3g}, l2 err / leaf l2 {grad_l2:.3g}, "
         f"BN statistics rel {bn_rel:.3g}, first Adam update vs closed form {upd_err:.3g} "
@@ -1311,6 +1397,236 @@ def phase_train_card_vs_cpu(tp, g, l, lr):
     return dict(stats_rel=stat_rel, grad_rel=grad_rel, grad_l2_rel=grad_l2, bn_rel=bn_rel,
                 update_abs=upd_err, worst_leaves=per_leaf[:6], card_s=card["seconds"],
                 cpu_s=host["seconds"])
+
+
+# ---------------------------------------------------------------------------
+# the bf16 train step
+# ---------------------------------------------------------------------------
+
+def bf16_grad_check(got: dict, want: dict, local_leaves: bool = False) -> dict:
+    """The bf16 step's gradients (names -> CPU tensors) against a reference:
+    the l2 error of all leaves together, each leaf's cosine (the worst
+    four), and with `local_leaves` the local head's worst leaf (max abs err
+    / max, l2 err / l2); `ok` whether BF16_WHOLE_L2_TOL, BF16_COS_MIN and,
+    with `local_leaves`, BF16_GRAD_MAX_TOL and BF16_GRAD_L2_TOL hold."""
+    names = sorted(want)
+    a = torch.cat([got[n].reshape(-1).double() for n in names])
+    b = torch.cat([want[n].reshape(-1).double() for n in names])
+    whole = float((a - b).norm() / b.norm())
+    cos = sorted((float(torch.nn.functional.cosine_similarity(
+        got[n].reshape(1, -1).double(), want[n].reshape(1, -1).double())), n) for n in names)
+    out = dict(whole_l2=whole, cos_worst=cos[:4],
+               ok=whole <= BF16_WHOLE_L2_TOL and cos[0][0] >= BF16_COS_MIN)
+    if local_leaves:
+        local = [n for n in names if n.startswith("local_")]
+        out["local_max"] = max(float((got[n] - want[n]).abs().max()
+                                     / want[n].abs().max().clamp_min(1e-30)) for n in local)
+        out["local_l2"] = max(float((got[n] - want[n]).norm() / want[n].norm().clamp_min(1e-30))
+                              for n in local)
+        out["ok"] = (out["ok"] and out["local_max"] <= BF16_GRAD_MAX_TOL
+                     and out["local_l2"] <= BF16_GRAD_L2_TOL)
+    return out
+
+
+def _bf16_card_vs_cpu(tp, g, l, lr) -> dict:
+    """Phase 5's card-vs-CPU step with bf16 activations on both sides: stats
+    within BF16_REL_TOL, gradients by `bf16_grad_check`, BatchNorm running
+    statistics within BF16_REL_TOL, each side's first Adam update its
+    closed form within 1e-6."""
+    card, host, p0 = _card_and_cpu_steps(tp, g, l, lr, cpu_bf16=True)
+    stat_rel = max(abs(card["stats"][k] - host["stats"][k]) / max(abs(host["stats"][k]), 1e-12)
+                   for k in host["stats"])
+    grads = bf16_grad_check(card["grads"], host["grads"])
+    bn_rel = _bn_rel(card["state"], host["state"])
+    upd_err = max(_adam_closed_form_err(side, p0, tp, lr) for side in (card, host))
+    types_ = {str(v.dtype) for side in (card, host) for v in side["grads"].values()}
+    per_leaf = sorted(((float((card["grads"][n] - w).norm() / w.norm().clamp_min(1e-30)), n)
+                       for n, w in host["grads"].items()), reverse=True)
+    log(f"[bf16-train] card vs CPU (bf16 on both), one step on 4 global clouds + 2 pairs: stats "
+        f"rel {stat_rel:.3g}; gradients l2 over all leaves {grads['whole_l2']:.3g}, worst "
+        f"cosines {[(round(c, 4), n) for c, n in grads['cos_worst']]}, worst leaves' l2 "
+        f"{[(round(e, 4), n) for e, n in per_leaf[:4]]}; BN statistics rel {bn_rel:.3g}; "
+        f"first Adam update vs closed form {upd_err:.3g}; gradient types {sorted(types_)} (card "
+        f"{card['seconds']:.2f} s, CPU {host['seconds']:.2f} s)")
+    if not (stat_rel <= BF16_REL_TOL and grads["ok"] and bn_rel <= BF16_REL_TOL
+            and upd_err <= 1e-6 and types_ == {"torch.float32"}):
+        raise AssertionError("bf16: card and CPU train steps disagree beyond tolerance")
+    return dict(stats_rel=stat_rel, grads=grads, bn_rel=bn_rel, update_abs=upd_err,
+                card_s=card["seconds"], cpu_s=host["seconds"])
+
+
+def _step_turns(tp, g, l, lr) -> dict:
+    """Train steps/s (host clock, ending in a synchronize) and peak device
+    memory of the f32 and the bf16 step on one model, in BF16_TRAIN_ROUNDS
+    rounds of turns f32, bf16, bf16, f32: each turn one warm-up step, then
+    BF16_TRAIN_TIMED steps."""
+    from egonn_tpu_torch.models.factory import create_egonn_model
+    from egonn_tpu_torch.train.trainer import make_train_step
+
+    device = g["clouds"].device
+    step = make_train_step(create_egonn_model(tp.model_params, cap0=CAP0, device=device,
+                                              seed=SEED + 1), tp)
+    turns, peak = {"f32": [], "bf16": []}, {"f32": 0.0, "bf16": 0.0}
+    for i, kind in enumerate(("f32", "bf16", "bf16", "f32") * BF16_TRAIN_ROUNDS):
+        if kind == "bf16":
+            os.environ["EGONN_BF16_ACTS"] = "1"
+        try:
+            step(g, l, _gen(device, 100 + i), lr, True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for j in range(BF16_TRAIN_TIMED):
+                step(g, l, _gen(device, 200 + 10 * i + j), lr, True)
+            torch.cuda.synchronize()
+            turns[kind].append(BF16_TRAIN_TIMED / (time.perf_counter() - t0))
+            peak[kind] = max(peak[kind], torch.cuda.max_memory_allocated() / 2**30)
+        finally:
+            os.environ.pop("EGONN_BF16_ACTS", None)
+    return dict(steps_per_s=turns, peak_gb=peak,
+                median={k: statistics.median(v) for k, v in turns.items()})
+
+
+def _bf16_loop(kernels, device, smi) -> dict:
+    """do_train under the flag: one step at bucket LOOP_BUCKET beside the
+    f32 step on the same batch (launches, peak memory), then
+    BF16_LOOP_EPOCHS epochs with a checkpoint every epoch (every conv and dW
+    launch on the bf16 kernels) and a resume from a copy of the epoch-1
+    checkpoint: parameters, BatchNorm statistics and Adam's state bit-equal
+    to the uninterrupted run's."""
+    from egonn_tpu_torch.models.factory import create_egonn_model
+    from egonn_tpu_torch.train import trainer
+
+    names, ds, lds, big = _loop_data()
+    tp = _loop_params(names, BF16_LOOP_EPOCHS, save_freq=1)
+    built = create_egonn_model(tp.model_params, device=device, seed=SEED + 6)
+    lids = lds.valid_ids[:tp.local_batch_size]
+    out = dict(bucket={})
+    for kind, want in (("f32", TRAIN_STEP_LAUNCHES), ("bf16", BF16_TRAIN_STEP_LAUNCHES)):
+        if kind == "bf16":
+            os.environ["EGONN_BF16_ACTS"] = "1"
+        try:
+            launches, peak, b_rows, _ = _bucket_step(tp, built, kernels, ds, lds, big, lids,
+                                                     device)
+        finally:
+            os.environ.pop("EGONN_BF16_ACTS", None)
+        torch.cuda.empty_cache()
+        log(f"[bf16-loop] {kind} train step at bucket {b_rows} ({len(big)} global clouds + "
+            f"{len(lids)} pairs): launches {launches}, peak memory {peak:.2f} GiB on {smi}")
+        if launches != want:
+            raise AssertionError(f"{kind} step at bucket {b_rows}: launches {launches}")
+        out["bucket"][kind] = dict(rows=b_rows, launches=launches, peak_gb=peak)
+    del built
+
+    run_dir = OUT_DIR / "train_loop_bf16"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.environ["EGONN_BF16_ACTS"] = "1"
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state_a, stats_a, name = trainer.do_train(tp, weights_path=str(run_dir / "a"),
+                                                  device=device)
+        torch.cuda.synchronize()
+        out["run_a_s"] = time.perf_counter() - t0
+        launches = out["launches"] = kernels.launch_counts()
+        (run_dir / "b" / name).mkdir(parents=True)
+        for f in ("step_1.pt", "step_1.meta.json"):
+            shutil.copy(run_dir / "a" / name / f, run_dir / "b" / name / f)
+        t0 = time.perf_counter()
+        state_b, _, _ = trainer.do_train(tp, resume_from=str(run_dir / "b" / name),
+                                         device=device)
+        out["run_b_s"] = time.perf_counter() - t0
+    finally:
+        os.environ.pop("EGONN_BF16_ACTS", None)
+    for e, st in enumerate(stats_a["train"] + stats_a["val"]):
+        _finite_stats(st, f"bf16 loop record {e}")
+    xa, xb = _loop_state(state_a), _loop_state(state_b)
+    diff = out["resume"] = _state_diff(xa, xb)
+    f32_types = sorted({str(v.dtype) for v in xa.values() if v.is_floating_point()})
+    log(f"[bf16-loop] {BF16_LOOP_EPOCHS} epochs in {out['run_a_s']:.1f} s, launches {launches}; "
+        f"resumed at epoch 1 in {out['run_b_s']:.1f} s: {diff['unequal']} of {diff['leaves']} "
+        f"state tensors differ from the uninterrupted run's; state types {f32_types}")
+    f32_launched = [k for k in ("gather_conv", "tdown", "gather_dw") if launches[k]]
+    missing = [k for k in ("gather_conv_bf16", "tdown_bf16", "gather_dw_bf16") if not launches[k]]
+    if f32_launched or missing:
+        raise AssertionError(f"bf16 loop: split-TF32 launches {f32_launched}, no launch of "
+                             f"{missing}")
+    if diff["unequal"] or f32_types != ["torch.float32"]:
+        raise AssertionError(f"bf16 loop: the resumed run differs: {diff}, types {f32_types}")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return out
+
+
+def phase_bf16_train(tp, g, l, lr, kernels, cycles_per_ms, levels, smi):
+    """Phase 5b: phases 4-5's train step with EGONN_BF16_ACTS=1 (set by the
+    phase alone): launches per train step BF16_TRAIN_STEP_LAUNCHES and per
+    validation step BF16_VAL_STEP_LAUNCHES (no split-TF32 conv or dW); every
+    kernel call of one train step and one validation step held against its
+    plain version (bf16 convs within one bf16 ulp, gather_dw_bf16 within
+    DW_REL_TOL of max |plain|) and each distinct shape timed (median of 10),
+    the conv and dW calls beside the split-TF32 kernels on the same calls
+    in f32; the largest gather_dw_bf16 call re-run bit-equal; a card vs CPU
+    step (bf16 forced on the CPU); steps/s and peak memory beside the f32
+    step's; the training loop under the flag (`_bf16_loop`).  Returns the
+    two paths' rows and the phase's numbers."""
+    from egonn_tpu_torch.models.factory import create_egonn_model
+    from egonn_tpu_torch.sparse import conv as sconv
+    from egonn_tpu_torch.train.trainer import make_train_step
+
+    device = g["clouds"].device
+    out = {}
+    os.environ["EGONN_BF16_ACTS"] = "1"
+    try:
+        if sconv.activation_dtype(device) != torch.bfloat16:
+            raise AssertionError("EGONN_BF16_ACTS=1 did not give bf16 activations on the card")
+        step = make_train_step(create_egonn_model(tp.model_params, cap0=CAP0, device=device,
+                                                  seed=SEED + 1), tp)
+        step(g, l, _gen(device, 1), lr, True)  # warm-up
+        _, train_launches = _path_launches(
+            kernels, lambda: step(g, l, _gen(device, 2), lr, True), BF16_TRAIN_STEP_LAUNCHES,
+            "bf16 train step", tag="bf16-train")
+        _, val_launches = _path_launches(
+            kernels, lambda: step(g, l, None, lr, False), BF16_VAL_STEP_LAUNCHES,
+            "bf16 validation step", tag="bf16-train")
+        train_rows, calls = _measured_path(
+            kernels, lambda: step(g, l, _gen(device, SEED), lr, True), train_launches,
+            cycles_per_ms, 10, "bf16-train-kernels", levels)
+        val_rows, val_calls = _measured_path(
+            kernels, lambda: step(g, l, None, lr, False), val_launches, cycles_per_ms, 10,
+            "bf16-val-kernels", levels)
+        out["repeat"] = check_repeat(kernels, calls, "gather_dw", "bf16-train-kernels")
+        f32_ms = split_tf32_ms(kernels, calls, ("gather_conv", "gather_dw"), cycles_per_ms, 10)
+        f32_ms["tdown"] = split_tf32_ms(kernels, val_calls, ("tdown",), cycles_per_ms, 10)["tdown"]
+        del calls, val_calls
+        for path, rows, names in (("train", train_rows, ("gather_conv", "gather_dw")),
+                                  ("validation", val_rows, ("gather_conv", "tdown"))):
+            for name in names:
+                r = rows[BF16_ROWS[name]]
+                split = f" (split TF32 on the same calls {f32_ms[name]:.4f})" if (
+                    path == "train" or name == "tdown") else ""
+                log(f"[bf16-train] {BF16_ROWS[name]}: {r['launches']} launches, {r['ms']:.4f} ms "
+                    f"per {path} step{split}, bound {r['bound_ms']:.4f} "
+                    f"({'bytes' if r['_bytes_ms'] >= r['_ops_ms'] else 'operations'}), "
+                    f"tc_bound {r['tc_bound_ms']:.4f}, plain {r['plain_ms']:.4f}, max abs err "
+                    f"{r['max_abs_err']:.3g} on {smi}")
+        out.update(train_launches=train_launches, val_launches=val_launches,
+                   split_tf32_ms=f32_ms)
+        del step
+        torch.cuda.empty_cache()
+        out["card_vs_cpu"] = _bf16_card_vs_cpu(tp, g, l, lr)
+    finally:
+        os.environ.pop("EGONN_BF16_ACTS", None)
+    turns = out["turns"] = _step_turns(tp, g, l, lr)
+    n_clouds = g["clouds"].shape[0] + 2 * l["anc_clouds"].shape[0]
+    med = turns["median"]
+    log(f"[bf16-train] train steps/s (host clock, {BF16_TRAIN_TIMED} steps of {n_clouds} clouds "
+        f"a turn): bf16 median {med['bf16']:.3f} "
+        f"{[round(t, 3) for t in turns['steps_per_s']['bf16']]} against f32 median "
+        f"{med['f32']:.3f} {[round(t, 3) for t in turns['steps_per_s']['f32']]} "
+        f"({med['bf16'] * n_clouds:.1f} / {med['f32'] * n_clouds:.1f} clouds/s); peak memory "
+        f"bf16 {turns['peak_gb']['bf16']:.2f} GiB, f32 {turns['peak_gb']['f32']:.2f} GiB on {smi}")
+    torch.cuda.empty_cache()
+    out["loop"] = _bf16_loop(kernels, device, smi)
+    return {"bf16_train_step": train_rows, "bf16_val_step": val_rows}, out
 
 
 # ---------------------------------------------------------------------------
@@ -1960,7 +2276,7 @@ def phase_eval(kernels, cycles_per_ms, device, smi):
 # the training loop
 # ---------------------------------------------------------------------------
 
-def _loop_params(names, epochs: int):
+def _loop_params(names, epochs: int, save_freq: int = LOOP_SAVE_FREQ):
     """config_egonn.txt + model_configs/egonn.txt at full width on the
     synthetic set: its folder, type and files instead of MulRan's."""
     from egonn_tpu_torch.config import TrainingParams
@@ -1969,7 +2285,7 @@ def _loop_params(names, epochs: int):
                         str(ROOT / "model_configs" / "egonn.txt"), require_dataset=False)
     tp.dataset, tp.dataset_folder = "synthetic", str(LOOP_DATA)
     tp.train_file, tp.val_file, tp.test_file = names
-    tp.epochs, tp.save_freq = epochs, LOOP_SAVE_FREQ
+    tp.epochs, tp.save_freq = epochs, save_freq
     got = (tp.batch_size, tp.batch_size_limit, tp.local_batch_size, tp.aug_mode,
            tp.model_params.cap0, tp.model_params.num_points)
     if got != (2 * N_PLACES, LOOP_BUCKET, 8, 2, CAP0, N_POINTS):
@@ -2224,18 +2540,15 @@ def _determinism_probe(tp, device, g, l) -> dict:
     return out
 
 
-def phase_train_loop(kernels, cycles_per_ms, device, smi, bare_steps_per_s):
-    """Phase 10: do_train on the card (see the module docstring)."""
+def _loop_data() -> tuple:
+    """Phase 10's synthetic set, written (again: the generator is seeded)
+    into LOOP_DATA: (file names, train dataset, local pair dataset, the
+    sampler's first bucket-LOOP_BUCKET batch of epoch 1)."""
     from egonn_tpu_torch.data.base import TrainingDataset
     from egonn_tpu_torch.data.local_dataset import Training6DOFDataset
     from egonn_tpu_torch.data.samplers import BatchSampler
     from egonn_tpu_torch.data.synthetic import generate_synthetic_dataset
-    from egonn_tpu_torch.models.factory import create_egonn_model
-    from egonn_tpu_torch.sparse.pyramid import egonn_pyramid_spec
-    from egonn_tpu_torch.train import trainer
 
-    t0 = time.perf_counter()
-    shutil.rmtree(LOOP_DIR, ignore_errors=True)
     names = generate_synthetic_dataset(str(LOOP_DATA), n_scans=LOOP_SCANS, seed=SEED)
     tp = _loop_params(names, LOOP_EPOCHS)
     ds = TrainingDataset(str(LOOP_DATA), "synthetic", names[0])
@@ -2243,15 +2556,27 @@ def phase_train_loop(kernels, cycles_per_ms, device, smi, bare_steps_per_s):
                               rot_max=tp.rot_max, trans_max=tp.trans_max)
     if len(ds) < LOOP_BUCKET:
         raise AssertionError(f"{len(ds)} train elements, fewer than bucket {LOOP_BUCKET}")
+    sampler = BatchSampler(ds, batch_size=LOOP_BUCKET, seed=0)
+    sampler.set_epoch(1)
+    return names, ds, lds, next(iter(sampler))
+
+
+def phase_train_loop(kernels, cycles_per_ms, device, smi, bare_steps_per_s):
+    """Phase 10: do_train on the card (see the module docstring)."""
+    from egonn_tpu_torch.models.factory import create_egonn_model
+    from egonn_tpu_torch.sparse.pyramid import egonn_pyramid_spec
+    from egonn_tpu_torch.train import trainer
+
+    t0 = time.perf_counter()
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    names, ds, lds, big = _loop_data()
+    tp = _loop_params(names, LOOP_EPOCHS)
     out = dict(dataset_s=time.perf_counter() - t0, train_elements=len(ds), bucket={},
                names=list(names))
 
     # one step each at buckets 32 and 128 (launches, peak memory); on the
     # bucket-32 batch the host's batch assembly against a step, and whether
     # two steps from one state are bit-equal
-    sampler = BatchSampler(ds, batch_size=LOOP_BUCKET, seed=0)
-    sampler.set_epoch(1)
-    big = next(iter(sampler))
     built = create_egonn_model(tp.model_params, device=device, seed=SEED + 6)
     lids = lds.valid_ids[:tp.local_batch_size]
     for ids in (big[:2 * N_PLACES], big):
@@ -2670,7 +2995,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # every phase runs f32 activations but phase 3b, which sets the flag itself
+    # every phase runs f32 activations but phases 3b and 5b, which set the flag themselves
     os.environ.pop("EGONN_BF16_ACTS", None)
     bf16_only = sys.argv[1:] == ["bf16"]
     if sys.argv[1:] and not bf16_only:
@@ -2697,9 +3022,6 @@ def main() -> int:
     t0 = time.perf_counter()
     bf16_rows, bf16 = phase_bf16(built, kernels, inference, pyramid_mod, cycles_per_ms)
     log(f"[bf16] phase done in {time.perf_counter() - t0:.1f} s")
-    if bf16_only:
-        return _finish(smi, {"forward": rows, "bf16_forward": bf16_rows},
-                       dict(card=smi, slice=sl, bf16=bf16), t_start)
 
     from egonn_tpu_torch.config import TrainingParams
     from egonn_tpu_torch.data.train_batch import make_train_batch
@@ -2722,9 +3044,17 @@ def main() -> int:
         f"{tuple(l['anc_clouds'].shape)} x 2 local, {int(l['anc_mask'].sum(1).min())}-"
         f"{int(l['anc_mask'].sum(1).max())} voxel points per anchor "
         f"({time.perf_counter() - t0:.1f} s)")
+    levels = level_of(built_t.pyramid_spec.capacities)
+    if bf16_only:
+        t0 = time.perf_counter()
+        bt_rows, bt = phase_bf16_train(tp, g, l, lr, kernels, cycles_per_ms, levels, smi)
+        log(f"[bf16-train] phase done in {time.perf_counter() - t0:.1f} s")
+        return _finish(smi, {"forward": rows, "bf16_forward": bf16_rows, **bt_rows},
+                       dict(card=smi, slice=sl, bf16=bf16, bf16_train=bt,
+                            determinism=[*bf16["repeats"], bt["repeat"]]), t_start)
     t0 = time.perf_counter()
     train_rows, repeat_train = phase_train_kernels(step, g, l, lr, kernels, cycles_per_ms,
-                                                   level_of(built_t.pyramid_spec.capacities))
+                                                   levels)
     log(f"[train-kernels] phase done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     tr = phase_train_slice(step, g, l, lr, kernels)
@@ -2736,11 +3066,13 @@ def main() -> int:
     for name, row in train_rows.items():
         row["launches"] = tr["train_launches"][name]
     t0 = time.perf_counter()
-    val_rows, repeat_val = phase_val_kernels(step, g, l, lr, kernels, cycles_per_ms,
-                                             level_of(built_t.pyramid_spec.capacities))
+    val_rows, repeat_val = phase_val_kernels(step, g, l, lr, kernels, cycles_per_ms, levels)
     log(f"[val-kernels] phase done in {time.perf_counter() - t0:.1f} s")
     for name, row in val_rows.items():
         row["launches"] = tr["val_launches"][name]
+    t0 = time.perf_counter()
+    bt_rows, bt = phase_bf16_train(tp, g, l, lr, kernels, cycles_per_ms, levels, smi)
+    log(f"[bf16-train] phase done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     maps_rows, maps = phase_lookup_maps(built, kernels, pyramid_mod, cycles_per_ms)
@@ -2774,13 +3106,13 @@ def main() -> int:
                                       tr["steps_per_s"], ev["names"][2], loop["names"])
     log(f"[dp] phase done in {time.perf_counter() - t0:.1f} s")
     paths = {"forward": rows, "bf16_forward": bf16_rows, "train_step": train_rows,
-             "val_step": val_rows, "lookup_maps": maps_rows, **mink_rows, "resnet": resnet_rows,
-             "eval": eval_rows, "train_loop": loop_rows, "dp": dp_rows}
+             "val_step": val_rows, **bt_rows, "lookup_maps": maps_rows, **mink_rows,
+             "resnet": resnet_rows, "eval": eval_rows, "train_loop": loop_rows, "dp": dp_rows}
     return _finish(smi, paths, dict(
-        card=smi, slice=sl, bf16=bf16, train=tr, lookup_maps=maps, minkloc=mink, resnet=resnet,
-        eval=ev, train_loop=loop, data_parallel=dp, wide=wide,
-        determinism=[*repeat_fwd, *bf16["repeats"], *repeat_train, repeat_val, maps["repeat"],
-                     mink["lookup_repeat"], resnet["lookup_repeat"]]), t_start)
+        card=smi, slice=sl, bf16=bf16, train=tr, bf16_train=bt, lookup_maps=maps, minkloc=mink,
+        resnet=resnet, eval=ev, train_loop=loop, data_parallel=dp, wide=wide,
+        determinism=[*repeat_fwd, *bf16["repeats"], *repeat_train, repeat_val, bt["repeat"],
+                     maps["repeat"], mink["lookup_repeat"], resnet["lookup_repeat"]]), t_start)
 
 
 def _finish(smi: str, paths: dict, details: dict, t_start: float) -> int:

@@ -46,6 +46,23 @@
 // operations at three TF32 MMAs each: at EgoNN widths the operations on
 // paper; in practice each tile's barrier and the round trip for its
 // scattered rows (PERF.md).
+//
+// bf16 operands (egonn_gather_dw_bf16): the TPU kernel's numerics
+// (banded.py:728-735, :788: features and g in bf16, their exact products
+// summed in f32, dW f32).  gather_dw_bf16_partial_kernel keeps the frame
+// above (grid, 64-row tiles, compaction by ballot, the cp.async ring, the
+// ordered second pass) on bf16 rows, and multiplies with mma.sync
+// m16n8k16 (bf16.cuh).  The contraction runs over the gathered rows, so
+// both fragments pair two neighbouring rows of one column: ldmatrix .trans
+// reads them from the row-major tiles (rows padded by 16 bytes, so the 8
+// rows of one 8x8 matrix hit 32 distinct banks), and the depth is rounded
+// up to 16 by masking the rows past n in the registers (stale rows may hold
+// any bits).  Each tile's products go straight into the one running f32
+// accumulator, as the TPU kernel's do.  It is its own kernel, not the f32
+// body templated on the element type: that cost the f32 gather body
+// registers and time (PERF.md, "ptxas").  Bound: 2 bytes a feature and g
+// element, against the same operations at the bf16 tensor-core rate.
+#include "bf16.cuh"
 #include "tf32x3.cuh"
 
 namespace egonn {
@@ -231,6 +248,185 @@ gather_dw_partial_kernel(const float* __restrict__ feats, const int32_t* __restr
       }
 }
 
+inline size_t gather_dw_bf16_smem_bytes(int mb, int nb) {
+  return sizeof(bf16) * kDwStages * (size_t)kDwRows * (mb + 8 + nb + 8) +
+         sizeof(int) * (kDwStages + 1) * (kDwThreads / 32);
+}
+
+// Four 8x8 matrices of 16-bit elements from shared memory, each delivered
+// transposed: lanes 8q .. 8q+7 give the addresses of matrix q's 8 rows (16
+// bytes each), and lane (g = lane / 4, t = lane % 4) receives in r[q] the
+// elements (2t, g) and (2t + 1, g) of the stored matrix, the first in the
+// low half.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
+template <int MB, int NB>
+__global__ void __launch_bounds__(kDwThreads)
+gather_dw_bf16_partial_kernel(const bf16* __restrict__ feats, const int32_t* __restrict__ kmap,
+                              const bf16* __restrict__ g, float* __restrict__ partial,
+                              int batch, int c_in, int f_in, int k_vol, int c_out, int f_out) {
+  constexpr int kLdA = MB + 8, kLdG = NB + 8;  // shared row strides (bf16)
+  constexpr int kStage = kDwRows * (kLdA + kLdG);
+  constexpr int MT = MB / 32, NT = NB / 16;    // MMA tiles per warp (MB/2 x NB/2)
+  constexpr int kWarps = kDwThreads / 32;
+
+  extern __shared__ float4 dwb_smem4[];
+  bf16* stage_s = reinterpret_cast<bf16*>(dwb_smem4);  // kDwStages x kStage
+  // valid rows per warp's 16 rows, for steps i mod (kDwStages + 1)
+  int* cnt_s = reinterpret_cast<int*>(stage_s + kDwStages * kStage);
+
+  const int k = blockIdx.x, chunk = blockIdx.y, n_chunks = gridDim.y;
+  const int n_slices = f_out / NB;
+  const int f0 = (blockIdx.z / n_slices) * MB, n0 = (blockIdx.z % n_slices) * NB;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int r = tid >> 1, half = tid & 1;  // the row whose index this thread loads
+  const int tiles_per_cloud = (c_out + kDwRows - 1) / kDwRows;
+  const int n_tiles = batch * tiles_per_cloud;
+  const int n_steps = chunk < n_tiles ? (n_tiles - 1 - chunk) / n_chunks + 1 : 0;
+
+  // as in gather_dw_partial_kernel
+  auto raw_index = [&](int i) -> int {
+    const int tile = chunk + i * n_chunks;
+    const int b = tile / tiles_per_cloud;
+    const int row = (tile - b * tiles_per_cloud) * kDwRows + r;
+    return i < n_steps && row < c_out ? kmap[((size_t)b * k_vol + k) * c_out + row] : c_in;
+  };
+  auto count_tile = [&](int raw, int i) {
+    const bool v = (unsigned)raw < (unsigned)c_in;
+    const unsigned m = __ballot_sync(0xffffffffu, v && !half);  // even lanes: one per row
+    if (lane == 0) cnt_s[(i % (kDwStages + 1)) * kWarps + warp] = __popc(m);
+    return __popc(m & ((1u << (lane & ~1)) - 1));  // valid rows before mine in my warp
+  };
+  // step i's valid rows to their places, a row's 16-byte pieces (8 bf16) on
+  // neighbouring lanes
+  auto load_tile = [&](int raw, int i, int pos) {
+    const int* cnt = cnt_s + (i % (kDwStages + 1)) * kWarps;
+    if (cnt[0] + cnt[1] + cnt[2] + cnt[3] == 0) return;  // block-uniform
+    for (int w = 0; w < warp; ++w) pos += cnt[w];
+    bf16* a_s = stage_s + (i % kDwStages) * kStage;
+    bf16* g_s = a_s + kDwRows * kLdA;
+    const int tile = chunk + i * n_chunks;
+    const int b = tile / tiles_per_cloud;
+    const int row0 = (tile - b * tiles_per_cloud) * kDwRows + warp * 16;  // this warp's rows
+    constexpr int PA = MB / 8, PG = NB / 8;  // 16-byte pieces per row
+#pragma unroll
+    for (int jr0 = 0; jr0 < 16; jr0 += 32 / PA) {
+      const int jr = jr0 + lane / PA, q = lane % PA;
+      const int src = __shfl_sync(0xffffffffu, raw, 2 * jr);
+      const int at = __shfl_sync(0xffffffffu, pos, 2 * jr);
+      if ((unsigned)src < (unsigned)c_in)
+        cp_async16(a_s + at * kLdA + 8 * q, feats + ((size_t)b * c_in + src) * f_in + f0 + 8 * q,
+                   16);
+    }
+#pragma unroll
+    for (int jr0 = 0; jr0 < 16; jr0 += 32 / PG) {
+      const int jr = jr0 + lane / PG, q = lane % PG;
+      const int src = __shfl_sync(0xffffffffu, raw, 2 * jr);
+      const int at = __shfl_sync(0xffffffffu, pos, 2 * jr);
+      if ((unsigned)src < (unsigned)c_in)
+        cp_async16(g_s + at * kLdG + 8 * q,
+                   g + ((size_t)b * c_out + row0 + jr) * f_out + n0 + 8 * q, 16);
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+  // This lane's ldmatrix rows.  A = the feature tile transposed, A[m][j] =
+  // a_s[j][m]: matrix q covers m + 8 (q % 2), depths j + 8 (q / 2), so r[q]
+  // is the A fragment's register q.  B = the g tile, B[j][n] = g_s[j][n]:
+  // matrix q covers depths j + 8 (q % 2) and columns n + 8 (q / 2), so r[q]
+  // is register q % 2 of the n8 tile q / 2.
+  const int a_row = (lane >> 4) * 8 + (lane & 7), a_col = ((lane >> 3) & 1) * 8;
+  const int g_row = ((lane >> 3) & 1) * 8 + (lane & 7), g_col = (lane >> 4) * 8;
+
+  // step i's n compacted rows: A^T (MB x n) . G (n x NB), depth n rounded up
+  // to the MMA's 16; the rows past n hold stale bits and are masked to zero
+  // in both operands (0 x NaN would not be 0)
+  auto compute_tile = [&](int i) {
+    const int* cnt = cnt_s + (i % (kDwStages + 1)) * kWarps;
+    const int n = cnt[0] + cnt[1] + cnt[2] + cnt[3];
+    if (n == 0) return;
+    const bf16* a_s = stage_s + (i % kDwStages) * kStage + wm * (MB / 2);
+    const bf16* g_s = stage_s + (i % kDwStages) * kStage + kDwRows * kLdA + wn * (NB / 2);
+    for (int kk = 0; kk < n; kk += 16) {
+      // this lane's depths: kk + 2t, kk + 2t + 1 (lo) and the same + 8 (hi)
+      const int d = kk + 2 * t;
+      const uint32_t lo = (d < n ? 0xffffu : 0u) | (d + 1 < n ? 0xffff0000u : 0u);
+      const uint32_t hi = (d + 8 < n ? 0xffffu : 0u) | (d + 9 < n ? 0xffff0000u : 0u);
+      uint32_t a[MT][4], b[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        ldmatrix_x4_trans(a[mt], a_s + (kk + a_row) * kLdA + mt * 16 + a_col);
+        a[mt][0] &= lo;
+        a[mt][1] &= lo;
+        a[mt][2] &= hi;
+        a[mt][3] &= hi;
+      }
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t q[4];
+        ldmatrix_x4_trans(q, g_s + (kk + g_row) * kLdG + np * 16 + g_col);
+        b[2 * np][0] = q[0] & lo;
+        b[2 * np][1] = q[1] & hi;
+        b[2 * np + 1][0] = q[2] & lo;
+        b[2 * np + 1][1] = q[3] & hi;
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt]);
+    }
+  };
+
+  // the ring of gather_dw_partial_kernel
+  int raw = raw_index(0);
+  for (int j = 0; j < kDwStages - 1; ++j) {
+    const int next = raw_index(j + 1);
+    const int pos = count_tile(raw, j);
+    __syncthreads();
+    load_tile(raw, j, pos);
+    cp_async_commit();
+    raw = next;
+  }
+  for (int i = 0; i < n_steps; ++i) {
+    const int next = raw_index(i + kDwStages);
+    const int pos = count_tile(raw, i + kDwStages - 1);
+    cp_async_wait<kDwStages - 2>();
+    __syncthreads();
+    load_tile(raw, i + kDwStages - 1, pos);
+    cp_async_commit();
+    compute_tile(i);
+    raw = next;
+  }
+
+  float* out = partial + ((size_t)chunk * k_vol + k) * f_in * f_out;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = f0 + wm * (MB / 2) + mt * 16 + gq + 8 * h;
+        const int n = n0 + wn * (NB / 2) + nt * 8 + 2 * t;
+        *reinterpret_cast<float2*>(out + (size_t)m * f_out + n) =
+            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+      }
+}
+
 __global__ void gather_dw_reduce_kernel(const float4* __restrict__ partial,
                                         float4* __restrict__ out, int n_chunks, int n4) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -246,19 +442,64 @@ __global__ void gather_dw_reduce_kernel(const float4* __restrict__ partial,
   out[i] = s;
 }
 
+template <typename Kernel, typename T>
+cudaError_t launch_partial(Kernel kernel, size_t smem, const T* feats, const int32_t* kmap,
+                           const T* g, float* partial, int batch, int c_in, int f_in, int k_vol,
+                           int c_out, int f_out, int n_chunks, int mb, int nb,
+                           cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(k_vol, n_chunks, (f_in / mb) * (f_out / nb));
+  kernel<<<grid, kDwThreads, smem, stream>>>(feats, kmap, g, partial, batch, c_in, f_in, k_vol,
+                                             c_out, f_out);
+  return cudaGetLastError();
+}
+
+// the partial pass of a (MB, NB) slice, for f32 or bf16 operands
 template <int MB, int NB>
 cudaError_t launch_gather_dw_partial(const float* feats, const int32_t* kmap, const float* g,
                                      float* partial, int batch, int c_in, int f_in, int k_vol,
                                      int c_out, int f_out, int n_chunks, cudaStream_t stream) {
-  const size_t smem = gather_dw_smem_bytes(MB, NB);
-  cudaError_t err = cudaFuncSetAttribute(gather_dw_partial_kernel<MB, NB>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(k_vol, n_chunks, (f_in / MB) * (f_out / NB));
-  gather_dw_partial_kernel<MB, NB><<<grid, kDwThreads, smem, stream>>>(
-      feats, kmap, g, partial, batch, c_in, f_in, k_vol, c_out, f_out);
-  return cudaGetLastError();
+  return launch_partial(gather_dw_partial_kernel<MB, NB>, gather_dw_smem_bytes(MB, NB), feats,
+                        kmap, g, partial, batch, c_in, f_in, k_vol, c_out, f_out, n_chunks, MB,
+                        NB, stream);
+}
+template <int MB, int NB>
+cudaError_t launch_gather_dw_partial(const bf16* feats, const int32_t* kmap, const bf16* g,
+                                     float* partial, int batch, int c_in, int f_in, int k_vol,
+                                     int c_out, int f_out, int n_chunks, cudaStream_t stream) {
+  return launch_partial(gather_dw_bf16_partial_kernel<MB, NB>,
+                        gather_dw_bf16_smem_bytes(MB, NB), feats, kmap, g, partial, batch, c_in,
+                        f_in, k_vol, c_out, f_out, n_chunks, MB, NB, stream);
+}
+
+// Both passes: the partial pass at slice (mb, nb), then the ordered sum.
+template <typename T>
+int gather_dw(const T* feats, const int32_t* kmap, const T* g, float* partial, float* out,
+              int batch, int c_in, int f_in, int k_vol, int c_out, int f_out, int mb, int nb,
+              int n_chunks, cudaStream_t st) {
+  if (f_in % mb || f_out % nb || n_chunks <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (mb == 64 && nb == 64)
+    err = launch_gather_dw_partial<64, 64>(feats, kmap, g, partial, batch, c_in, f_in, k_vol,
+                                           c_out, f_out, n_chunks, st);
+  else if (mb == 64 && nb == 32)
+    err = launch_gather_dw_partial<64, 32>(feats, kmap, g, partial, batch, c_in, f_in, k_vol,
+                                           c_out, f_out, n_chunks, st);
+  else if (mb == 32 && nb == 64)
+    err = launch_gather_dw_partial<32, 64>(feats, kmap, g, partial, batch, c_in, f_in, k_vol,
+                                           c_out, f_out, n_chunks, st);
+  else if (mb == 32 && nb == 32)
+    err = launch_gather_dw_partial<32, 32>(feats, kmap, g, partial, batch, c_in, f_in, k_vol,
+                                           c_out, f_out, n_chunks, st);
+  else
+    err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  const int n4 = k_vol * f_in * f_out / 4;
+  gather_dw_reduce_kernel<<<(n4 + 255) / 256, 256, 0, st>>>(
+      reinterpret_cast<const float4*>(partial), reinterpret_cast<float4*>(out), n_chunks, n4);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace egonn
@@ -271,26 +512,15 @@ extern "C" int egonn_gather_dw(const float* feats, const int32_t* kmap, const fl
                                float* partial, float* out, int batch, int c_in, int f_in,
                                int k_vol, int c_out, int f_out, int mb, int nb, int n_chunks,
                                void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (f_in % mb || f_out % nb || n_chunks <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if (mb == 64 && nb == 64)
-    err = egonn::launch_gather_dw_partial<64, 64>(feats, kmap, g, partial, batch, c_in, f_in,
-                                                  k_vol, c_out, f_out, n_chunks, st);
-  else if (mb == 64 && nb == 32)
-    err = egonn::launch_gather_dw_partial<64, 32>(feats, kmap, g, partial, batch, c_in, f_in,
-                                                  k_vol, c_out, f_out, n_chunks, st);
-  else if (mb == 32 && nb == 64)
-    err = egonn::launch_gather_dw_partial<32, 64>(feats, kmap, g, partial, batch, c_in, f_in,
-                                                  k_vol, c_out, f_out, n_chunks, st);
-  else if (mb == 32 && nb == 32)
-    err = egonn::launch_gather_dw_partial<32, 32>(feats, kmap, g, partial, batch, c_in, f_in,
-                                                  k_vol, c_out, f_out, n_chunks, st);
-  else
-    err = cudaErrorInvalidValue;
-  if (err != cudaSuccess) return (int)err;
-  const int n4 = k_vol * f_in * f_out / 4;
-  egonn::gather_dw_reduce_kernel<<<(n4 + 255) / 256, 256, 0, st>>>(
-      reinterpret_cast<const float4*>(partial), reinterpret_cast<float4*>(out), n_chunks, n4);
-  return (int)cudaGetLastError();
+  return egonn::gather_dw(feats, kmap, g, partial, out, batch, c_in, f_in, k_vol, c_out, f_out,
+                          mb, nb, n_chunks, static_cast<cudaStream_t>(stream));
+}
+
+// The same with bf16 feats and g; partial and out f32.
+extern "C" int egonn_gather_dw_bf16(const egonn::bf16* feats, const int32_t* kmap,
+                                    const egonn::bf16* g, float* partial, float* out, int batch,
+                                    int c_in, int f_in, int k_vol, int c_out, int f_out, int mb,
+                                    int nb, int n_chunks, void* stream) {
+  return egonn::gather_dw(feats, kmap, g, partial, out, batch, c_in, f_in, k_vol, c_out, f_out,
+                          mb, nb, n_chunks, static_cast<cudaStream_t>(stream));
 }

@@ -12,7 +12,11 @@ Activations may be bf16 (`activation_dtype`, `EGONN_BF16_ACTS=1` on a CUDA
 device, as the JAX package's on a TPU): every conv returns its features'
 type.  The gather convs then run the bf16 kernels; the plain products
 compute in f32 on the bf16 values (torch's matmul does not promote, JAX's
-einsum does) and round once to bf16.
+einsum does) and round once to bf16.  In the backward the cotangents of
+bf16 activations are bf16: every dX is a bf16 conv again, every dW sums the
+exact products of the bf16 values in f32 and is returned f32, the
+parameters' type (`gather_dw` on bf16 features; the transposed conv's dW
+in f32 as JAX's `preferred_element_type=jnp.float32` einsum).
 
 The custom gradients of the JAX package (`conv.py:124-217`), as
 `torch.autograd.Function`s.  Each saves its inputs, never the gathered
@@ -153,13 +157,15 @@ class _Tconv2x2(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             d_feats = kernels.gather_conv(g, kmap_down, _transposed(kernel))
         if ctx.needs_input_grad[4]:
-            # dW[k] = sum over fine voxels in slot k of feats[parent]^T g
+            # dW[k] = sum over fine voxels in slot k of feats[parent]^T g, in
+            # f32 (on the bf16 values of bf16 activations: exact products)
             b, _, f_in = feats_coarse.shape
             feats_p = torch.cat([feats_coarse, feats_coarse.new_zeros(b, 1, f_in)], dim=1)
             gathered = torch.gather(feats_p, 1,
-                                    up_parent.long()[..., None].expand(-1, -1, f_in))
+                                    up_parent.long()[..., None].expand(-1, -1, f_in)).float()
+            g32 = g.float()
             d_kernel = torch.stack([
-                torch.einsum("bcf,bco->fo", gathered * (up_koffset == k)[..., None], g)
+                torch.einsum("bcf,bco->fo", gathered * (up_koffset == k)[..., None], g32)
                 for k in range(kernel.shape[0])])
         return d_feats, None, None, None, d_kernel
 

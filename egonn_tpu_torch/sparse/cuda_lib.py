@@ -44,8 +44,9 @@ SIGNATURES = {
            for name in ("egonn_tdown", "egonn_tdown_bf16")},
         "egonn_tdown_hulls": [_P, _P, _I, _I, _I, _I, _P],
     },
-    "gather_dw.cu": {
-        "egonn_gather_dw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gather_dw.cu": {  # the f32 and the bf16 entry points take the same arguments
+        name: [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+        for name in ("egonn_gather_dw", "egonn_gather_dw_bf16")
     },
     "lookup.cu": {  # host arrays of per-level pointers and sizes, then scalars
         "egonn_lookup": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],

@@ -47,14 +47,16 @@ needs into shared memory and search there (`zrun_chunk` picks the chunk).
 of a pyramid in one launch.
 
 bf16 features (the activations under `EGONN_BF16_ACTS=1`, `sparse/conv.py`)
-take the bf16 kernels of `gather_conv` and `tdown` (`csrc/bf16.cuh`): the
-TPU kernels' numerics, the weights rounded to bf16 (to nearest even) and
-transposed by the wrapper, bf16 x bf16 products on the tensor cores
-(`mma.sync` m16n8k16) summed in f32, the epilogue in f32 and one rounding of
-the output to bf16; their plain versions compute the same from the
-bf16-rounded weights.  They count under `gather_conv_bf16` and `tdown_bf16`.
-f32 features take the split-TF32 kernels as before; any other type raises.
-`gather_dw` takes f32 only.
+take the bf16 kernels of `gather_conv`, `tdown` and `gather_dw`
+(`csrc/bf16.cuh`): the TPU kernels' numerics, bf16 x bf16 products on the
+tensor cores (`mma.sync` m16n8k16) summed in f32.  The convs' weights are
+rounded to bf16 (to nearest even) and transposed by the wrapper, the
+epilogue is applied in f32 and the output rounded once to bf16; the dW
+kernel takes g in bf16 (rounded by the wrapper if it comes in f32) and
+returns dW in f32.  Their plain versions compute the same from the
+bf16-rounded operands.  They count under `gather_conv_bf16`, `tdown_bf16`
+and `gather_dw_bf16`.  f32 features take the split-TF32 kernels; any other
+type raises.
 
 Widths: the kernels take F_out a multiple of 32 up to 512 and F_in a
 multiple of 4 (bf16: 8) up to 128 or of 32 up to 512 (gather_conv, tdown:
@@ -102,7 +104,7 @@ _DW_BLOCKS = 8 * 132  # gather_dw's partial-pass blocks: eight per SM of an H100
 _SPLIT_BLOCKS, _SPLIT_STAGES = 1280, 24
 # kernel launches per wrapper (CUDA tensors only; the plain versions do not count)
 LAUNCHES = {"zrun_presence": 0, "zrun_rank": 0, "gather_conv": 0, "tdown": 0, "gather_dw": 0,
-            "lookup": 0, "gather_conv_bf16": 0, "tdown_bf16": 0}
+            "lookup": 0, "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0}
 # per CUDA device: zrun and lookup blocks whose table slice did not fit
 # (`zrun_overflow_blocks`, `lookup_overflow_blocks`)
 _ZRUN_OVERFLOW: dict = {}
@@ -150,8 +152,8 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def _is_bf16(feats: torch.Tensor) -> bool:
-    """Whether conv features take the bf16 kernels (f32: the split-TF32
-    ones); any other type raises."""
+    """Whether conv or dW features take the bf16 kernels (f32: the
+    split-TF32 ones); any other type raises."""
     if feats.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"feats: dtype {feats.dtype}, expected torch.float32 or torch.bfloat16")
     return feats.dtype == torch.bfloat16
@@ -380,8 +382,9 @@ def width_plan(f_in: int, f_out: int, dw: bool = False, bf16: bool = False) -> W
     above 512 are cut into chunks of 512 and a remainder: F_out chunks are
     separate columns of the output (of dW); F_in chunks of a conv are
     partial sums, added before the epilogue is applied once, and of dW
-    separate rows.  Zero feature columns and zero weight rows / columns add
-    nothing, so the plan is exact."""
+    separate rows (whole f32 sums, for bf16 features too).  Zero feature
+    columns and zero weight rows / columns add nothing, so the plan is
+    exact."""
     def up(f, m):
         return max(m, -(-f // m) * m)
 
@@ -438,13 +441,14 @@ def planned_dw(launch: Callable, feats: torch.Tensor, g: torch.Tensor, k_vol: in
                plan: WidthPlan) -> torch.Tensor:
     """`launch(feats, g)` of gather_dw run over `plan`: feats (B, C_in, F_in)
     and g (B, C_out, F_out) zero-padded, one launch per (F_in chunk, F_out
-    chunk), each an independent block of dW; the padding cut off."""
+    chunk), each an independent f32 block of dW; the padding cut off."""
     f_in, f_out = feats.shape[2], g.shape[2]
     feats, g = _pad_last(feats, plan.f_in), _pad_last(g, plan.f_out)
     if len(plan.in_chunks) == 1 and len(plan.out_chunks) == 1:
         out = launch(feats, g)
     else:
-        out = feats.new_empty((k_vol, plan.f_in, plan.f_out))
+        out = torch.empty((k_vol, plan.f_in, plan.f_out), dtype=torch.float32,
+                          device=feats.device)
         for i0, i1 in plan.in_chunks:
             f = feats[..., i0:i1].contiguous()
             for o0, o1 in plan.out_chunks:
@@ -680,7 +684,13 @@ def gather_dw_plain(feats: torch.Tensor, kmap: torch.Tensor, g: torch.Tensor) ->
     """dW[k] = sum_b sum_o feats[b, kmap[b, k, o]]^T g[b, o]: a gather per
     offset, then one contraction over the batch and the rows (the JAX
     package's `_conv_dkernel_gather`); an index outside [0, C_in) gathers a
-    zero row."""
+    zero row.
+
+    bf16 feats: the bf16 kernel's (and the TPU kernel's) numerics: g rounded
+    to bf16, the exact products of the bf16 values summed in f32, dW f32
+    (`_conv_dkernel_gather` on bf16 inputs)."""
+    if feats.dtype == torch.bfloat16:
+        return gather_dw_plain(feats.float(), kmap, g.to(torch.bfloat16).float())
     b, c_in, f_in = feats.shape
     feats_p = torch.cat([feats, feats.new_zeros(b, 1, f_in)], dim=1)
     idx = torch.where((kmap >= 0) & (kmap < c_in), kmap, c_in).long()
@@ -703,40 +713,46 @@ def dw_tiling(b: int, c_out: int, f_in: int, f_out: int, k_vol: int):
 
 
 def _gather_dw_cuda(feats, kmap, g):
-    """One gather_dw launch at widths the kernel takes."""
+    """One gather_dw launch at widths the kernel takes: f32 features and g on
+    the split-TF32 kernel, bf16 ones on the bf16 kernel; dW f32."""
     b, c_in, f_in = feats.shape
     k_vol, c_out = kmap.shape[1], kmap.shape[2]
     f_out = g.shape[2]
     if not dw_widths_ok(f_in, f_out):
         raise ValueError(f"gather_dw: F_in={f_in}, F_out={f_out}; the kernel takes widths "
                          "that are multiples of 32 up to 512")
-    _check(feats, "feats", torch.float32, (b, c_in, f_in), align16=True)
+    name = "gather_dw_bf16" if _is_bf16(feats) else "gather_dw"
+    _check(feats, "feats", feats.dtype, (b, c_in, f_in), align16=True)
     _check(kmap, "kmap", torch.int32, (b, k_vol, c_out))
-    _check(g, "g", torch.float32, (b, c_out, f_out), align16=True)
+    _check(g, "g", feats.dtype, (b, c_out, f_out), align16=True)
     mb, nb, n_chunks = dw_tiling(b, c_out, f_in, f_out, k_vol)
     partial = torch.empty((n_chunks, k_vol, f_in, f_out), dtype=torch.float32,
                           device=feats.device)
     out = torch.empty((k_vol, f_in, f_out), dtype=torch.float32, device=feats.device)
-    fn = cuda_lib.function("gather_dw.cu", "egonn_gather_dw")
+    fn = cuda_lib.function("gather_dw.cu", f"egonn_{name}")
     err = fn(feats.data_ptr(), kmap.data_ptr(), g.data_ptr(), partial.data_ptr(),
              out.data_ptr(), b, c_in, f_in, k_vol, c_out, f_out, mb, nb, n_chunks,
              _stream(feats))
-    _raise_on(err, "gather_dw")
-    LAUNCHES["gather_dw"] += 1
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     return out
 
 
 def gather_dw(feats: torch.Tensor, kmap: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Weight gradient of `gather_conv(feats, kmap, W)` for the cotangent g.
 
-    feats (B, C_in, F_in) f32; kmap (B, K, C_out) int32 (sentinel C_in);
-    g (B, C_out, F_out) f32.  Returns (K, F_in, F_out) f32.  Any widths: on
-    the card through `width_plan(dw=True)`'s launches."""
+    feats (B, C_in, F_in) f32 or bf16; kmap (B, K, C_out) int32 (sentinel
+    C_in); g (B, C_out, F_out) in the features' type (with bf16 features an
+    f32 g is rounded to bf16, as the TPU kernel rounds it).  Returns
+    (K, F_in, F_out) f32.  Any widths: on the card through
+    `width_plan(dw=True)`'s launches."""
     if not _on_cuda(feats, kmap, g):
         return gather_dw_plain(feats, kmap, g)
     if feats.dim() != 3 or g.dim() != 3 or kmap.dim() != 3:
         raise ValueError(f"feats {tuple(feats.shape)}, kmap {tuple(kmap.shape)}, g "
                          f"{tuple(g.shape)}: expected 3-D")
+    if _is_bf16(feats):
+        g = g.to(torch.bfloat16)
     return planned_dw(lambda f, gg: _gather_dw_cuda(f, kmap, gg), feats, g, kmap.shape[1],
                       width_plan(feats.shape[2], g.shape[2], dw=True))
 

@@ -78,7 +78,6 @@ from egonn_tpu_torch.parallel.mesh import (
     set_process_group,
     world_size,
 )
-from egonn_tpu_torch.sparse.conv import activation_dtype
 from egonn_tpu_torch.sparse.pyramid import capacity_report
 from egonn_tpu_torch.train.state import (
     TrainState,
@@ -128,15 +127,11 @@ class TrainStep:
     rank shares; the stats are the global batch's, equal on every rank.
     The model takes rank 0's weights at construction.
 
-    bf16 activations (EGONN_BF16_ACTS=1 on the card) are refused: the
-    port's bf16 path is the serving path's; the train step's bf16 gradients
-    (the dX convs and a bf16 gather_dw) are ROADMAP A.12."""
+    With EGONN_BF16_ACTS=1 on the card the activations and their cotangents
+    are bf16 (`sparse/conv.py`); the outputs, the losses, the parameters,
+    their gradients and Adam's state stay f32, as in the JAX package."""
 
     def __init__(self, built: BuiltModel, params, group=None):
-        if activation_dtype(built.device) != torch.float32:
-            raise NotImplementedError("EGONN_BF16_ACTS=1: the train step runs f32 activations "
-                                      "only (its bf16 gradients are ROADMAP A.12); unset it "
-                                      "to train")
         self.built = built
         self.aug_mode = params.aug_mode
         self.group = group

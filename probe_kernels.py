@@ -5,8 +5,10 @@ the rules in `egonn_tpu_torch/sparse/kernels.py` that choose them:
 - gather_conv: the column slice (32 or 64, `conv_cols`) and the number of
   blocks that share a tile's offsets (1-4, `offset_groups`), for f32 and,
   on the bf16 forward's calls, bf16 features (the bf16 kernel);
-- gather_dw: the number of chunks of its partial pass (`dw_tiling`), at 1/4,
-  1/2, 1 and 2 times the rule's choice;
+- gather_dw: the slice of dW a block owns (mb x nb, 32 or 64 each) and the
+  number of chunks of its partial pass (`dw_tiling`), at 1/2, 1 and 2 times
+  the rule's count for that slice; f32 and, on the bf16 train step's calls,
+  bf16 (the bf16 kernel);
 - tdown: the gathering body, and the streaming body's coarse rows of a
   tile (32, 64, 128) by fine rows of a stage (32, 64, 128) (`tdown_tiling`),
   and its hull launch alone; f32 and, on the bf16 forward's calls, bf16
@@ -22,10 +24,11 @@ the rules in `egonn_tpu_torch/sparse/kernels.py` that choose them:
   level's queries formed by torch ops, then one lookup launch per level).
 
     python3 probe_kernels.py       # from the repository root; one CUDA card, nvcc
-    python3 probe_kernels.py bf16  # the bf16 forward's calls alone
+    python3 probe_kernels.py bf16  # the bf16 forward's and train step's calls alone
 
 The calls are those of one EgoNN forward (f32, and bf16 under
-EGONN_BF16_ACTS=1: chip_smoke's phase 3b) and one training step at full width
+EGONN_BF16_ACTS=1: chip_smoke's phase 3b), the gather_dw calls of one bf16
+training step (chip_smoke's phase 5b) and one training step at full width
 (recorded as `chip_smoke.py` records them: 8 x 65,536 points, cap0 16384; the
 train step of config/config_egonn.txt), the tdown calls of its validation
 step (32 + 8 + 8 clouds), one MinkLoc forward
@@ -77,15 +80,18 @@ def _conv_setting(kernels, cuda_lib, args, kwargs, cols: int, n_groups: int):
     return run
 
 
-def _dw_setting(kernels, cuda_lib, args, n_chunks: int):
+def _dw_setting(kernels, cuda_lib, args, mb: int, nb: int, n_chunks: int):
+    """The gather_dw launch of `args` with a given slice and chunk count (bf16
+    features: the bf16 kernel, g rounded to bf16 as the wrapper rounds it)."""
     feats, kmap, g = args
     b, c_in, f_in = feats.shape
     k_vol, c_out = kmap.shape[1], kmap.shape[2]
     f_out = g.shape[2]
-    mb, nb, _ = kernels.dw_tiling(b, c_out, f_in, f_out, k_vol)
+    bf16 = kernels._is_bf16(feats)
+    g = g.to(feats.dtype)
     partial = torch.empty((n_chunks, k_vol, f_in, f_out), device=feats.device)
     out = torch.empty((k_vol, f_in, f_out), device=feats.device)
-    fn = cuda_lib.function("gather_dw.cu", "egonn_gather_dw")
+    fn = cuda_lib.function("gather_dw.cu", "egonn_gather_dw_bf16" if bf16 else "egonn_gather_dw")
 
     def run():
         kernels._raise_on(fn(feats.data_ptr(), kmap.data_ptr(), g.data_ptr(), partial.data_ptr(),
@@ -93,6 +99,13 @@ def _dw_setting(kernels, cuda_lib, args, n_chunks: int):
                              kernels._stream(feats)), "gather_dw")
         return out
     return run
+
+
+def _dw_chunks(kernels, b: int, c_out: int, f_in: int, f_out: int, k_vol: int, mb: int,
+               nb: int) -> int:
+    """`kernels.dw_tiling`'s chunk count for the slice (mb, nb)."""
+    blocks = k_vol * (f_in // mb) * (f_out // nb)
+    return max(1, min(b * -(-c_out // 64), -(-kernels._DW_BLOCKS // blocks)))
 
 
 def _tdown_setting(kernels, args, kwargs, tiling):
@@ -144,9 +157,14 @@ def _settings(name, args, kwargs, kernels, cuda_lib):
                 kernels.offset_groups(b, c_out, f_in, f_out, k_vol))
         settings = [(c, n) for c in (32, 64) if f_out % c == 0 for n in range(1, min(4, k_vol) + 1)]
         return desc, rule, settings, lambda s: _conv_setting(kernels, cuda_lib, args, kwargs, *s)
-    rule = kernels.dw_tiling(b, c_out, f_in, f_out, k_vol)[2]
-    settings = sorted({max(1, rule * m // 4) for m in (1, 2, 4, 8)})
-    return desc, rule, settings, lambda s: _dw_setting(kernels, cuda_lib, args, s)
+    rule = kernels.dw_tiling(b, c_out, f_in, f_out, k_vol)
+    settings = []
+    for mb, nb in itertools.product((32, 64), (32, 64)):
+        if f_in % mb or f_out % nb:
+            continue
+        n = _dw_chunks(kernels, b, c_out, f_in, f_out, k_vol, mb, nb)
+        settings += [(mb, nb, c) for c in sorted({max(1, n // 2), n, 2 * n})]
+    return desc, rule, settings, lambda s: _dw_setting(kernels, cuda_lib, args, *s)
 
 
 def sweep(tag, name, args, kwargs, kernels, cuda_lib, cycles_per_ms) -> dict:
@@ -231,20 +249,26 @@ def main() -> int:
                                cap0=chip_smoke.CAP0)
     built = create_egonn_model(mp, cap0=chip_smoke.CAP0, device=device, seed=chip_smoke.SEED)
     clouds, mask = chip_smoke.make_inputs(device)
+    step, g, l, lr = _train_step(device)
     os.environ["EGONN_BF16_ACTS"] = "1"
     try:
         paths = {"bf16_forward": chip_smoke.record_calls(
-            kernels, lambda: inference.forward(built, clouds, mask))}
+            kernels, lambda: inference.forward(built, clouds, mask)),
+                 "bf16_train": chip_smoke.record_calls(
+            kernels, lambda: step(g, l, torch.Generator(device=device).manual_seed(0), lr, True))}
     finally:
         os.environ.pop("EGONN_BF16_ACTS", None)
     builds = []
     if sys.argv[1:] != ["bf16"]:
-        builds = _f32_paths(paths, built, clouds, mask, device)
+        builds = _f32_paths(paths, built, clouds, mask, device, (step, g, l, lr))
+    del step
     rows, seen = [], set()
     with torch.no_grad():
         for tag, calls in paths.items():
             for name, args, kwargs, _ in calls:
-                if name == "lookup" or (tag == "val" and name != "tdown"):
+                # the validation step's tdown calls, the bf16 train step's dW calls
+                if (name == "lookup" or (tag == "val" and name != "tdown")
+                        or (tag == "bf16_train" and name != "gather_dw")):
                     continue
                 shapes = chip_smoke._shape(args)
                 key = (tag, name, str(shapes), kwargs.get("epi") is not None)
@@ -259,34 +283,40 @@ def main() -> int:
     return 0
 
 
-def _f32_paths(paths, built, clouds, mask, device) -> list:
-    """Adds the f32 paths' recorded calls to `paths`; returns the lookup-built
-    map builds' device kernels."""
-    from egonn_tpu_torch import inference
+def _train_step(device) -> tuple:
+    """chip_smoke's phase 4 train step and batch: (step, g, l, lr)."""
     from egonn_tpu_torch.config import TrainingParams
     from egonn_tpu_torch.data.train_batch import make_train_batch
-    from egonn_tpu_torch.models.factory import create_egonn_model, model_factory
-    from egonn_tpu_torch.sparse import kernels
-    from egonn_tpu_torch.sparse import pyramid as pyramid_mod
+    from egonn_tpu_torch.models.factory import create_egonn_model
     from egonn_tpu_torch.train.state import make_lr_schedule
     from egonn_tpu_torch.train.trainer import make_train_step
 
-    paths["forward"] = chip_smoke.record_calls(
-        kernels, lambda: inference.forward(built, clouds, mask))
     root = chip_smoke.ROOT
     tp = TrainingParams(str(root / "config" / "config_egonn.txt"),
                         str(root / "model_configs" / "egonn.txt"), require_dataset=False)
     built_t = create_egonn_model(tp.model_params, cap0=chip_smoke.CAP0, device=device,
                                  seed=chip_smoke.SEED + 1)
-    step = make_train_step(built_t, tp)
     g, l = make_train_batch(tp, built_t.quantizer, device, n_places=chip_smoke.N_PLACES,
                             n_points=chip_smoke.N_POINTS, seed=chip_smoke.SEED)
+    return make_train_step(built_t, tp), g, l, make_lr_schedule(tp)(0)
+
+
+def _f32_paths(paths, built, clouds, mask, device, train) -> list:
+    """Adds the f32 paths' recorded calls to `paths` (`train`: `_train_step`'s
+    step, batch and lr); returns the lookup-built map builds' device
+    kernels."""
+    from egonn_tpu_torch import inference
+    from egonn_tpu_torch.models.factory import model_factory
+    from egonn_tpu_torch.sparse import kernels
+    from egonn_tpu_torch.sparse import pyramid as pyramid_mod
+
+    paths["forward"] = chip_smoke.record_calls(
+        kernels, lambda: inference.forward(built, clouds, mask))
+    step, g, l, lr = train
     gen = torch.Generator(device=device).manual_seed(0)
-    paths["train"] = chip_smoke.record_calls(
-        kernels, lambda: step(g, l, gen, make_lr_schedule(tp)(0), True))
+    paths["train"] = chip_smoke.record_calls(kernels, lambda: step(g, l, gen, lr, True))
     # the validation step (three eval forwards): tdown's largest user
-    paths["val"] = chip_smoke.record_calls(
-        kernels, lambda: step(g, l, None, make_lr_schedule(tp)(0), False))
+    paths["val"] = chip_smoke.record_calls(kernels, lambda: step(g, l, None, lr, False))
     mink = model_factory(chip_smoke._minkloc_params(), cap0=chip_smoke.MINKLOC_CAP0,
                          device=device, seed=chip_smoke.SEED + 3)
     paths["minkloc"] = chip_smoke.record_calls(

@@ -349,21 +349,3 @@ def test_inference_forward_bf16_host_outputs(monkeypatch):
         assert np.isfinite(host).all(), k
         assert float(np.abs(host - y32[k].numpy()).max()) <= BF16_RULE * float(
             np.abs(y32[k].numpy()).max()), k
-
-
-def test_train_step_refuses_bf16(monkeypatch):
-    """The train step takes f32 activations only: with bf16 ones it raises
-    at construction instead of failing in its backward."""
-    import os
-
-    from egonn_tpu_torch.config import TrainingParams
-    from egonn_tpu_torch.train import trainer
-
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    params = TrainingParams(os.path.join(root, "config/config_egonn.txt"),
-                            os.path.join(root, "model_configs/egonn.txt"), require_dataset=False)
-    built = create_egonn_model(params.model_params, cap0=1024, device="cpu")
-    trainer.make_train_step(built, params)
-    monkeypatch.setattr(trainer, "activation_dtype", lambda device: torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="EGONN_BF16_ACTS"):
-        trainer.make_train_step(built, params)

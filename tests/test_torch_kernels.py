@@ -5,7 +5,8 @@ rules: the width rules of the conv kernels, the width plan that pads and
 splits any other width (run with the plain versions as the launches), and
 the split-TF32 arithmetic of gather_conv / tdown / gather_dw emulated in
 numpy.  Cases marked `cuda` hold each CUDA kernel against its plain version
-(the bf16 gather_conv and tdown within one bf16 ulp of theirs)
+(the bf16 gather_conv and tdown within one bf16 ulp of theirs, the bf16
+gather_dw within 1e-4 of max |plain|)
 on odd shapes and edge cases (ragged tiles, all-sentinel maps, a deep
 level's single occupied tile, widths to 512, F_in != F_out at K = 8 and 27,
 widths the kernels take only through the plan: 1, 3, 48, 1024; the grouped
@@ -769,6 +770,91 @@ def test_gather_dw_cuda_planned_widths(cuda, f_in, f_out):
     assert torch.equal(kernels.gather_dw(feats, kmap, g), got)
 
 
+def _dw_bf16_case(gen, b, c_in, c_out, k_vol, f_in, f_out, cuda, n_valid=None):
+    """bf16 features and g with a sparse map (ragged last tile, whole tiles of
+    sentinels, one out-of-range index)."""
+    feats = _bf16(gen, (b, c_in, f_in), cuda)
+    kmap = _sparse_kmap(gen, b, k_vol, c_in, c_out, n_valid or min(c_in, c_out) * 2 // 3)
+    kmap[-1, 0, 0] = -5
+    g = _bf16(gen, (b, c_out, f_out), cuda)
+    return feats, torch.from_numpy(kmap).to(cuda), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_vol", [8, 27])
+@pytest.mark.parametrize("f_in,f_out", [(32, 32), (32, 64), (64, 128), (128, 128), (128, 32),
+                                        (256, 256), (512, 32), (96, 160), (512, 512)])
+def test_gather_dw_bf16_cuda_matches_plain(cuda, k_vol, f_in, f_out):
+    """bf16 features take the bf16 dW kernel (its own launch count, the
+    split-TF32 count untouched): f32 dW within 1e-4 x max |plain| of the
+    bf16 plain version (both sum the exact products in f32, in another
+    order) at widths 32-512 through the width plan, K 8 and 27; an f32 g is
+    rounded by the wrapper (equal to passing it in bf16); bit-equal on
+    repeat."""
+    gen = np.random.default_rng(f_in + 7 * f_out + k_vol)
+    feats, kmap, g = _dw_bf16_case(gen, 3, 1000, 777, k_vol, f_in, f_out, cuda)
+    before = kernels.launch_counts()
+    got = kernels.gather_dw(feats, kmap, g)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["gather_dw_bf16"] == before["gather_dw_bf16"] + 1
+    assert after["gather_dw"] == before["gather_dw"]
+    assert got.dtype == torch.float32 and got.shape == (k_vol, f_in, f_out)
+    assert _rel_err(got, kernels.gather_dw_plain(feats, kmap, g)) <= DW_REL_TOL
+    assert torch.equal(kernels.gather_dw(feats, kmap, g), got)
+    assert torch.equal(kernels.gather_dw(feats, kmap, g.float()), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f_in,f_out", [(1, 64), (48, 600), (1024, 64)])
+def test_gather_dw_bf16_cuda_planned_widths(cuda, f_in, f_out):
+    """bf16 dW at widths the kernel takes only through the plan (zero padding,
+    512-wide splits, each chunk's f32 sums whole): within 1e-4 x max |plain|,
+    one launch counted per chunk pair."""
+    gen = np.random.default_rng(f_in + 5 * f_out)
+    feats, kmap, g = _dw_bf16_case(gen, 2, 900, 700, 8, f_in, f_out, cuda, n_valid=600)
+    plan = kernels.width_plan(f_in, f_out, dw=True)
+    before = kernels.launch_counts()["gather_dw_bf16"]
+    got = kernels.gather_dw(feats, kmap, g)
+    assert kernels.launch_counts()["gather_dw_bf16"] == before + len(plan.in_chunks) * len(
+        plan.out_chunks)
+    assert got.dtype == torch.float32 and got.shape == (8, f_in, f_out) and got.is_contiguous()
+    assert _rel_err(got, kernels.gather_dw_plain(feats, kmap, g)) <= DW_REL_TOL
+    assert torch.equal(kernels.gather_dw(feats, kmap, g), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["deep", "sentinel", "full"])
+def test_gather_dw_bf16_cuda_edge_cases(cuda, case):
+    """A deep level's single occupied tile (one cloud of 40 with 3 voxels,
+    the rest empty), an all-sentinel map (dW exactly 0), and a full map
+    (every row valid at every offset: 64-row tiles of depth 64); bit-equal
+    repeats."""
+    gen = np.random.default_rng(11)
+    if case == "deep":
+        b, c, f, k_vol = 40, 128, 128, 27
+        feats = torch.zeros(b, c, f, dtype=torch.bfloat16, device=cuda)
+        feats[7, :3] = _bf16(gen, (3, f), cuda)
+        kmap = np.full((b, k_vol, c), c, np.int32)
+        kmap[7, :, :3] = gen.integers(0, 3, (k_vol, 3))
+        kmap = torch.from_numpy(kmap).to(cuda)
+        g = torch.zeros(b, c, f, dtype=torch.bfloat16, device=cuda)
+        g[7, :3] = _bf16(gen, (3, f), cuda)
+    else:
+        b, c, f, k_vol = 2, 500, 64, 8
+        feats, g = _bf16(gen, (b, c, f), cuda), _bf16(gen, (b, c, f), cuda)
+        fill = np.full((b, k_vol, c), c) if case == "sentinel" else gen.integers(0, c,
+                                                                                  (b, k_vol, c))
+        kmap = torch.from_numpy(fill.astype(np.int32)).to(cuda)
+    got = kernels.gather_dw(feats, kmap, g)
+    want = kernels.gather_dw_plain(feats, kmap, g)
+    if case == "sentinel":
+        assert float(got.abs().max()) == 0.0
+    else:
+        assert _rel_err(got, want) <= DW_REL_TOL and float(want.abs().max()) > 0.1
+    assert torch.equal(kernels.gather_dw(feats, kmap, g), got)
+
+
 def _down_pyramid(gen, case, b=3, n=3000, caps=(2048, 1024, 512)):
     """Sorted keys of three levels (fine to coarse) under the default
     packing and its halvings, each level the unique halved keys of the one
@@ -963,8 +1049,8 @@ def test_tdown_bf16_cuda_at_pyramid_levels(cuda):
 @pytest.mark.cuda
 def test_conv_bf16_cuda_planned_widths_and_refusals(cuda):
     """bf16 at widths the kernels take only through the plan (F_in 3 padded
-    to 8, F_out 48 to 64) within one ulp; F_in above 512 and gather_dw on
-    bf16 features raise."""
+    to 8, F_out 48 to 64) within one ulp; F_in above 512 raises, and so does
+    gather_dw on f16 features or on bf16 features with an f16 g."""
     gen = np.random.default_rng(5)
     b, c_in, c_out = 2, 900, 700
     feats = _bf16(gen, (b, c_in, 3), cuda)
@@ -977,4 +1063,8 @@ def test_conv_bf16_cuda_planned_widths_and_refusals(cuda):
         kernels.gather_conv(_bf16(gen, (b, c_in, 600), cuda), kmap,
                             torch.zeros(27, 600, 32, device=cuda))
     with pytest.raises(TypeError):
-        kernels.gather_dw(feats, kmap, torch.zeros(b, c_out, 32, device=cuda, dtype=torch.bfloat16))
+        kernels.gather_dw(feats.half(), kmap, torch.zeros(b, c_out, 32, device=cuda,
+                                                          dtype=torch.float16))
+    with pytest.raises(TypeError):
+        kernels._gather_dw_cuda(_bf16(gen, (b, c_in, 32), cuda), kmap,
+                                torch.zeros(b, c_out, 32, device=cuda, dtype=torch.float16))
