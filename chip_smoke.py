@@ -12,6 +12,10 @@ Phases, each printing its lines:
    the CUDA kernels from `egonn_tpu_torch/csrc`, with ptxas's registers and
    spills per kernel (its report is kept beside each library, so a cached
    build reports them too); a spill in gather_conv, tdown or gather_dw fails.
+   The Hopper bf16 bodies (gather_mm_sm90_kernel, gather_dw_sm90_kernel)
+   must be in the build with their ptxas lines, and where the toolkit has
+   cuobjdump their SASS must hold wgmma (HGMMA); their mbarrier (SYNCS),
+   cp.async (LDGSTS) and TMA (UTMALDG) instructions are counted.
 2. kernels: one EgoNN forward at full width (8 LiDAR clouds x 65,536 points,
    cap0 16384, weights from a seeded generator) records every kernel call's
    inputs; each call is then held against the kernel's plain PyTorch version
@@ -43,8 +47,11 @@ Phases, each printing its lines:
    f32 conv launch; every bf16 gather_conv and tdown call held against its
    bf16 plain version (within one bf16 ulp, or 1e-6 x max |plain| near 0)
    and timed as in phase 2 beside the split-TF32 kernel on the same call in
-   f32, its bound at 2 bytes a feature element or one bf16 MMA per product
-   at 989 TFLOP/s; the largest call of each re-run and two more forwards
+   f32 and (gather_conv) the SM80 bf16 body on the same call, its bound at 2
+   bytes a feature element or one bf16 MMA per product at 989 TFLOP/s; the
+   launches by body (`kernels.conv_body` picks the Hopper or the SM80 one per
+   call: the Hopper body must launch); the largest call of each re-run and
+   two more forwards
    bit-equal; 2 clouds on the card and on the CPU (bf16 forced there) from
    one shared quantization: `global`, descriptors, keypoints and sigma
    within 3e-2 of max |CPU| (tests/test_banded.py's bf16 rule), every
@@ -83,9 +90,12 @@ Phases, each printing its lines:
    gather_dw_bf16 within 1e-4 x max |plain|: both sum exact products in
    f32) and each distinct shape timed (median of 10), the train step's conv
    and dW calls and the validation step's tdown calls beside the
-   split-TF32 kernels on the same calls cast to f32 (the `bf16_train_step`
-   and `bf16_val_step` paths); the largest gather_dw_bf16 call re-run twice,
-   bit-equal; phase 5's card vs CPU step with bf16 forced on the CPU:
+   split-TF32 kernels on the same calls cast to f32 and the conv and dW
+   calls beside the SM80 bf16 bodies on the same calls (the
+   `bf16_train_step` and `bf16_val_step` paths), with the launches by body
+   (the Hopper bodies must launch); the largest gather_dw_bf16 and
+   gather_conv_bf16 calls re-run twice, bit-equal; phase 5's card vs CPU
+   step with bf16 forced on the CPU:
    stats and BN statistics within BF16_REL_TOL, gradients by
    `bf16_grad_check` (the rule tests/test_torch_bf16_train.py measured),
    f32 gradients, each side's first Adam update its closed form; train
@@ -271,6 +281,9 @@ TC_KERNELS = ("gather_conv", "tdown", "gather_dw")  # split TF32: 3 TF32 MMAs pe
 BF16_ROWS = {"gather_conv": "gather_conv_bf16", "tdown": "tdown_bf16",
              "gather_dw": "gather_dw_bf16"}
 SPILL_FREE = ("gather_conv.cu", "tdown.cu", "gather_dw.cu")  # ptxas must report no spills
+# the Hopper bf16 bodies (wgmma, mbarrier rings) and their sources
+HOPPER_BODIES = (("gather_conv.cu", "gather_mm_sm90_kernel"),
+                 ("gather_dw.cu", "gather_dw_sm90_kernel"))
 INT32_OPS_PER_S = 33.5e12   # 64 INT32 lanes per SM against 128 FP32 lanes
 B, N_POINTS, CAP0, SEED = 8, 65536, 16384, 0
 EXPECTED_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 14, "tdown": 7,
@@ -642,7 +655,52 @@ def phase_environment(cuda_lib):
     unreported = [src for src in SPILL_FREE if "spill" not in cuda_lib.ptxas_log.get(src, "")]
     if unreported:
         raise AssertionError(f"ptxas reported no spill counts for {unreported}")
+    hopper_bodies(cuda_lib)
     return smi
+
+
+def hopper_bodies(cuda_lib) -> dict:
+    """The Hopper bf16 bodies in the built libraries: ptxas's registers and
+    spills for each (from its `Compiling entry function` block), and the
+    wgmma (HGMMA), mbarrier (SYNCS) and cp.async (LDGSTS) / TMA (UTMALDG)
+    instructions of each in cuobjdump's SASS (where the toolkit has
+    cuobjdump).  Fails if a body is missing or has no HGMMA."""
+    out = {}
+    for src, name in HOPPER_BODIES:
+        text = cuda_lib.ptxas_log.get(src, "")
+        blocks = [b for b in text.split("Compiling entry function") if name in b.split("\n")[0]]
+        if not blocks:
+            raise AssertionError(f"ptxas compiled no {name} in {src}")
+        for b in blocks:
+            fn = b.split("'")[1] if "'" in b else name
+            for line in b.splitlines()[1:]:
+                if "registers" in line or "spill" in line:
+                    log(f"[env] ptxas {fn}: {line.strip()}")
+        serialized = [line for line in text.splitlines() if "C7520" in line and name in line]
+        if serialized:
+            log(f"[env] ptxas: wgmma serialized in {len(serialized)} instance(s) of {name}")
+        out[name] = dict(ptxas=blocks, wgmma_serialized=len(serialized))
+    cuobjdump = pathlib.Path(cuda_lib.nvcc()).with_name("cuobjdump")
+    if not cuobjdump.exists():
+        log("[env] cuobjdump not found: SASS of the Hopper bodies not read")
+        return out
+    for src, name in HOPPER_BODIES:
+        sass = subprocess.run([str(cuobjdump), "-sass", str(cuda_lib._library_path(src))],
+                              capture_output=True, text=True, timeout=120).stdout
+        for fn in sass.split("Function : ")[1:]:
+            # the production instances (template argument CUT = 0, the only
+            # one the port's libraries hold)
+            if not re.search(rf"{name}I(?:Li\d+E)*Li0EEE", fn.split("\n")[0]):
+                continue
+            counts = {op: len(re.findall(rf"\b{op}\b", fn))
+                      for op in ("HGMMA", "SYNCS", "LDGSTS", "UTMALDG", "BAR")}
+            log(f"[env] SASS {fn.split(chr(10))[0].strip()[:60]}: {counts}")
+            out[name].setdefault("sass", []).append(counts)
+            if not counts["HGMMA"]:
+                raise AssertionError(f"{name}: no wgmma (HGMMA) in its SASS")
+        if not out[name].get("sass"):
+            raise AssertionError(f"{name}: not found in the SASS of {src}")
+    return out
 
 
 def make_inputs(device, b=None, seed=SEED):
@@ -1110,6 +1168,34 @@ def split_tf32_ms(kernels, calls: list, names: tuple, cycles_per_ms: float, reps
     return out
 
 
+def sm80_body_ms(kernels, calls: list, names: tuple, cycles_per_ms: float, reps: int,
+                 tag: str, levels: dict) -> dict:
+    """Device ms of the SM80 bf16 bodies (`kernels.SM80`, the body rules
+    swapped for the call) on the recorded bf16 calls of `names`, each
+    distinct shape timed once as `measure_calls` times it and printed beside
+    the rules' choice, timed again; summed per wrapper."""
+    out, timed = {name: 0.0 for name in names}, {}
+    with torch.no_grad():
+        for name, args, kwargs, _ in calls:
+            if name not in names or args[0].dtype != torch.bfloat16:
+                continue
+            key = json.dumps([name, [_shape(a) for a in args], kwargs.get("epi") is not None])
+            if key not in timed:
+                fn = getattr(kernels, name)
+                now = device_ms(lambda: fn(*args, **kwargs), cycles_per_ms, reps)
+                rules = kernels.conv_body, kernels.dw_body
+                kernels.conv_body = kernels.dw_body = lambda *shape: kernels.SM80
+                try:
+                    timed[key] = device_ms(lambda: fn(*args, **kwargs), cycles_per_ms, reps)
+                finally:
+                    kernels.conv_body, kernels.dw_body = rules
+                log(f"[{tag}] {BF16_ROWS[name]} {call_level(name, args, levels)} "
+                    f"{call_desc(name, args)}: the SM80 body {timed[key]:.4f} ms, the rule's "
+                    f"{now:.4f}")
+            out[name] += timed[key]
+    return out
+
+
 def phase_bf16(built, kernels, inference, pyramid_mod, cycles_per_ms):
     """Phase 3b: the forward of phases 2-3 (same clouds, same weights) with
     EGONN_BF16_ACTS=1: activations in bf16 from the stem on, the 21 convs
@@ -1146,11 +1232,14 @@ def phase_bf16(built, kernels, inference, pyramid_mod, cycles_per_ms):
                                      level_of(spec.capacities))
         repeats = [check_repeat(kernels, calls, name, "bf16") for name in ("gather_conv", "tdown")]
         f32_ms = split_tf32_ms(kernels, calls, ("gather_conv", "tdown"), cycles_per_ms, 20)
+        sm80_ms = sm80_body_ms(kernels, calls, ("gather_conv",), cycles_per_ms, 20, "bf16",
+                               level_of(spec.capacities))
         for name in ("gather_conv", "tdown"):
             row = BF16_ROWS[name]
             r = rows[row]
+            sm80 = f", the SM80 body {sm80_ms[name]:.4f}" if name in sm80_ms else ""
             log(f"[bf16] {row}: {r['launches']} launches, {r['ms']:.4f} ms per forward (split TF32 "
-                f"on the same calls {f32_ms[name]:.4f}), bound {r['bound_ms']:.4f} "
+                f"on the same calls {f32_ms[name]:.4f}{sm80}), bound {r['bound_ms']:.4f} "
                 f"({'bytes' if r['_bytes_ms'] >= r['_ops_ms'] else 'operations'}), plain "
                 f"{r['plain_ms']:.4f}, max abs err {r['max_abs_err']:.3g}")
 
@@ -1200,6 +1289,7 @@ def phase_bf16(built, kernels, inference, pyramid_mod, cycles_per_ms):
         f"{peak32:.3f} GiB; max |bf16 - f32| of global {g_err:.3g} (max |f32| {g_max:.3g})")
     return rows, dict(launches=launches, card_vs_cpu=card_cpu, output_types=types_,
                       repeat_bit_equal=repeat_equal, repeats=repeats, split_tf32_ms=f32_ms,
+                      sm80_body_ms=sm80_ms,
                       clouds_per_s=turns, clouds_per_s_median=med,
                       peak_gb=dict(bf16=peak16, f32=peak32),
                       global_max_abs_diff_f32=g_err, global_max_abs_f32=g_max)
@@ -1596,20 +1686,29 @@ def phase_bf16_train(tp, g, l, lr, kernels, cycles_per_ms, levels, smi):
         out["repeat"] = check_repeat(kernels, calls, "gather_dw", "bf16-train-kernels")
         f32_ms = split_tf32_ms(kernels, calls, ("gather_conv", "gather_dw"), cycles_per_ms, 10)
         f32_ms["tdown"] = split_tf32_ms(kernels, val_calls, ("tdown",), cycles_per_ms, 10)["tdown"]
+        sm80_ms = {"train": sm80_body_ms(kernels, calls, ("gather_conv", "gather_dw"),
+                                         cycles_per_ms, 10, "bf16-train-kernels", levels),
+                   "validation": sm80_body_ms(kernels, val_calls, ("gather_conv",),
+                                              cycles_per_ms, 10, "bf16-val-kernels", levels)}
+        out["conv_repeat"] = check_repeat(kernels, calls, "gather_conv", "bf16-train-kernels")
         del calls, val_calls
         for path, rows, names in (("train", train_rows, ("gather_conv", "gather_dw")),
                                   ("validation", val_rows, ("gather_conv", "tdown"))):
             for name in names:
                 r = rows[BF16_ROWS[name]]
-                split = f" (split TF32 on the same calls {f32_ms[name]:.4f})" if (
-                    path == "train" or name == "tdown") else ""
+                notes = []
+                if path == "train" or name == "tdown":
+                    notes.append(f"split TF32 on the same calls {f32_ms[name]:.4f}")
+                if name in sm80_ms[path]:
+                    notes.append(f"the SM80 body {sm80_ms[path][name]:.4f}")
+                split = f" ({', '.join(notes)})" if notes else ""
                 log(f"[bf16-train] {BF16_ROWS[name]}: {r['launches']} launches, {r['ms']:.4f} ms "
                     f"per {path} step{split}, bound {r['bound_ms']:.4f} "
                     f"({'bytes' if r['_bytes_ms'] >= r['_ops_ms'] else 'operations'}), "
                     f"tc_bound {r['tc_bound_ms']:.4f}, plain {r['plain_ms']:.4f}, max abs err "
                     f"{r['max_abs_err']:.3g} on {smi}")
         out.update(train_launches=train_launches, val_launches=val_launches,
-                   split_tf32_ms=f32_ms)
+                   split_tf32_ms=f32_ms, sm80_body_ms=sm80_ms)
         del step
         torch.cuda.empty_cache()
         out["card_vs_cpu"] = _bf16_card_vs_cpu(tp, g, l, lr)
@@ -1640,9 +1739,15 @@ def _path_launches(kernels, run, expected: dict, what: str, tag: str = "minkloc"
     out = run()
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
+    bodies = kernels.body_launch_counts()
     log(f"[{tag}] launches per {what}: {launches}")
     if launches != expected:
         raise AssertionError(f"{what}: launches {launches}, expected {expected}")
+    if any(launches[name] for name in bodies):
+        log(f"[{tag}] bf16 launches per {what} by body (the rules' choice): {bodies}")
+        missing = [name for name in bodies if launches[name] and not bodies[name]["sm90"]]
+        if missing:
+            raise AssertionError(f"{what}: no launch of the Hopper body of {missing}")
     return out, launches
 
 
@@ -3051,7 +3156,7 @@ def main() -> int:
         log(f"[bf16-train] phase done in {time.perf_counter() - t0:.1f} s")
         return _finish(smi, {"forward": rows, "bf16_forward": bf16_rows, **bt_rows},
                        dict(card=smi, slice=sl, bf16=bf16, bf16_train=bt,
-                            determinism=[*bf16["repeats"], bt["repeat"]]), t_start)
+                            determinism=[*bf16["repeats"], bt["repeat"], bt["conv_repeat"]]), t_start)
     t0 = time.perf_counter()
     train_rows, repeat_train = phase_train_kernels(step, g, l, lr, kernels, cycles_per_ms,
                                                    levels)
@@ -3112,6 +3217,7 @@ def main() -> int:
         card=smi, slice=sl, bf16=bf16, train=tr, bf16_train=bt, lookup_maps=maps, minkloc=mink,
         resnet=resnet, eval=ev, train_loop=loop, data_parallel=dp, wide=wide,
         determinism=[*repeat_fwd, *bf16["repeats"], *repeat_train, repeat_val, bt["repeat"],
+                     bt["conv_repeat"],
                      maps["repeat"], mink["lookup_repeat"], resnet["lookup_repeat"]]), t_start)
 
 

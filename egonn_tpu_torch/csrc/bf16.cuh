@@ -21,6 +21,18 @@ namespace egonn {
 
 using bf16 = __nv_bfloat16;
 
+// Cut-out variants of the bf16 conv and dW bodies, built only with
+// EGONN_PROBE_CUTS (sparse/cuda_lib.py's probe libraries; probe_kernels.py
+// bf16 times them to split a call's time; their outputs are not the
+// function's): no MMA; no row gather (the stages still wait); no scan of the
+// map (SM80 only; the conv: each group's compacted lists read from a copy
+// that a compaction-only launch wrote up front; dW: no index read, every
+// seventh row taken, the maps' density at L1-L2); the conv's map load and
+// compaction alone; no weight loads (the Hopper conv: W^T's buffers are not
+// filled).  The port's libraries hold kCutNone alone.
+constexpr int kCutNone = 0, kCutNoMma = 1, kCutNoGather = 2, kCutNoMapScan = 3,
+              kCutCompactOnly = 4, kCutNoWeights = 5;
+
 // c (16x8, f32) += a (16x16, row) * b (16x8, col) on the tensor cores, bf16
 // operands.  Per lane (g = lane / 4, t = lane % 4), each register holds two
 // bf16, the lower index in the low half: a = A[g][2t, 2t+1], A[g+8][2t, 2t+1],

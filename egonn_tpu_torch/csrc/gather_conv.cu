@@ -16,22 +16,52 @@
 #include "gather_mm.cuh"
 
 extern "C" int egonn_gather_conv(const float* feats, const int32_t* kmap, const float* w,
-                                 const float* scale, const float* bias,
-                                 const uint8_t* mask, float* out, float* partial,
-                                 int n_groups, int batch, int c_in, int f_in, int k_vol,
-                                 int c_out, int f_out, int cols, int relu, void* stream) {
+                                 const float* scale, const float* bias, const uint8_t* mask,
+                                 float* out, float* partial, int n_groups, int batch, int c_in,
+                                 int f_in, int k_vol, int c_out, int f_out, int cols, int relu,
+                                 void* stream) {
   return egonn::launch_gather_mm(feats, kmap, w, scale, bias, mask, out, partial, n_groups,
-                                 batch, c_in, f_in, k_vol, c_out, f_out, cols, relu,
-                                 static_cast<cudaStream_t>(stream));
+                                 batch, c_in, f_in, k_vol, c_out, f_out, cols, relu, 0,
+                                 egonn::kCutNone, static_cast<cudaStream_t>(stream));
 }
 
+// `body`: 1 the Hopper body (gather_mm_sm90.cuh), 0 the SM80 one
+// (gather_mm_bf16_kernel).
 extern "C" int egonn_gather_conv_bf16(const egonn::bf16* feats, const int32_t* kmap,
                                       const egonn::bf16* w_t, const float* scale,
                                       const float* bias, const uint8_t* mask, egonn::bf16* out,
                                       float* partial, int n_groups, int batch, int c_in,
                                       int f_in, int k_vol, int c_out, int f_out, int cols,
-                                      int relu, void* stream) {
+                                      int relu, int body, void* stream) {
   return egonn::launch_gather_mm(feats, kmap, w_t, scale, bias, mask, out, partial, n_groups,
-                                 batch, c_in, f_in, k_vol, c_out, f_out, cols, relu,
-                                 static_cast<cudaStream_t>(stream));
+                                 batch, c_in, f_in, k_vol, c_out, f_out, cols, relu, body,
+                                 egonn::kCutNone, static_cast<cudaStream_t>(stream));
 }
+
+#ifdef EGONN_PROBE_CUTS
+// The cut-out `cut` (bf16.cuh) of bf16 body `body`, for probe_kernels.py;
+// `lists`: room for the SM80 body's compacted lists (kCutCompactOnly writes
+// them, kCutNoMapScan reads them), else null.
+extern "C" int egonn_gather_conv_bf16_cut(const egonn::bf16* feats, const int32_t* kmap,
+                                          const egonn::bf16* w_t, const float* scale,
+                                          const float* bias, const uint8_t* mask,
+                                          egonn::bf16* out, float* partial, int n_groups,
+                                          int batch, int c_in, int f_in, int k_vol, int c_out,
+                                          int f_out, int cols, int relu, int body, int cut,
+                                          int* lists, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cut < egonn::kCutNone || cut > egonn::kCutNoWeights ||
+      (body == 1 && cut == egonn::kCutNoMapScan) || (body == 0 && cut == egonn::kCutNoWeights) ||
+      (body == 0 && cut >= egonn::kCutNoMapScan && !lists))
+    return (int)cudaErrorInvalidValue;
+  if (lists) {
+    const cudaError_t err =
+        cudaMemcpyToSymbolAsync(egonn::conv_cut_lists, &lists, sizeof(lists), 0,
+                                cudaMemcpyHostToDevice, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return egonn::launch_gather_mm(feats, kmap, w_t, scale, bias, mask, out, partial, n_groups,
+                                 batch, c_in, f_in, k_vol, c_out, f_out, cols, relu, body, cut,
+                                 st);
+}
+#endif

@@ -62,7 +62,10 @@
 // body templated on the element type: that cost the f32 gather body
 // registers and time (PERF.md, "ptxas").  Bound: 2 bytes a feature and g
 // element, against the same operations at the bf16 tensor-core rate.
+#include <type_traits>
+
 #include "bf16.cuh"
+#include "sm90.cuh"
 #include "tf32x3.cuh"
 
 namespace egonn {
@@ -266,7 +269,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* 
                : "memory");
 }
 
-template <int MB, int NB>
+template <int MB, int NB, int CUT = kCutNone>
 __global__ void __launch_bounds__(kDwThreads)
 gather_dw_bf16_partial_kernel(const bf16* __restrict__ feats, const int32_t* __restrict__ kmap,
                               const bf16* __restrict__ g, float* __restrict__ partial,
@@ -292,11 +295,14 @@ gather_dw_bf16_partial_kernel(const bf16* __restrict__ feats, const int32_t* __r
   const int n_tiles = batch * tiles_per_cloud;
   const int n_steps = chunk < n_tiles ? (n_tiles - 1 - chunk) / n_chunks + 1 : 0;
 
-  // as in gather_dw_partial_kernel
+  // as in gather_dw_partial_kernel; the cut-out without the map's scan
+  // reads no index and takes every seventh row (the maps' density at L1-L2)
   auto raw_index = [&](int i) -> int {
     const int tile = chunk + i * n_chunks;
     const int b = tile / tiles_per_cloud;
     const int row = (tile - b * tiles_per_cloud) * kDwRows + r;
+    if constexpr (CUT == kCutNoMapScan)
+      return i < n_steps && row < c_out && row % 7 == 0 ? row % c_in : c_in;
     return i < n_steps && row < c_out ? kmap[((size_t)b * k_vol + k) * c_out + row] : c_in;
   };
   auto count_tile = [&](int raw, int i) {
@@ -310,6 +316,7 @@ gather_dw_bf16_partial_kernel(const bf16* __restrict__ feats, const int32_t* __r
   auto load_tile = [&](int raw, int i, int pos) {
     const int* cnt = cnt_s + (i % (kDwStages + 1)) * kWarps;
     if (cnt[0] + cnt[1] + cnt[2] + cnt[3] == 0) return;  // block-uniform
+    if constexpr (CUT == kCutNoGather) return;
     for (int w = 0; w < warp; ++w) pos += cnt[w];
     bf16* a_s = stage_s + (i % kDwStages) * kStage;
     bf16* g_s = a_s + kDwRows * kLdA;
@@ -359,7 +366,7 @@ gather_dw_bf16_partial_kernel(const bf16* __restrict__ feats, const int32_t* __r
   auto compute_tile = [&](int i) {
     const int* cnt = cnt_s + (i % (kDwStages + 1)) * kWarps;
     const int n = cnt[0] + cnt[1] + cnt[2] + cnt[3];
-    if (n == 0) return;
+    if (n == 0 || CUT == kCutNoMma) return;
     const bf16* a_s = stage_s + (i % kDwStages) * kStage + wm * (MB / 2);
     const bf16* g_s = stage_s + (i % kDwStages) * kStage + kDwRows * kLdA + wn * (NB / 2);
     for (int kk = 0; kk < n; kk += 16) {
@@ -427,6 +434,239 @@ gather_dw_bf16_partial_kernel(const bf16* __restrict__ feats, const int32_t* __r
       }
 }
 
+// The Hopper body of the bf16 partial pass (gather_dw_sm90_kernel; body 1
+// of egonn_gather_dw_bf16, which `kernels.dw_body` picks for every call but
+// the 32-wide features' at K >= 27).  What held the SM80 body back: each
+// 64-row map tile was its own multiply step, ~9 valid rows deep at 14%
+// density and padded to 16, behind a block barrier whether or not the tile
+// had a valid row.  Here:
+// - Block (k, c, s) as above: two producer warps and one consumer
+//   warpgroup.  The producer warps walk the block's tiles (strided as
+//   above) alike, each lane holding two rows' indices of the next
+//   kDwSmAhead tiles in registers; a ballot puts a tile's valid rows, in row
+//   order, onto a running queue that fills stages of exactly 64 valid rows
+//   across tiles (a tile's rows may span two stages); a tile without a
+//   valid row costs no barrier.  Each producer warp copies every other
+//   queued row (its MB feature columns and NB columns of g, a row's 16-byte
+//   cp.async pieces on neighbouring lanes) into the stage's two 64 x 64
+//   bf16 tiles (128-byte swizzle, one tile row per queued row), one commit
+//   group a stage; once kDwSmLag later stages are closed and its group has
+//   landed, each arrives once on the stage's full mbarrier.  A ring of
+//   kDwSmStages stages, released by the consumers' empty mbarriers.  The
+//   last stage of a chunk holds n < 64 rows; its rows up to the next 16 are
+//   zero-filled (stale bits could be NaN, and 0 x NaN is not 0), and a header
+//   word carries n (-1 ends the chunk).
+// - The consumers multiply each stage with wgmma m64n64k16, 16 queued rows
+//   deep a step: A = the feature tile, B = the g tile, both MN-major in shared
+//   memory (the contraction runs over the tiles' rows), the 64 x 64 f32 sum
+//   held in registers for the whole chunk; each stage's product goes to
+//   fresh accumulators added to the sum in f32 (over a chunk's hundreds of
+//   16-deep steps the tensor cores' own truncating accumulation missed the
+//   1e-4 gate).  With MB or NB = 32 the tiles' other 32 columns are stale
+//   and give rows or columns of the product that are not stored.
+// The ordered second pass is unchanged.  What sets the pace on an H100
+// (probe_kernels.py's cut-outs, PERF.md): the producers' issue of the row
+// copies, then the stages' round trips.
+constexpr int kDwSmRows = 64;      // queued valid rows a stage holds (the multiply's depth)
+constexpr int kDwSmStages = 4;
+constexpr int kDwSmProducers = 2;  // producer warps
+constexpr int kDwSmThreads = 128 + 32 * kDwSmProducers;  // and one consumer warpgroup
+constexpr int kDwSmAhead = 8;      // tiles whose indices the producer holds ahead
+constexpr int kDwSmLag = 2;        // stages closed before the oldest is signalled
+constexpr int kDwSmTile = kDwSmRows * 128;  // a 64 x 64 bf16 tile
+constexpr int kDwSmBytes = kDwSmStages * 2 * kDwSmTile + 2 * kDwSmStages * 8 +
+                           (kDwSmStages + 4) * 4 + kDwSmProducers * kDwRows * 8 + 1024;
+
+template <int CUT = kCutNone>
+__global__ void __launch_bounds__(kDwSmThreads, 3)
+gather_dw_sm90_kernel(const bf16* __restrict__ feats, const int32_t* __restrict__ kmap,
+                      const bf16* __restrict__ g, float* __restrict__ partial, int batch,
+                      int c_in, int f_in, int k_vol, int c_out, int f_out, int mb, int nb) {
+  constexpr int S = kDwSmStages;
+  extern __shared__ uint8_t dw_sm90_raw[];
+  uint8_t* smem = dw_sm90_raw + ((1024 - (sm90::smem_u32(dw_sm90_raw) & 1023)) & 1023);
+  // stage s: feature tile at 2s, g tile at 2s + 1 (kDwSmTile bytes each)
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * 2 * kDwSmTile);
+  uint64_t* empty = full + S;
+  int* hdr = reinterpret_cast<int*>(empty + S);  // rows of stage s, -1: no more
+  // the producer warps' lists of a tile's valid rows (source, row), one each
+  int2* lists_s = reinterpret_cast<int2*>(hdr + S + 4);
+
+  const int k = blockIdx.x, chunk = blockIdx.y, n_chunks = gridDim.y;
+  const int n_slices = f_out / nb;
+  const int f0 = (blockIdx.z / n_slices) * mb, n0 = (blockIdx.z % n_slices) * nb;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles_per_cloud = (c_out + kDwRows - 1) / kDwRows;
+  const int n_tiles = batch * tiles_per_cloud;
+  const int n_steps = chunk < n_tiles ? (n_tiles - 1 - chunk) / n_chunks + 1 : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(full + s, kDwSmProducers);  // each producer warp, its copies landed
+      sm90::mbar_init(empty + s, 4);  // the consumer warps
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4) {
+    // the producer warps, which walk the same tiles and stages, each copying
+    // every other row of a tile.  Lane l owns rows l and l + 32 of each tile: it loads
+    // their indices kDwSmAhead tiles ahead (the loop is unrolled by
+    // kDwSmAhead, so no register holding a load in flight is copied: a copy
+    // would wait for the load), and a ballot gives each valid row its place
+    // in the queue.  The lanes then copy the tile's valid rows with a row's
+    // pieces on neighbouring lanes (coalesced), from a list of (source,
+    // row) in shared memory.
+    const int qa = mb / 8, qg = nb / 8;  // 16-byte pieces of a row of feats, of g
+    const int lg = max(qa, qg) <= 4 ? 2 : 3, q = lane & ((1 << lg) - 1);
+    const int pw = warp - 4;  // this producer warp's share: rows pw, pw + kDwSmProducers, ...
+    int2* list_s = lists_s + pw * kDwRows;
+    // step i's tile as (cloud << 16) | tile of the cloud, walked by adding n_chunks
+    int next_b = chunk / tiles_per_cloud, next_t = chunk - next_b * tiles_per_cloud;
+    auto indices = [&](int i, int& r0, int& r1, int& bt) {
+      const int row = next_t * kDwRows + lane;
+      const int32_t* km = kmap + ((size_t)next_b * k_vol + k) * c_out;
+      r0 = i < n_steps && row < c_out ? km[row] : c_in;
+      r1 = i < n_steps && row + 32 < c_out ? km[row + 32] : c_in;
+      bt = (next_b << 16) | next_t;
+      for (next_t += n_chunks; next_t >= tiles_per_cloud; next_t -= tiles_per_cloud) ++next_b;
+    };
+    int ahead[kDwSmAhead][3];
+#pragma unroll
+    for (int a = 0; a < kDwSmAhead; ++a) indices(a, ahead[a][0], ahead[a][1], ahead[a][2]);
+    uint32_t it = 0, signalled = 0;
+    int n = 0;  // rows queued in the open stage `it`, whose buffer is free once n > 0
+    // a stage is closed with its rows in the header and its copies committed
+    // as one group; it is signalled (one arrival) once kDwSmLag later stages
+    // are closed and its group has landed
+    auto close = [&](int rows) {
+      if (lane == 0 && pw == 0) hdr[it % S] = rows;
+      sm90::cp_async_commit();
+      ++it;
+      if (it - signalled > kDwSmLag) {
+        sm90::cp_async_wait<kDwSmLag>();
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(full + signalled % S);
+        ++signalled;
+      }
+    };
+    // piece q (this lane's) of a row of cloud b (feats row src, g row `row`)
+    // to queue place pos of stage it (pos >= 64: of stage it + 1)
+    auto copy_piece = [&](int b, int src, int row, int pos) {
+      const uint32_t slot = (it + (pos >> 6)) % S, r = pos & 63;
+      const uint32_t a_s = sm90::smem_u32(smem + 2 * slot * kDwSmTile);
+      if (q < qa)
+        sm90::cp_async_16(a_s + sm90::swz128(r, q),
+                          feats + ((size_t)b * c_in + src) * f_in + f0 + 8 * q, 16);
+      if (q < qg)
+        sm90::cp_async_16(a_s + kDwSmTile + sm90::swz128(r, q),
+                          g + ((size_t)b * c_out + row) * f_out + n0 + 8 * q, 16);
+    };
+    for (int i0 = 0; i0 < n_steps; i0 += kDwSmAhead)
+#pragma unroll
+    for (int a = 0; a < kDwSmAhead; ++a) {
+      const int i = i0 + a;
+      if (i >= n_steps) break;
+      const int raw0 = ahead[a][0], raw1 = ahead[a][1], bt = ahead[a][2];
+      indices(i + kDwSmAhead, ahead[a][0], ahead[a][1], ahead[a][2]);
+      const bool v0 = (unsigned)raw0 < (unsigned)c_in, v1 = (unsigned)raw1 < (unsigned)c_in;
+      const unsigned m0 = __ballot_sync(0xffffffffu, v0), m1 = __ballot_sync(0xffffffffu, v1);
+      const int total = __popc(m0) + __popc(m1);
+      if (total == 0) continue;
+      if (n == 0) sm90::mbar_wait(empty + it % S, ((it / S) & 1) ^ 1);
+      if (n + total > kDwSmRows)  // the tile spills into the next stage
+        sm90::mbar_wait(empty + (it + 1) % S, (((it + 1) / S) & 1) ^ 1);
+      if (CUT != kCutNoGather) {
+        const unsigned below = (1u << lane) - 1;
+        const int b = bt >> 16, row0 = (bt & 0xffff) * kDwRows;
+        __syncwarp();  // the last tile's list is read
+        if (v0) list_s[__popc(m0 & below)] = make_int2(raw0, row0 + lane);
+        if (v1) list_s[__popc(m0) + __popc(m1 & below)] = make_int2(raw1, row0 + 32 + lane);
+        __syncwarp();
+        for (int j = (lane >> lg) * kDwSmProducers + pw; j < total;
+             j += (32 >> lg) * kDwSmProducers) {
+          const int2 e = list_s[j];
+          copy_piece(b, e.x, e.y, n + j);
+        }
+      }
+      n += total;
+      if (n >= kDwSmRows) {
+        close(kDwSmRows);
+        n -= kDwSmRows;
+      }
+    }
+    if (n > 0) {  // the chunk's last stage: zero its rows up to the multiply's next 16
+      const uint32_t a_s = sm90::smem_u32(smem + 2 * (it % S) * kDwSmTile);
+      for (int r = n + lane * kDwSmProducers + pw; r < ((n + 15) & ~15); r += 32 * kDwSmProducers)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          if (q < qa) sm90::cp_async_16(a_s + sm90::swz128(r, q), feats, 0);
+          if (q < qg) sm90::cp_async_16(a_s + kDwSmTile + sm90::swz128(r, q), feats, 0);
+        }
+      close(n);
+    }
+    sm90::cp_async_wait<0>();
+    __syncwarp();
+    for (; signalled < it; ++signalled)
+      if (lane == 0) sm90::mbar_arrive(full + signalled % S);
+    sm90::mbar_wait(empty + it % S, ((it / S) & 1) ^ 1);
+    if (lane == 0) {
+      if (pw == 0) hdr[it % S] = -1;
+      sm90::mbar_arrive(full + it % S);
+    }
+    return;
+  }
+
+  // the consumer warpgroup: dW[k][f0 + m][n0 + c] for its 64 x 64 block;
+  // each stage's product goes to fresh accumulators `part`, added to the
+  // running sum in f32 (the tensor cores' own accumulation truncates: over a
+  // chunk's hundreds of 16-deep steps that alone missed the 1e-4 gate)
+  float acc[32], part[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = part[i] = 0.f;
+  for (uint32_t it = 0;; ++it) {
+    const int slot = it % S;
+    sm90::mbar_wait(full + slot, (it / S) & 1);
+    const int rows = __shfl_sync(0xffffffffu, hdr[slot], 0);  // warp-uniform for the compiler
+    if (rows < 0) break;
+    sm90::fence_proxy_async();  // the cp.async rows, for wgmma's reads
+    const uint8_t* a_s = smem + 2 * slot * kDwSmTile;
+    if (CUT != kCutNoMma) {
+      sm90::wgmma_fence();
+      sm90::fence_regs(part);
+#pragma unroll
+      for (int ks = 0; ks < kDwSmRows / 16; ++ks)
+        if (16 * ks < rows)
+          sm90::wgmma_m64n64k16_ss_mn(part, sm90::smem_desc(a_s + 2048 * ks, 16, 1024),
+                                      sm90::smem_desc(a_s + kDwSmTile + 2048 * ks, 16, 1024),
+                                      ks > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+      sm90::fence_regs(part);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] += part[i];
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(empty + slot);
+  }
+  // acc[4j + 2h + e]: dW row f0 + 16 warp + lane / 4 + 8h, column n0 + 8j + 2 (lane % 4) + e
+  float* out = partial + ((size_t)chunk * k_vol + k) * f_in * f_out;
+  const int gq = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = 16 * warp + gq + 8 * h;
+    if (m >= mb) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      if (c < nb)
+        *reinterpret_cast<float2*>(out + (size_t)(f0 + m) * f_out + n0 + c) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
 __global__ void gather_dw_reduce_kernel(const float4* __restrict__ partial,
                                         float4* __restrict__ out, int n_chunks, int n4) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -465,36 +705,87 @@ cudaError_t launch_gather_dw_partial(const float* feats, const int32_t* kmap, co
                         kmap, g, partial, batch, c_in, f_in, k_vol, c_out, f_out, n_chunks, MB,
                         NB, stream);
 }
+#ifdef EGONN_PROBE_CUTS
+// the cut-out `cut` (bf16.cuh) of the SM80 bf16 partial kernel and of the
+// Hopper one, for probe_kernels.py
+template <int MB, int NB>
+auto gather_dw_bf16_body(int cut) {
+  switch (cut) {
+    case kCutNoMma: return gather_dw_bf16_partial_kernel<MB, NB, kCutNoMma>;
+    case kCutNoGather: return gather_dw_bf16_partial_kernel<MB, NB, kCutNoGather>;
+    case kCutNoMapScan: return gather_dw_bf16_partial_kernel<MB, NB, kCutNoMapScan>;
+    default: return gather_dw_bf16_partial_kernel<MB, NB, kCutNone>;
+  }
+}
+inline auto gather_dw_sm90_body(int cut) {
+  switch (cut) {
+    case kCutNoMma: return gather_dw_sm90_kernel<kCutNoMma>;
+    case kCutNoGather: return gather_dw_sm90_kernel<kCutNoGather>;
+    default: return gather_dw_sm90_kernel<kCutNone>;
+  }
+}
+#else
+template <int MB, int NB>
+auto gather_dw_bf16_body(int) {
+  return gather_dw_bf16_partial_kernel<MB, NB, kCutNone>;
+}
+inline auto gather_dw_sm90_body(int) { return gather_dw_sm90_kernel<kCutNone>; }
+#endif
 template <int MB, int NB>
 cudaError_t launch_gather_dw_partial(const bf16* feats, const int32_t* kmap, const bf16* g,
                                      float* partial, int batch, int c_in, int f_in, int k_vol,
-                                     int c_out, int f_out, int n_chunks, cudaStream_t stream) {
-  return launch_partial(gather_dw_bf16_partial_kernel<MB, NB>,
-                        gather_dw_bf16_smem_bytes(MB, NB), feats, kmap, g, partial, batch, c_in,
-                        f_in, k_vol, c_out, f_out, n_chunks, MB, NB, stream);
+                                     int c_out, int f_out, int n_chunks, cudaStream_t stream,
+                                     int cut) {
+  return launch_partial(gather_dw_bf16_body<MB, NB>(cut), gather_dw_bf16_smem_bytes(MB, NB),
+                        feats, kmap, g, partial, batch, c_in, f_in, k_vol, c_out, f_out,
+                        n_chunks, MB, NB, stream);
 }
 
-// Both passes: the partial pass at slice (mb, nb), then the ordered sum.
+// Both passes: the partial pass at slice (mb, nb), then the ordered sum.  bf16
+// takes `body`: 1 the Hopper body (gather_dw_sm90_kernel), 0 the SM80 one, and
+// `cut` kCutNone (or, built with EGONN_PROBE_CUTS, a cut-out of the body).
 template <typename T>
 int gather_dw(const T* feats, const int32_t* kmap, const T* g, float* partial, float* out,
               int batch, int c_in, int f_in, int k_vol, int c_out, int f_out, int mb, int nb,
-              int n_chunks, cudaStream_t st) {
-  if (f_in % mb || f_out % nb || n_chunks <= 0) return (int)cudaErrorInvalidValue;
+              int n_chunks, int body, int cut, cudaStream_t st) {
+  if (f_in % mb || f_out % nb || n_chunks <= 0 || (mb != 32 && mb != 64) ||
+      (nb != 32 && nb != 64) || (body != 0 && body != 1))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err;
-  if (mb == 64 && nb == 64)
+  if constexpr (std::is_same_v<T, float>) {
+    if (mb == 64 && nb == 64)
+      err = launch_gather_dw_partial<64, 64>(feats, kmap, g, partial, batch, c_in, f_in, k_vol,
+                                             c_out, f_out, n_chunks, st);
+    else if (mb == 64 && nb == 32)
+      err = launch_gather_dw_partial<64, 32>(feats, kmap, g, partial, batch, c_in, f_in, k_vol,
+                                             c_out, f_out, n_chunks, st);
+    else if (mb == 32 && nb == 64)
+      err = launch_gather_dw_partial<32, 64>(feats, kmap, g, partial, batch, c_in, f_in, k_vol,
+                                             c_out, f_out, n_chunks, st);
+    else
+      err = launch_gather_dw_partial<32, 32>(feats, kmap, g, partial, batch, c_in, f_in, k_vol,
+                                             c_out, f_out, n_chunks, st);
+  } else if (body == 1) {
+    auto kern = gather_dw_sm90_body(cut);
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kDwSmBytes);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(k_vol, n_chunks, (f_in / mb) * (f_out / nb));
+    kern<<<grid, kDwSmThreads, kDwSmBytes, st>>>(feats, kmap, g, partial, batch, c_in, f_in,
+                                                 k_vol, c_out, f_out, mb, nb);
+    err = cudaGetLastError();
+  } else if (mb == 64 && nb == 64) {
     err = launch_gather_dw_partial<64, 64>(feats, kmap, g, partial, batch, c_in, f_in, k_vol,
-                                           c_out, f_out, n_chunks, st);
-  else if (mb == 64 && nb == 32)
+                                           c_out, f_out, n_chunks, st, cut);
+  } else if (mb == 64 && nb == 32) {
     err = launch_gather_dw_partial<64, 32>(feats, kmap, g, partial, batch, c_in, f_in, k_vol,
-                                           c_out, f_out, n_chunks, st);
-  else if (mb == 32 && nb == 64)
+                                           c_out, f_out, n_chunks, st, cut);
+  } else if (mb == 32 && nb == 64) {
     err = launch_gather_dw_partial<32, 64>(feats, kmap, g, partial, batch, c_in, f_in, k_vol,
-                                           c_out, f_out, n_chunks, st);
-  else if (mb == 32 && nb == 32)
+                                           c_out, f_out, n_chunks, st, cut);
+  } else {
     err = launch_gather_dw_partial<32, 32>(feats, kmap, g, partial, batch, c_in, f_in, k_vol,
-                                           c_out, f_out, n_chunks, st);
-  else
-    err = cudaErrorInvalidValue;
+                                           c_out, f_out, n_chunks, st, cut);
+  }
   if (err != cudaSuccess) return (int)err;
   const int n4 = k_vol * f_in * f_out / 4;
   gather_dw_reduce_kernel<<<(n4 + 255) / 256, 256, 0, st>>>(
@@ -513,14 +804,32 @@ extern "C" int egonn_gather_dw(const float* feats, const int32_t* kmap, const fl
                                int k_vol, int c_out, int f_out, int mb, int nb, int n_chunks,
                                void* stream) {
   return egonn::gather_dw(feats, kmap, g, partial, out, batch, c_in, f_in, k_vol, c_out, f_out,
-                          mb, nb, n_chunks, static_cast<cudaStream_t>(stream));
+                          mb, nb, n_chunks, 0, egonn::kCutNone, static_cast<cudaStream_t>(stream));
 }
 
-// The same with bf16 feats and g; partial and out f32.
+// The same with bf16 feats and g; partial and out f32.  `body`: 1 the Hopper
+// body (gather_dw_sm90_kernel), 0 the SM80 one.
 extern "C" int egonn_gather_dw_bf16(const egonn::bf16* feats, const int32_t* kmap,
                                     const egonn::bf16* g, float* partial, float* out, int batch,
                                     int c_in, int f_in, int k_vol, int c_out, int f_out, int mb,
-                                    int nb, int n_chunks, void* stream) {
+                                    int nb, int n_chunks, int body, void* stream) {
   return egonn::gather_dw(feats, kmap, g, partial, out, batch, c_in, f_in, k_vol, c_out, f_out,
-                          mb, nb, n_chunks, static_cast<cudaStream_t>(stream));
+                          mb, nb, n_chunks, body, egonn::kCutNone,
+                          static_cast<cudaStream_t>(stream));
 }
+
+#ifdef EGONN_PROBE_CUTS
+// The cut-out `cut` (bf16.cuh) of bf16 body `body`, for probe_kernels.py
+// (the Hopper body has no kCutNoMapScan).
+extern "C" int egonn_gather_dw_bf16_cut(const egonn::bf16* feats, const int32_t* kmap,
+                                        const egonn::bf16* g, float* partial, float* out,
+                                        int batch, int c_in, int f_in, int k_vol, int c_out,
+                                        int f_out, int mb, int nb, int n_chunks, int body,
+                                        int cut, void* stream) {
+  if (cut < egonn::kCutNone || cut > egonn::kCutNoMapScan ||
+      (body == 1 && cut == egonn::kCutNoMapScan))
+    return (int)cudaErrorInvalidValue;
+  return egonn::gather_dw(feats, kmap, g, partial, out, batch, c_in, f_in, k_vol, c_out, f_out,
+                          mb, nb, n_chunks, body, cut, static_cast<cudaStream_t>(stream));
+}
+#endif

@@ -57,7 +57,9 @@
 // the epilogue stay in f32; the store rounds once to bf16.  The f32 body
 // stays a kernel of its own: one body templated on the element type gave
 // its f32 instance fewer registers (80-94 against 115, with spills at 80)
-// and 5% more time on an H100 (PERF.md).
+// and 5% more time on an H100 (PERF.md).  It is one of two bf16 bodies: the
+// Hopper one (gather_mm_sm90.cuh: wgmma, an mbarrier ring, TMA) takes the
+// calls `kernels.conv_body` sends it, this one the rest.
 //
 // Bound: f32, three TF32 MMAs per product at 495 TFLOP/s dense, i.e. 165
 // TFLOP/s of f32 work; bf16, one MMA per product at 989 TFLOP/s; against the
@@ -70,6 +72,7 @@
 #include <type_traits>
 
 #include "bf16.cuh"
+#include "gather_mm_sm90.cuh"
 #include "tf32x3.cuh"
 
 namespace egonn {
@@ -333,11 +336,18 @@ gather_mm_kernel(const float* __restrict__ feats, const int32_t* __restrict__ km
   }
 }
 
+#ifdef EGONN_PROBE_CUTS
+// the compacted lists of every (tile, cloud x group, group of offsets), which
+// the kCutCompactOnly cut-out of gather_mm_bf16_kernel writes and its
+// kCutNoMapScan cut-out reads (probe_kernels.py)
+__device__ int* conv_cut_lists;
+#endif
+
 // The bf16 body: the f32 body's blocks, offset groups, maps, ring and
 // epilogue, with bf16 rows (64 F_in columns a stage), W^T's rows of the
 // slice beside them, and mma_stage_bf16 for the products; the accumulator
 // stays f32 and the store rounds once to bf16.
-template <int NS>
+template <int NS, int CUT = kCutNone>
 __global__ void __launch_bounds__(kThreads)
 gather_mm_bf16_kernel(const bf16* __restrict__ feats, const int32_t* __restrict__ kmap,
                       const bf16* __restrict__ w_t, const float* __restrict__ scale,
@@ -373,7 +383,24 @@ gather_mm_bf16_kernel(const bf16* __restrict__ feats, const int32_t* __restrict_
   auto padded = [&](int c) { return (min(kChunkH, f_in - c * kChunkH) + 15) & ~15; };
 
   for (int k0 = k_lo; k0 < k_hi; k0 += kGroup) {
-    compact_group(kmap_b, k0, min(kGroup, k_hi - k0), row0, c_in, c_out, pair_s, cnt_s, list_s);
+#ifdef EGONN_PROBE_CUTS
+    int* saved = conv_cut_lists + ((((size_t)blockIdx.z * gridDim.y + blockIdx.y) * kGroup +
+                                    (k0 - k_lo) / kGroup) * (kGroup * (kTileRows + 2) + 1));
+    if constexpr (CUT == kCutNoMapScan) {
+      __syncthreads();
+      for (int e = tid; e < kGroup * (kTileRows + 2) + 1; e += kThreads) pair_s[e] = saved[e];
+      __syncthreads();
+    } else
+#endif
+      compact_group(kmap_b, k0, min(kGroup, k_hi - k0), row0, c_in, c_out, pair_s, cnt_s,
+                    list_s);
+#ifdef EGONN_PROBE_CUTS
+    if constexpr (CUT == kCutCompactOnly) {
+      if (blockIdx.x == 0)
+        for (int e = tid; e < kGroup * (kTileRows + 2) + 1; e += kThreads) saved[e] = pair_s[e];
+      continue;
+    }
+#endif
     const int n_stages = list_s[kGroup] * n_chunks;  // (active offset, F_in chunk) pairs
 
     // stage s -> buffer `buf`: offset k0 + kl, kl = list_s[s / n_chunks], and
@@ -388,7 +415,7 @@ gather_mm_bf16_kernel(const bf16* __restrict__ feats, const int32_t* __restrict_
       const int kc = min(kChunkH, f_in - c0);  // valid columns (a multiple of 8)
       const int q8 = padded(c) / 8;            // 16-byte pieces per padded row
       const int* pairs = pair_s + kl * kTileRows;
-      for (int e = tid; e < cnt_s[kl] * q8; e += kThreads) {
+      for (int e = tid; e < (CUT == kCutNoGather ? 0 : cnt_s[kl] * q8); e += kThreads) {
         const int j = e / q8, q = e - j * q8;
         const bool ok = 8 * q < kc;
         const bf16* src = feats_b + (size_t)(pairs[j] & 0xffffff) * f_in + c0 + 8 * q;
@@ -403,6 +430,7 @@ gather_mm_bf16_kernel(const bf16* __restrict__ feats, const int32_t* __restrict_
       }
     };
     auto compute_stage = [&](int s, int buf) {
+      if constexpr (CUT == kCutNoMma) return;
       const int kl = list_s[s / n_chunks], c = s % n_chunks;
       const bf16* a_s = stage_s + buf * kStage;
       mma_stage_bf16(a_s, kLdH, a_s + (kTileRows + np * 16) * kLdH, kLdH,
@@ -466,37 +494,69 @@ __global__ void gather_mm_sum_kernel(const float4* __restrict__ partial,
   store4(out + 4 * i, epi4(v, scale, bias, col, relu, !mask || mask[i / (f_out / 4)]));
 }
 
+#ifdef EGONN_PROBE_CUTS
+// the cut-out `cut` (bf16.cuh) of the NS-column SM80 bf16 body
+template <int NS>
+auto gather_mm_bf16_body(int cut) {
+  switch (cut) {
+    case kCutNoMma: return gather_mm_bf16_kernel<NS, kCutNoMma>;
+    case kCutNoGather: return gather_mm_bf16_kernel<NS, kCutNoGather>;
+    case kCutNoMapScan: return gather_mm_bf16_kernel<NS, kCutNoMapScan>;
+    case kCutCompactOnly: return gather_mm_bf16_kernel<NS, kCutCompactOnly>;
+    default: return gather_mm_bf16_kernel<NS, kCutNone>;
+  }
+}
+#else
+template <int NS>
+auto gather_mm_bf16_body(int) {
+  return gather_mm_bf16_kernel<NS, kCutNone>;
+}
+#endif
+
 // Launches gather_mm_kernel with column slices of `cols` (32 or 64, dividing
 // f_out); f_in a multiple of 4 (f32) or 8 (bf16, w as W^T (k_vol, f_out,
-// f_in)).  With n_groups > 1 the offsets are split into that many
+// f_in)).  bf16 takes `body`: 1 the Hopper body (gather_mm_sm90.cuh), 0 the
+// SM80 one, and `cut` kCutNone (or, built with EGONN_PROBE_CUTS, a cut-out
+// of the body).  With n_groups > 1 the offsets are split into that many
 // contiguous ranges, each block summing one range of one tile into
 // `partial` (n_groups x batch x c_out x f_out floats), and
 // gather_mm_sum_kernel adds them.  Returns cudaGetLastError() (or the
-// attribute call's error).
+// attribute call's or the tensor map's error).
 template <typename T>
 int launch_gather_mm(const T* feats, const int32_t* kmap, const T* w, const float* scale,
                      const float* bias, const uint8_t* mask, T* out, float* partial,
                      int n_groups, int batch, int c_in, int f_in, int k_vol, int c_out, int f_out,
-                     int cols, int relu, cudaStream_t stream) {
-  constexpr int vec = std::is_same_v<T, float> ? 4 : 8;  // elements of a 16-byte row piece
+                     int cols, int relu, int body, int cut, cudaStream_t stream) {
+  constexpr bool f32 = std::is_same_v<T, float>;
+  constexpr int vec = f32 ? 4 : 8;  // elements of a 16-byte row piece
   if ((cols != 32 && cols != 64) || f_out % cols || f_in % vec || f_in <= 0 ||
       k_vol <= 0 || c_in >= (1 << 24) || n_groups < 1 || n_groups > k_vol ||
-      (n_groups > 1 && !partial))
+      (n_groups > 1 && !partial) || (body != 0 && body != 1) || (f32 && (body || cut)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = gather_mm_smem_bytes<T>(cols);
   const dim3 grid(f_out / cols, (c_out + kTileRows - 1) / kTileRows, batch * n_groups);
-  void (*kern)(const T*, const int32_t*, const T*, const float*, const float*, const uint8_t*,
-               T*, float*, int, int, int, int, int, int, int, int);
-  if constexpr (std::is_same_v<T, float>)
-    kern = cols == 64 ? gather_mm_kernel<64> : gather_mm_kernel<32>;
-  else
-    kern = cols == 64 ? gather_mm_bf16_kernel<64> : gather_mm_bf16_kernel<32>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<grid, kThreads, smem, stream>>>(feats, kmap, w, scale, bias, mask, out, partial,
-                                         n_groups, batch, c_in, f_in, k_vol, c_out, f_out,
-                                         relu);
+  cudaError_t err;
+  if constexpr (f32) {
+    const size_t smem = gather_mm_smem_bytes<T>(cols);
+    auto kern = cols == 64 ? gather_mm_kernel<64> : gather_mm_kernel<32>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, kThreads, smem, stream>>>(feats, kmap, w, scale, bias, mask, out, partial,
+                                           n_groups, batch, c_in, f_in, k_vol, c_out, f_out,
+                                           relu);
+  } else if (body == 1) {
+    const int e = launch_gather_mm_sm90(feats, kmap, w, scale, bias, mask, out, partial,
+                                        n_groups, batch, c_in, f_in, k_vol, c_out, f_out, cols,
+                                        relu, cut, stream);
+    if (e != 0) return e;
+  } else {
+    const size_t smem = gather_mm_smem_bytes<T>(cols);
+    auto kern = cols == 64 ? gather_mm_bf16_body<64>(cut) : gather_mm_bf16_body<32>(cut);
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, kThreads, smem, stream>>>(feats, kmap, w, scale, bias, mask, out, partial,
+                                           n_groups, batch, c_in, f_in, k_vol, c_out, f_out,
+                                           relu);
+  }
   if (n_groups > 1) {
     const size_t n4 = (size_t)batch * c_out * f_out / 4;
     gather_mm_sum_kernel<T><<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(

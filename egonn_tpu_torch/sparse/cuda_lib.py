@@ -7,8 +7,11 @@ package, under a name that carries a hash of the sources and flags, so a
 changed source is rebuilt and an unchanged one is reused.  All sources are
 compiled in parallel, one `nvcc` each, and nvcc's `-Xptxas -v` report (registers
 and spills per kernel) is kept beside each library as `<name>.ptxas.txt`, so a
-cached build still reports it.  The entry points only queue launches and
-hold the GIL while they do.  Nothing here runs at import time.
+cached build still reports it.  The bf16 bodies' cut-out variants, which
+only `probe_kernels.py` times, are built into libraries of their own
+(`probe_function`), never into the ones the port runs.  The entry points
+only queue launches and hold the GIL while they do.  Nothing here runs at
+import time.
 """
 from __future__ import annotations
 
@@ -35,25 +38,36 @@ SIGNATURES = {
         "egonn_zrun_presence": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "egonn_zrun_rank": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
-    "gather_conv.cu": {  # the f32 and the bf16 entry points take the same arguments
-        name: [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
-        for name in ("egonn_gather_conv", "egonn_gather_conv_bf16")
+    "gather_conv.cu": {  # the bf16 entry point adds the body
+        "egonn_gather_conv": [_P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 9 + [_P],
+        "egonn_gather_conv_bf16": [_P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 10 + [_P],
     },
     "tdown.cu": {
         **{name: [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
            for name in ("egonn_tdown", "egonn_tdown_bf16")},
         "egonn_tdown_hulls": [_P, _P, _I, _I, _I, _I, _P],
     },
-    "gather_dw.cu": {  # the f32 and the bf16 entry points take the same arguments
-        name: [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
-        for name in ("egonn_gather_dw", "egonn_gather_dw_bf16")
+    "gather_dw.cu": {  # the bf16 entry point adds the body
+        "egonn_gather_dw": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
+        "egonn_gather_dw_bf16": [_P, _P, _P, _P, _P] + [_I] * 10 + [_P],
     },
     "lookup.cu": {  # host arrays of per-level pointers and sizes, then scalars
         "egonn_lookup": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     },
 }
 
+# The bf16 bodies' cut-out variants (csrc/bf16.cuh), built only for
+# probe_kernels.py into libraries of their own with EGONN_PROBE_CUTS defined:
+# their extra entry points take the cut-out and, for the conv, the room for
+# the SM80 body's compacted lists.
+PROBE_FLAGS = ("-DEGONN_PROBE_CUTS",)
+PROBE_SIGNATURES = {
+    "gather_conv.cu": {"egonn_gather_conv_bf16_cut": [_P] * 8 + [_I] * 11 + [_P, _P]},
+    "gather_dw.cu": {"egonn_gather_dw_bf16_cut": [_P] * 5 + [_I] * 11 + [_P]},
+}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_PROBE_LIBS: Dict[str, ctypes.CDLL] = {}
 build_seconds: float | None = None  # wall time of the last build_all()
 ptxas_log: Dict[str, str] = {}      # nvcc's -Xptxas -v report per source (build_all)
 
@@ -69,34 +83,31 @@ def nvcc() -> str:
     return found
 
 
-def _library_path(source: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _library_path(source: str, extra_flags: tuple = ()) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + extra_flags).encode())
     h.update((CSRC / source).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
+    stem = Path(source).stem + ("-probe" if extra_flags else "")
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
 def _log_path(lib: Path) -> Path:
     return lib.with_suffix(".ptxas.txt")
 
 
-def build_all() -> Dict[str, ctypes.CDLL]:
-    """Compile (in parallel) whatever is not built yet, load every library,
-    bind its C signatures and read each source's ptxas report into
-    `ptxas_log`.  Raises with nvcc's output on a failed build."""
-    global build_seconds
-    if len(_LIBS) == len(SOURCES):
-        return _LIBS
-    t0 = time.perf_counter()
+def _compile(sources, extra_flags: tuple = ()) -> None:
+    """Compile (in parallel) those of `sources` whose library is not built
+    yet.  Raises with nvcc's output on a failed build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for src in SOURCES:
-        lib = _library_path(src)
+    for src in sources:
+        lib = _library_path(src, extra_flags)
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / src)]
+        cmd = [nvcc(), *NVCC_FLAGS, *extra_flags, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / src)]
         procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True), tmp, lib)
     failed = []
@@ -109,20 +120,47 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
+
+
+def _load(path: Path, signatures: dict) -> ctypes.CDLL:
+    # PyDLL keeps the GIL through a call: each entry point only queues
+    # launches, and a CDLL call's release and re-acquire would hand the
+    # GIL to the training loop's prefetch thread at every launch
+    lib = ctypes.PyDLL(str(path))
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def build_all() -> Dict[str, ctypes.CDLL]:
+    """Compile (in parallel) whatever is not built yet, load every library,
+    bind its C signatures and read each source's ptxas report into
+    `ptxas_log`.  Raises with nvcc's output on a failed build."""
+    global build_seconds
+    if len(_LIBS) == len(SOURCES):
+        return _LIBS
+    t0 = time.perf_counter()
+    _compile(SOURCES)
     for src in SOURCES:
         path = _library_path(src)
-        # PyDLL keeps the GIL through a call: each entry point only queues
-        # launches, and a CDLL call's release and re-acquire would hand the
-        # GIL to the training loop's prefetch thread at every launch
-        lib = ctypes.PyDLL(str(path))
-        for name, argtypes in SIGNATURES[src].items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIBS[src] = lib
+        _LIBS[src] = _load(path, SIGNATURES[src])
         ptxas_log[src] = _log_path(path).read_text() if _log_path(path).exists() else ""
     build_seconds = time.perf_counter() - t0
     return _LIBS
+
+
+def probe_function(source: str, name: str):
+    """The bound entry point `name` (one of SIGNATURES' or PROBE_SIGNATURES')
+    of `source`'s cut-out build, building both cut-out libraries on first
+    use."""
+    if not _PROBE_LIBS:
+        _compile(tuple(PROBE_SIGNATURES), PROBE_FLAGS)
+        for src, extra in PROBE_SIGNATURES.items():
+            _PROBE_LIBS[src] = _load(_library_path(src, PROBE_FLAGS),
+                                     {**SIGNATURES[src], **extra})
+    return getattr(_PROBE_LIBS[source], name)
 
 
 def function(source: str, name: str):

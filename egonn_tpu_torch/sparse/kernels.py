@@ -49,7 +49,12 @@ of a pyramid in one launch.
 bf16 features (the activations under `EGONN_BF16_ACTS=1`, `sparse/conv.py`)
 take the bf16 kernels of `gather_conv`, `tdown` and `gather_dw`
 (`csrc/bf16.cuh`): the TPU kernels' numerics, bf16 x bf16 products on the
-tensor cores (`mma.sync` m16n8k16) summed in f32.  The convs' weights are
+tensor cores summed in f32.  gather_conv and gather_dw have two bf16 bodies
+each: SM90 (`wgmma` on shared-memory tiles fed through an `mbarrier` ring
+by producer warps, W^T by TMA; `csrc/gather_mm_sm90.cuh`, `gather_dw.cu`)
+and SM80 (Ampere-style: `mma.sync` m16n8k16 behind a block barrier per stage);
+`conv_body` and `dw_body` pick one per call shape, from the probe's sweep
+(`BODY_LAUNCHES` counts each).  The convs' weights are
 rounded to bf16 (to nearest even) and transposed by the wrapper, the
 epilogue is applied in f32 and the output rounded once to bf16; the dW
 kernel takes g in bf16 (rounded by the wrapper if it comes in f32) and
@@ -95,6 +100,16 @@ from egonn_tpu_torch.sparse.packing import (
 )
 
 _DW_BLOCKS = 8 * 132  # gather_dw's partial-pass blocks: eight per SM of an H100
+# the Hopper bf16 dW body's partial-pass blocks: three fit an SM
+_DW_SM90_BLOCKS = 3 * 132
+# The bf16 bodies of gather_conv and gather_dw: SM90 (wgmma on shared-memory
+# tiles fed by an mbarrier ring; csrc/gather_mm_sm90.cuh, gather_dw.cu's
+# gather_dw_sm90_kernel) or SM80 (Ampere-style: mma.sync behind a block barrier per
+# stage);
+# `conv_body` and `dw_body` choose per call.
+SM90, SM80 = 1, 0
+# the bf16 conv and dW launches by body, [SM80, SM90] (within LAUNCHES' counts)
+BODY_LAUNCHES = {"gather_conv_bf16": [0, 0], "gather_dw_bf16": [0, 0]}
 # gather_conv splits a tile's offsets over blocks (summed by a second launch)
 # where its grid has at most _SPLIT_BLOCKS blocks: one block per
 # _SPLIT_STAGES (offset, 32-column F_in chunk) stages, at most 4 blocks (3
@@ -102,6 +117,12 @@ _DW_BLOCKS = 8 * 132  # gather_dw's partial-pass blocks: eight per SM of an H100
 # SMs; larger grids fill the card without it.  Chosen from the sweep of
 # `probe_kernels.py` over the EgoNN forward's and train step's call shapes.
 _SPLIT_BLOCKS, _SPLIT_STAGES = 1280, 24
+# The bf16 bodies split smaller grids (`probe_kernels.py bf16`): SM80 at most
+# 512 blocks (on 32 clouds' L3-L5 its 2-3 groups are 9-35% slower than one,
+# on 8 clouds' they still win), SM90 at most two blocks an SM (its 64-column
+# blocks run one an SM; on 32 clouds' deep levels a split is up to 30%
+# slower).
+_BF16_SPLIT_BLOCKS, _SM90_SPLIT_BLOCKS = 512, 2 * 132
 # kernel launches per wrapper (CUDA tensors only; the plain versions do not count)
 LAUNCHES = {"zrun_presence": 0, "zrun_rank": 0, "gather_conv": 0, "tdown": 0, "gather_dw": 0,
             "lookup": 0, "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0}
@@ -458,36 +479,70 @@ def planned_dw(launch: Callable, feats: torch.Tensor, g: torch.Tensor, k_vol: in
     return out[:, :f_in, :f_out].contiguous()
 
 
-def conv_cols(b: int, c_out: int, f_out: int, k_vol: int) -> int:
-    """The output columns of a gather_conv block, 32 or 64.  64 halve the
+def conv_cols(b: int, c_out: int, f_out: int, k_vol: int, body: int = SM80) -> int:
+    """The output columns of a gather_conv block: the SM90 bf16 body takes
+    64 where F_out allows (each block gathers its rows once for all its
+    columns), else 32; the SM80 and f32 bodies 32 or 64.  64 halve the
     blocks that gather each row and stage W[k]; on an H100 they win for the
     self convs (K >= 27) where the 64-column grid keeps >= 256 blocks, and
     on the ResNet-width calls (256 and 512 columns, K 27 and 8), and lose on
     the EgoNN down convs (K = 8) and the deep levels' small grids
     (`probe_kernels.py`)."""
+    if body == SM90:
+        return 64 if f_out % 64 == 0 else 32
     if f_out % 64:
         return 32
     blocks = b * -(-c_out // 128) * (f_out // 64)
     return 64 if f_out >= 256 or (k_vol >= 27 and blocks >= 256) else 32
 
 
-def offset_groups(b: int, c_out: int, f_in: int, f_out: int, k_vol: int) -> int:
+def offset_groups(b: int, c_out: int, f_in: int, f_out: int, k_vol: int,
+                  body: int = SM80, bf16: bool = False) -> int:
     """How many blocks share one output tile of gather_conv, each summing a
     contiguous range of the offsets.  Stages are counted in 32 F_in
     columns (the f32 kernel's) for bf16 features too: on an H100 this picks
     the bf16 kernel's fastest split, or within 11% of it, at every call of
     the bf16 forward, where counting its own 64-column stages splits too
-    little (up to 38% slower at the deep levels; `probe_kernels.py`)."""
-    cols = conv_cols(b, c_out, f_out, k_vol)
-    if b * -(-c_out // 128) * (f_out // cols) > _SPLIT_BLOCKS:
+    little (up to 38% slower at the deep levels; `probe_kernels.py`).  The
+    bf16 bodies split only smaller grids (_BF16_SPLIT_BLOCKS,
+    _SM90_SPLIT_BLOCKS)."""
+    cols = conv_cols(b, c_out, f_out, k_vol, body)
+    limit = (_SM90_SPLIT_BLOCKS if body == SM90 else _BF16_SPLIT_BLOCKS if bf16
+             else _SPLIT_BLOCKS)
+    if b * -(-c_out // 128) * (f_out // cols) > limit:
         return 1
     stages = k_vol * -(-f_in // 32)
     return max(1, min(3 if cols == 64 else 4, k_vol, stages // _SPLIT_STAGES))
 
 
+# The capacity at or below which `conv_body` takes the SM90 conv body: EgoNN's
+# L5-L7 at cap0 16384 (1664, 1408, 1024 rows), where under 6% of the map
+# entries are valid
+_SM90_CONV_MAX_ROWS = 1664
+
+
+def conv_body(b: int, c_out: int, f_in: int, f_out: int, k_vol: int) -> int:
+    """The bf16 gather_conv body of a call, from `probe_kernels.py bf16` on an
+    H100 (PERF.md).  SM90 (stages packed with valid rows across offsets)
+    where a tile's offsets carry few valid rows each, so that SM80's barrier
+    and round trip per offset stage dominate: the sparse deep levels; and
+    the 32-wide self convs (K >= 27), whose two blocks an SM keep more rows
+    in flight.  SM80 on the rest, where a stage is full either way and
+    SM90's one block an SM (64-column slices) waits out each tile's map
+    compaction and pipeline fill.  What decides is the maps' density, which
+    a wrapper cannot read without a device sync: C_out stands in for it,
+    fitted to EgoNN's pyramid at cap0 16384 (the forward and train step's
+    calls); the probe also times MinkLoc's convs in bf16 (the 32-wide one
+    wins on SM90, the 64-wide ones within 14% on SM80) and ResNet-width
+    calls (within 7% either way)."""
+    if c_out <= _SM90_CONV_MAX_ROWS or (f_in == 32 and f_out == 32 and k_vol >= 27):
+        return SM90
+    return SM80
+
+
 def _gather_conv_cuda(feats, kmap, kernel, epi):
     """One gather_conv launch at widths the kernel takes: f32 features on
-    the split-TF32 kernel, bf16 features on the bf16 one."""
+    the split-TF32 kernel, bf16 features on the bf16 body `conv_body` picks."""
     b, c_in, f_in = feats.shape
     k_vol, _, f_out = kernel.shape
     c_out = kmap.shape[2]
@@ -498,8 +553,9 @@ def _gather_conv_cuda(feats, kmap, kernel, epi):
     _check(kernel, "kernel", torch.float32, (k_vol, f_in, f_out), align16=True)
     scale, bias, relu, mask = _check_epi(epi, b, c_out, f_out)
     out = torch.empty((b, c_out, f_out), dtype=feats.dtype, device=feats.device)
-    cols = conv_cols(b, c_out, f_out, k_vol)
-    n_groups = offset_groups(b, c_out, f_in, f_out, k_vol)
+    body = conv_body(b, c_out, f_in, f_out, k_vol) if bf16 else SM80
+    cols = conv_cols(b, c_out, f_out, k_vol, body)
+    n_groups = offset_groups(b, c_out, f_in, f_out, k_vol, body, bf16)
     partial = (torch.empty((n_groups, b, c_out, f_out), dtype=torch.float32, device=feats.device)
                if n_groups > 1 else None)
     name = "gather_conv_bf16" if bf16 else "gather_conv"
@@ -507,9 +563,11 @@ def _gather_conv_cuda(feats, kmap, kernel, epi):
     fn = cuda_lib.function("gather_conv.cu", f"egonn_{name}")
     err = fn(feats.data_ptr(), kmap.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(bias),
              _ptr(mask), out.data_ptr(), _ptr(partial), n_groups, b, c_in, f_in, k_vol, c_out,
-             f_out, cols, relu, _stream(feats))
+             f_out, cols, relu, *((body,) if bf16 else ()), _stream(feats))
     _raise_on(err, name)
     LAUNCHES[name] += 1
+    if bf16:
+        BODY_LAUNCHES[name][body] += 1
     return out
 
 
@@ -701,15 +759,25 @@ def gather_dw_plain(feats: torch.Tensor, kmap: torch.Tensor, g: torch.Tensor) ->
     return out
 
 
-def dw_tiling(b: int, c_out: int, f_in: int, f_out: int, k_vol: int):
+def dw_tiling(b: int, c_out: int, f_in: int, f_out: int, k_vol: int, body: int = SM80):
     """(mb, nb, n_chunks) of gather_dw's partial pass: a block owns an
     mb x nb slice of one dW[k] (64 where the width allows, else 32) over one
     of n_chunks strided chunks of the 64-row tiles, ~_DW_BLOCKS blocks in
-    all."""
+    all (the SM90 body: ~_DW_SM90_BLOCKS)."""
     mb, nb = (64 if f % 64 == 0 else 32 for f in (f_in, f_out))
     blocks = k_vol * (f_in // mb) * (f_out // nb)
-    n_chunks = max(1, min(b * -(-c_out // 64), -(-_DW_BLOCKS // blocks)))
-    return mb, nb, n_chunks
+    if body == SM90:  # one wave of resident blocks
+        return mb, nb, max(1, min(b * -(-c_out // 64), _DW_SM90_BLOCKS // blocks))
+    return mb, nb, max(1, min(b * -(-c_out // 64), -(-_DW_BLOCKS // blocks)))
+
+
+def dw_body(b: int, c_out: int, f_in: int, f_out: int, k_vol: int) -> int:
+    """The bf16 gather_dw body of a call, from `probe_kernels.py bf16` on an
+    H100 (PERF.md): SM90 (stages of 64 queued valid rows, wgmma)
+    except for 32-wide features at K >= 27 (L1-L2's self convs), where its
+    64-wide tiles are half empty and SM80's 8 blocks an SM keep more rows
+    in flight."""
+    return SM80 if f_in <= 32 and k_vol >= 27 else SM90
 
 
 def _gather_dw_cuda(feats, kmap, g):
@@ -721,20 +789,24 @@ def _gather_dw_cuda(feats, kmap, g):
     if not dw_widths_ok(f_in, f_out):
         raise ValueError(f"gather_dw: F_in={f_in}, F_out={f_out}; the kernel takes widths "
                          "that are multiples of 32 up to 512")
-    name = "gather_dw_bf16" if _is_bf16(feats) else "gather_dw"
+    bf16 = _is_bf16(feats)
+    name = "gather_dw_bf16" if bf16 else "gather_dw"
     _check(feats, "feats", feats.dtype, (b, c_in, f_in), align16=True)
     _check(kmap, "kmap", torch.int32, (b, k_vol, c_out))
     _check(g, "g", feats.dtype, (b, c_out, f_out), align16=True)
-    mb, nb, n_chunks = dw_tiling(b, c_out, f_in, f_out, k_vol)
+    body = dw_body(b, c_out, f_in, f_out, k_vol) if bf16 else SM80
+    mb, nb, n_chunks = dw_tiling(b, c_out, f_in, f_out, k_vol, body)
     partial = torch.empty((n_chunks, k_vol, f_in, f_out), dtype=torch.float32,
                           device=feats.device)
     out = torch.empty((k_vol, f_in, f_out), dtype=torch.float32, device=feats.device)
     fn = cuda_lib.function("gather_dw.cu", f"egonn_{name}")
     err = fn(feats.data_ptr(), kmap.data_ptr(), g.data_ptr(), partial.data_ptr(),
              out.data_ptr(), b, c_in, f_in, k_vol, c_out, f_out, mb, nb, n_chunks,
-             _stream(feats))
+             *((body,) if bf16 else ()), _stream(feats))
     _raise_on(err, name)
     LAUNCHES[name] += 1
+    if bf16:
+        BODY_LAUNCHES[name][body] += 1
     return out
 
 
@@ -898,7 +970,14 @@ KERNELS = (zrun_presence, zrun_rank, gather_conv, tdown, gather_dw, lookup)
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for counts in BODY_LAUNCHES.values():
+        counts[:] = [0, 0]
 
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+def body_launch_counts() -> dict:
+    """The bf16 conv and dW launches by body: {name: {"sm80": n, "sm90": m}}."""
+    return {name: {"sm80": c[SM80], "sm90": c[SM90]} for name, c in BODY_LAUNCHES.items()}

@@ -4,11 +4,19 @@ the rules in `egonn_tpu_torch/sparse/kernels.py` that choose them:
 
 - gather_conv: the column slice (32 or 64, `conv_cols`) and the number of
   blocks that share a tile's offsets (1-4, `offset_groups`), for f32 and,
-  on the bf16 forward's calls, bf16 features (the bf16 kernel);
+  on the bf16 forward's, train step's and MinkLoc forward's calls and the
+  ResNet-width calls in bf16, bf16 features, there for both bf16 bodies
+  (the Hopper one and the SM80 one, `conv_body`);
 - gather_dw: the slice of dW a block owns (mb x nb, 32 or 64 each) and the
   number of chunks of its partial pass (`dw_tiling`), at 1/2, 1 and 2 times
-  the rule's count for that slice; f32 and, on the bf16 train step's calls,
-  bf16 (the bf16 kernel);
+  the rule's count for that slice and body; f32 and, on the bf16 train
+  step's calls and the ResNet-width calls in bf16, both bf16 bodies
+  (`dw_body`);
+- on the bf16 calls, the cut-outs of both bodies at their rules' settings
+  (CONV_CUTS, DW_CUTS: without the MMA, without the row gather, without the
+  map's scan or with the map's load and compaction alone; built into
+  libraries of their own, `cuda_lib.probe_function`), which split a call's
+  time into barrier and latency, gathering, compaction and MMA;
 - tdown: the gathering body, and the streaming body's coarse rows of a
   tile (32, 64, 128) by fine rows of a stage (32, 64, 128) (`tdown_tiling`),
   and its hull launch alone; f32 and, on the bf16 forward's calls, bf16
@@ -24,7 +32,7 @@ the rules in `egonn_tpu_torch/sparse/kernels.py` that choose them:
   level's queries formed by torch ops, then one lookup launch per level).
 
     python3 probe_kernels.py       # from the repository root; one CUDA card, nvcc
-    python3 probe_kernels.py bf16  # the bf16 forward's and train step's calls alone
+    python3 probe_kernels.py bf16  # the bf16 calls alone (conv and dW)
 
 The calls are those of one EgoNN forward (f32, and bf16 under
 EGONN_BF16_ACTS=1: chip_smoke's phase 3b), the gather_dw calls of one bf16
@@ -38,9 +46,12 @@ and the lookup-built down maps of phase 6's EgoNN pyramid without up maps
 and MinkLoc pyramid with level 2's alone and of phase 8's ResNet14.  Each distinct call shape
 prints one line per kernel: every setting's device time (median of 10 runs
 between CUDA events, as `chip_smoke.device_ms` times them), the rule's
-choice and the fastest setting.  Every setting's output is held against the
-wrapper's at chip_smoke's tolerances.  The card's name and power limit come
-first; the whole sweep goes to build/probe_kernels.json.
+choice and the fastest setting.  Every setting's output but a cut-out's is
+held against the wrapper's (bf16 convs and dW: the plain version's) at
+chip_smoke's tolerances, and a miss ends the probe.  Ring depths and stage
+rows are the kernels' constants (`csrc/gather_mm_sm90.cuh`, `gather_dw.cu`),
+not swept.  The card's name and power limit come first; the whole sweep
+goes to build/probe_kernels.json.
 """
 from __future__ import annotations
 
@@ -57,8 +68,29 @@ import torch
 import chip_smoke
 
 
-def _conv_setting(kernels, cuda_lib, args, kwargs, cols: int, n_groups: int):
-    """The gather_conv launch of `args` with a given slice and offset split."""
+# The bf16 bodies' cut-outs (csrc/bf16.cuh's kCut*, built only into the probe
+# libraries of sparse/cuda_lib.py), each run at its body's rule tiling: the
+# body without its MMA, without its row gather; the Hopper conv without its
+# W^T loads; the SM80 body without the scan of its map (the conv reads the
+# compacted lists that a compaction-only launch wrote; dW takes a synthetic
+# map of the same density); the conv's map load and compaction alone (no
+# stages).  A setting is (.., body, cut).
+NO_MMA, NO_GATHER, NO_SCAN, COMPACT_ONLY, NO_WEIGHTS = 1, 2, 3, 4, 5
+CONV_CUTS = {"sm80_no_mma": (0, NO_MMA), "sm80_no_gather": (0, NO_GATHER),
+             "sm80_no_scan": (0, NO_SCAN), "sm80_compact_only": (0, COMPACT_ONLY),
+             "sm90_no_mma": (1, NO_MMA), "sm90_no_gather": (1, NO_GATHER),
+             "sm90_compact_only": (1, COMPACT_ONLY), "sm90_no_weights": (1, NO_WEIGHTS)}
+DW_CUTS = {"sm80_no_mma": (0, NO_MMA), "sm80_no_gather": (0, NO_GATHER),
+           "sm80_no_scan": (0, NO_SCAN), "sm90_no_mma": (1, NO_MMA),
+           "sm90_no_gather": (1, NO_GATHER)}
+BF16_BODIES = (1, 0)  # the bf16 bodies swept: kernels.SM90, kernels.SM80
+
+
+def _conv_setting(kernels, cuda_lib, args, kwargs, cols: int, n_groups: int, body=None,
+                  cut=0):
+    """The gather_conv launch of `args` with a given slice and offset split;
+    bf16 features: `body` (kernels.SM90 or SM80; None: the rule's) and its
+    cut-out `cut` (0: none)."""
     feats, kmap, kernel = args
     b, c_in, f_in = feats.shape
     k_vol, _, f_out = kernel.shape
@@ -70,19 +102,35 @@ def _conv_setting(kernels, cuda_lib, args, kwargs, cols: int, n_groups: int):
     w = kernels._bf16_transposed(kernel) if bf16 else kernel
     fn = cuda_lib.function("gather_conv.cu", "egonn_gather_conv_bf16" if bf16 else
                            "egonn_gather_conv")
+    extra = ()
+    if bf16:
+        body = kernels.conv_body(b, c_out, f_in, f_out, k_vol) if body is None else body
+        extra = (body,)
+    if cut:
+        fn = cuda_lib.probe_function("gather_conv.cu", "egonn_gather_conv_bf16_cut")
+        # the compacted lists of every (tile, cloud x group, group of 32 offsets)
+        n_lists = -(-c_out // 128) * b * n_groups * 32
+        lists = (torch.empty(n_lists * (32 * 130 + 1), dtype=torch.int32, device=feats.device)
+                 if body == kernels.SM80 and cut in (NO_SCAN, COMPACT_ONLY) else None)
+        extra = (body, cut, kernels._ptr(lists))
 
-    def run():
+    def launch(*body_args):
         kernels._raise_on(fn(feats.data_ptr(), kmap.data_ptr(), w.data_ptr(),
                              kernels._ptr(scale), kernels._ptr(bias), kernels._ptr(mask),
                              out.data_ptr(), partial.data_ptr(), n_groups, b, c_in, f_in, k_vol,
-                             c_out, f_out, cols, relu, kernels._stream(feats)), "gather_conv")
+                             c_out, f_out, cols, relu, *body_args, kernels._stream(feats)),
+                          "gather_conv")
         return out
-    return run
+    if cut == NO_SCAN:  # its lists, written once up front
+        launch(body, COMPACT_ONLY, extra[2])
+    return lambda: launch(*extra)
 
 
-def _dw_setting(kernels, cuda_lib, args, mb: int, nb: int, n_chunks: int):
+def _dw_setting(kernels, cuda_lib, args, mb: int, nb: int, n_chunks: int, body=None,
+                cut=0):
     """The gather_dw launch of `args` with a given slice and chunk count (bf16
-    features: the bf16 kernel, g rounded to bf16 as the wrapper rounds it)."""
+    features: `body` kernels.SM90 or SM80 and its cut-out `cut`, g rounded
+    to bf16 as the wrapper rounds it)."""
     feats, kmap, g = args
     b, c_in, f_in = feats.shape
     k_vol, c_out = kmap.shape[1], kmap.shape[2]
@@ -92,20 +140,29 @@ def _dw_setting(kernels, cuda_lib, args, mb: int, nb: int, n_chunks: int):
     partial = torch.empty((n_chunks, k_vol, f_in, f_out), device=feats.device)
     out = torch.empty((k_vol, f_in, f_out), device=feats.device)
     fn = cuda_lib.function("gather_dw.cu", "egonn_gather_dw_bf16" if bf16 else "egonn_gather_dw")
+    extra = ()
+    if bf16:
+        extra = (kernels.dw_body(b, c_out, f_in, f_out, k_vol) if body is None else body,)
+    if cut:
+        fn = cuda_lib.probe_function("gather_dw.cu", "egonn_gather_dw_bf16_cut")
+        extra = (body, cut)
 
     def run():
         kernels._raise_on(fn(feats.data_ptr(), kmap.data_ptr(), g.data_ptr(), partial.data_ptr(),
                              out.data_ptr(), b, c_in, f_in, k_vol, c_out, f_out, mb, nb, n_chunks,
-                             kernels._stream(feats)), "gather_dw")
+                             *extra, kernels._stream(feats)), "gather_dw")
         return out
     return run
 
 
 def _dw_chunks(kernels, b: int, c_out: int, f_in: int, f_out: int, k_vol: int, mb: int,
-               nb: int) -> int:
-    """`kernels.dw_tiling`'s chunk count for the slice (mb, nb)."""
+               nb: int, body: int) -> int:
+    """`kernels.dw_tiling`'s chunk count for the slice (mb, nb) and body."""
     blocks = k_vol * (f_in // mb) * (f_out // nb)
-    return max(1, min(b * -(-c_out // 64), -(-kernels._DW_BLOCKS // blocks)))
+    tiles = b * -(-c_out // 64)
+    if body == kernels.SM90:
+        return max(1, min(tiles, kernels._DW_SM90_BLOCKS // blocks))
+    return max(1, min(tiles, -(-kernels._DW_BLOCKS // blocks)))
 
 
 def _tdown_setting(kernels, args, kwargs, tiling):
@@ -152,34 +209,64 @@ def _settings(name, args, kwargs, kernels, cuda_lib):
     f_out = args[2].shape[2]
     valid = float(((kmap >= 0) & (kmap < feats.shape[1])).float().mean())
     desc = f"{chip_smoke.call_desc(name, args)} valid {valid:.3f}"
+    bf16 = kernels._is_bf16(feats)
     if name == "gather_conv":
         rule = (kernels.conv_cols(b, c_out, f_out, k_vol),
                 kernels.offset_groups(b, c_out, f_in, f_out, k_vol))
-        settings = [(c, n) for c in (32, 64) if f_out % c == 0 for n in range(1, min(4, k_vol) + 1)]
+        groups = range(1, min(4, k_vol) + 1)
+        settings = [(c, n) for c in (32, 64) if f_out % c == 0 for n in groups]
+        if bf16:  # both bodies, and the cut-outs at each body's rule
+            body = kernels.conv_body(b, c_out, f_in, f_out, k_vol)
+            rule = (kernels.conv_cols(b, c_out, f_out, k_vol, body),
+                    kernels.offset_groups(b, c_out, f_in, f_out, k_vol, body, True), body)
+            settings = [(c, n, bd) for bd in BF16_BODIES
+                        for c in (64, 32)
+                        if f_out % c == 0 for n in groups]
+            settings += [(kernels.conv_cols(b, c_out, f_out, k_vol, bd),
+                          kernels.offset_groups(b, c_out, f_in, f_out, k_vol, bd, True), bd, cut)
+                         for bd, cut in CONV_CUTS.values()]
         return desc, rule, settings, lambda s: _conv_setting(kernels, cuda_lib, args, kwargs, *s)
+    bodies = BF16_BODIES if bf16 else (kernels.SM80,)
     rule = kernels.dw_tiling(b, c_out, f_in, f_out, k_vol)
+    if bf16:
+        body = kernels.dw_body(b, c_out, f_in, f_out, k_vol)
+        rule = (*kernels.dw_tiling(b, c_out, f_in, f_out, k_vol, body), body)
     settings = []
-    for mb, nb in itertools.product((32, 64), (32, 64)):
+    for body, (mb, nb) in itertools.product(bodies, itertools.product((32, 64), (32, 64))):
         if f_in % mb or f_out % nb:
             continue
-        n = _dw_chunks(kernels, b, c_out, f_in, f_out, k_vol, mb, nb)
-        settings += [(mb, nb, c) for c in sorted({max(1, n // 2), n, 2 * n})]
+        n = _dw_chunks(kernels, b, c_out, f_in, f_out, k_vol, mb, nb, body)
+        settings += [(mb, nb, c) + ((body,) if bf16 else ())
+                     for c in sorted({max(1, n // 2), n, 2 * n})]
+    if bf16:
+        settings += [(*kernels.dw_tiling(b, c_out, f_in, f_out, k_vol, bd), bd, cut)
+                     for bd, cut in DW_CUTS.values()]
     return desc, rule, settings, lambda s: _dw_setting(kernels, cuda_lib, args, *s)
 
 
 def sweep(tag, name, args, kwargs, kernels, cuda_lib, cycles_per_ms) -> dict:
     """Every setting of one call: times, the rule's choice, the fastest."""
-    want = getattr(kernels, name)(*args, **kwargs)
+    bf16 = name in ("gather_conv", "gather_dw") and kernels._is_bf16(args[0])
+    # bf16 convs and dW against their plain versions (either body may be the
+    # wrapper's)
+    want = (chip_smoke.plain_call(name, kernels) if bf16 else getattr(kernels, name))(
+        *args, **kwargs)
     desc, rule, settings, make = _settings(name, args, kwargs, kernels, cuda_lib)
     times, overflow = {}, {}
+    cut_out = (lambda s: len(s) == (4 if name == "gather_conv" else 5)) if bf16 else (
+        lambda s: False)
     for s in settings:
         run = make(s)
         before = kernels.lookup_overflow_blocks(want[0].device) if name == "lookup_down" else 0
-        chip_smoke.compare(name, run(), want)
+        if not cut_out(s):  # a cut-out computes something else
+            try:
+                chip_smoke.compare(name, run(), want)
+            except AssertionError as e:
+                raise AssertionError(f"[{tag}] {name} {desc} setting {s}: {e}") from e
         if name == "lookup_down":
             overflow[str(s)] = kernels.lookup_overflow_blocks(want[0].device) - before
         times[str(s)] = chip_smoke.device_ms(run, cycles_per_ms, reps=10)
-    best = min(times, key=times.get)
+    best = min((str(st) for st in settings if not cut_out(st)), key=times.get)
     hull = ""
     if overflow:
         hull = "; overflow blocks " + ", ".join(f"{s} {v}" for s, v in overflow.items() if v)
@@ -191,7 +278,8 @@ def sweep(tag, name, args, kwargs, kernels, cuda_lib, cycles_per_ms) -> dict:
         hull = "; hulls alone " + ", ".join(f"{r} {v:.4f}" for r, v in hull_ms.items())
     chip_smoke.log(f"[{tag}] {name} {desc}: " + ", ".join(f"{s} {times[str(s)]:.4f}"
                                                           for s in settings)
-                   + f" ms; rule {rule} {times[str(rule)]:.4f}, best {best} {times[best]:.4f}"
+                   + f" ms; rule {rule} {times.get(str(rule), float('nan')):.4f}, best {best} "
+                   f"{times[best]:.4f}"
                    + hull)
     return dict(tag=tag, name=name, call=desc, times=times, rule=str(rule), best=best,
                 overflow=overflow)
@@ -236,7 +324,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from egonn_tpu_torch import inference
-    from egonn_tpu_torch.models.factory import create_egonn_model
+    from egonn_tpu_torch.models.factory import create_egonn_model, model_factory
     from egonn_tpu_torch.ops.quantization import PolarQuantizer
     from egonn_tpu_torch.sparse import cuda_lib, kernels
 
@@ -250,6 +338,8 @@ def main() -> int:
     built = create_egonn_model(mp, cap0=chip_smoke.CAP0, device=device, seed=chip_smoke.SEED)
     clouds, mask = chip_smoke.make_inputs(device)
     step, g, l, lr = _train_step(device)
+    mink = model_factory(chip_smoke._minkloc_params(), cap0=chip_smoke.MINKLOC_CAP0,
+                         device=device, seed=chip_smoke.SEED + 3)
     os.environ["EGONN_BF16_ACTS"] = "1"
     try:
         paths = {"bf16_forward": chip_smoke.record_calls(
@@ -258,17 +348,36 @@ def main() -> int:
             kernels, lambda: step(g, l, torch.Generator(device=device).manual_seed(0), lr, True))}
     finally:
         os.environ.pop("EGONN_BF16_ACTS", None)
+    # MinkLoc's convs (its model keeps f32 activations) and phase 7's
+    # ResNet-width conv and dW calls that take one bf16 launch, in bf16
+    paths["bf16_minkloc"] = [
+        (name, (args[0].to(torch.bfloat16), *args[1:]), kwargs, x)
+        for name, args, kwargs, x in chip_smoke.record_calls(
+            kernels, lambda: inference.forward(mink, clouds, mask))
+        if name == "gather_conv" and args[0].shape[-1] % 8 == 0]
+    rng = np.random.default_rng(chip_smoke.SEED)
+    paths["bf16_wide"] = [
+        (name, tuple(a.to(torch.bfloat16) if a.is_floating_point() and (i == 0 or name ==
+                                                                          "gather_dw") else a
+                     for i, a in enumerate(chip_smoke._wide_call(rng, name, k_vol, f_in, f_out,
+                                                                 device))), {}, None)
+        for name, k_vol, f_in, f_out in chip_smoke.WIDE_CALLS
+        if name != "tdown" and kernels.width_plan(
+            f_in, f_out, dw=name == "gather_dw", bf16=True) == kernels.WidthPlan(
+            f_in, f_out, ((0, f_in),), ((0, f_out),))]
     builds = []
     if sys.argv[1:] != ["bf16"]:
-        builds = _f32_paths(paths, built, clouds, mask, device, (step, g, l, lr))
+        builds = _f32_paths(paths, built, clouds, mask, device, (step, g, l, lr), mink)
     del step
     rows, seen = [], set()
     with torch.no_grad():
         for tag, calls in paths.items():
             for name, args, kwargs, _ in calls:
-                # the validation step's tdown calls, the bf16 train step's dW calls
+                # the validation step's tdown calls, the bf16 train step's conv and
+                # dW calls
                 if (name == "lookup" or (tag == "val" and name != "tdown")
-                        or (tag == "bf16_train" and name != "gather_dw")):
+                        or (tag in ("bf16_train", "bf16_minkloc", "bf16_wide")
+                            and name not in ("gather_conv", "gather_dw"))):
                     continue
                 shapes = chip_smoke._shape(args)
                 key = (tag, name, str(shapes), kwargs.get("epi") is not None)
@@ -301,10 +410,10 @@ def _train_step(device) -> tuple:
     return make_train_step(built_t, tp), g, l, make_lr_schedule(tp)(0)
 
 
-def _f32_paths(paths, built, clouds, mask, device, train) -> list:
+def _f32_paths(paths, built, clouds, mask, device, train, mink) -> list:
     """Adds the f32 paths' recorded calls to `paths` (`train`: `_train_step`'s
-    step, batch and lr); returns the lookup-built map builds' device
-    kernels."""
+    step, batch and lr; `mink` the MinkLoc model); returns the lookup-built
+    map builds' device kernels."""
     from egonn_tpu_torch import inference
     from egonn_tpu_torch.models.factory import model_factory
     from egonn_tpu_torch.sparse import kernels
@@ -317,8 +426,6 @@ def _f32_paths(paths, built, clouds, mask, device, train) -> list:
     paths["train"] = chip_smoke.record_calls(kernels, lambda: step(g, l, gen, lr, True))
     # the validation step (three eval forwards): tdown's largest user
     paths["val"] = chip_smoke.record_calls(kernels, lambda: step(g, l, None, lr, False))
-    mink = model_factory(chip_smoke._minkloc_params(), cap0=chip_smoke.MINKLOC_CAP0,
-                         device=device, seed=chip_smoke.SEED + 3)
     paths["minkloc"] = chip_smoke.record_calls(
         kernels, lambda: inference.forward(mink, clouds, mask))
     rng = np.random.default_rng(chip_smoke.SEED)

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from egonn_tpu_torch.sparse import kernels
+from egonn_tpu_torch.sparse import cuda_lib, kernels
 from egonn_tpu_torch.sparse.packing import MAXKEY
 
 # split-TF32 tensor-core kernels against f32 torch matmuls: f32 accuracy,
@@ -1068,3 +1068,223 @@ def test_conv_bf16_cuda_planned_widths_and_refusals(cuda):
     with pytest.raises(TypeError):
         kernels._gather_dw_cuda(_bf16(gen, (b, c_in, 32), cuda), kmap,
                                 torch.zeros(b, c_out, 32, device=cuda, dtype=torch.float16))
+
+
+# The bf16 conv and dW bodies (kernels.SM90: wgmma on shared-memory tiles fed
+# by an mbarrier ring; kernels.SM80: mma.sync behind a barrier per stage),
+# each forced for every call: both stay tested whichever the rules pick.
+_BODIES = {"sm90": kernels.SM90, "sm80": kernels.SM80}
+
+
+def _force_body(monkeypatch, body):
+    for rule in ("conv_body", "dw_body"):
+        monkeypatch.setattr(kernels, rule, lambda *shape: _BODIES[body])
+
+
+def _runs_kmap(gen, b, k_vol, c_in, c_out, n_run):
+    """Rows 0-127 of each cloud: every offset valid at exactly n_run rows
+    (a random subset, sources anywhere); rows 128-255: every offset empty;
+    rows from 256 (a ragged last tile): about a third valid."""
+    kmap = np.full((b, k_vol, c_out), c_in, np.int64)
+    for bi in range(b):
+        for k in range(k_vol):
+            rows = gen.choice(128, size=n_run, replace=False)
+            kmap[bi, k, rows] = gen.integers(0, c_in, n_run)
+    tail = gen.random((b, k_vol, c_out - 256)) < 0.33
+    kmap[:, :, 256:] = np.where(tail, gen.integers(0, c_in, tail.shape), c_in)
+    return kmap.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", list(_BODIES))
+@pytest.mark.parametrize("n_run", [1, 8, 63, 64, 65, 128])
+@pytest.mark.parametrize("k_vol,f_in,f_out", [(27, 32, 32), (8, 64, 64), (27, 128, 128),
+                                              (8, 32, 96), (27, 128, 32)])
+def test_gather_conv_bf16_cuda_stage_runs(cuda, monkeypatch, body, n_run, k_vol, f_in, f_out):
+    """Runs of exactly n_run valid rows an offset in a tile (65 and 128: an
+    offset's rows span two stages of the SM90 body, whose stages hold 64), a
+    tile with every offset empty (its rows exactly epi(0)), a ragged last
+    tile (C_out = 300, not a multiple of 128), with and without the
+    epilogue: within one ulp of the plain version, bit-equal on repeat."""
+    _force_body(monkeypatch, body)
+    gen = np.random.default_rng(n_run * 31 + k_vol + f_in + f_out)
+    b, c_in, c_out = 2, 500, 300
+    feats = _bf16(gen, (b, c_in, f_in), cuda)
+    kmap = torch.from_numpy(_runs_kmap(gen, b, k_vol, c_in, c_out, n_run)).to(cuda)
+    kernel = torch.from_numpy((gen.standard_normal((k_vol, f_in, f_out)) / np.sqrt(f_in))
+                              .astype(np.float32)).to(cuda)
+    for epi in (None, _epi(gen, f_out, b, c_out, cuda)):
+        got = kernels.gather_conv(feats, kmap, kernel, epi=epi)
+        want = kernels.gather_conv_plain(feats, kmap, kernel, epi=epi)
+        _one_bf16_ulp(got, want)
+        assert torch.equal(got[:, 128:256], want[:, 128:256])  # the empty tile: epi(0)
+        assert torch.equal(kernels.gather_conv(feats, kmap, kernel, epi=epi), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", list(_BODIES))
+@pytest.mark.parametrize("f_in,f_out", [(512, 512), (256, 1024), (40, 64)])
+def test_gather_conv_bf16_cuda_body_widths(cuda, monkeypatch, body, f_in, f_out):
+    """512-wide bf16 convs on one launch, 1024 output columns through the
+    width plan (two launches), and F_in not a multiple of 16 (a 16-deep
+    step half past F_in): within one ulp, bit-equal on repeat."""
+    _force_body(monkeypatch, body)
+    gen = np.random.default_rng(f_in + f_out)
+    b, c_in, c_out = 2, 400, 333
+    feats = _bf16(gen, (b, c_in, f_in), cuda)
+    kmap = torch.from_numpy(_sparse_kmap(gen, b, 27, c_in, c_out, 300, 0.3)).to(cuda)
+    kernel = torch.from_numpy((gen.standard_normal((27, f_in, f_out)) / np.sqrt(f_in))
+                              .astype(np.float32)).to(cuda)
+    before = kernels.launch_counts()["gather_conv_bf16"]
+    got = kernels.gather_conv(feats, kmap, kernel)
+    assert kernels.launch_counts()["gather_conv_bf16"] == before + len(
+        kernels.width_plan(f_in, f_out, bf16=True).out_chunks)
+    _one_bf16_ulp(got, kernels.gather_conv_plain(feats, kmap, kernel))
+    assert torch.equal(kernels.gather_conv(feats, kmap, kernel), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", list(_BODIES))
+@pytest.mark.parametrize("n_groups", [2, 4])
+def test_gather_conv_bf16_cuda_body_offset_groups(cuda, monkeypatch, body, n_groups):
+    """Each body with its offsets split over 2 and 4 blocks (the f32 partial
+    sums added in order by the second launch), K = 27 and 125 (more
+    offsets than one group of 32): within one ulp, bit-equal on repeat."""
+    _force_body(monkeypatch, body)
+    monkeypatch.setattr(kernels, "offset_groups", lambda *a: n_groups)
+    gen = np.random.default_rng(n_groups)
+    for k_vol in (27, 125):
+        b, c_in, c_out, f = 3, 600, 500, 64
+        feats = _bf16(gen, (b, c_in, f), cuda)
+        kmap = torch.from_numpy(_sparse_kmap(gen, b, k_vol, c_in, c_out, 400, 0.2)).to(cuda)
+        kernel = torch.from_numpy((gen.standard_normal((k_vol, f, f)) / np.sqrt(f))
+                                  .astype(np.float32)).to(cuda)
+        epi = _epi(gen, f, b, c_out, cuda)
+        got = kernels.gather_conv(feats, kmap, kernel, epi=epi)
+        _one_bf16_ulp(got, kernels.gather_conv_plain(feats, kmap, kernel, epi=epi))
+        assert torch.equal(kernels.gather_conv(feats, kmap, kernel, epi=epi), got)
+
+
+def _dw_runs_kmap(gen, b, k_vol, c_in, c_out, n_run):
+    """Every 64-row tile valid at exactly n_run rows an offset, but every
+    third tile empty: a chunk's queue of valid rows fills stages of 64 across
+    tiles and ends mid-tile."""
+    kmap = np.full((b, k_vol, c_out), c_in, np.int64)
+    for bi in range(b):
+        for k in range(k_vol):
+            for t0 in range(0, c_out, 64):
+                if (t0 // 64) % 3 == 2:
+                    continue
+                n = min(n_run, c_out - t0)
+                rows = t0 + gen.choice(min(64, c_out - t0), size=n, replace=False)
+                kmap[bi, k, rows] = gen.integers(0, c_in, n)
+    return kmap.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", list(_BODIES))
+@pytest.mark.parametrize("n_run", [1, 8, 63, 64])
+@pytest.mark.parametrize("k_vol,f_in,f_out", [(27, 32, 32), (8, 64, 128), (27, 128, 64),
+                                              (8, 512, 512)])
+def test_gather_dw_bf16_cuda_stage_runs(cuda, monkeypatch, body, n_run, k_vol, f_in, f_out):
+    """Tiles of exactly n_run valid rows an offset and empty tiles between
+    them, so the SM90 body's queue fills its 64-row stages across tiles,
+    splits tiles between stages and ends each chunk mid-tile (a last stage
+    of n < 64 rows); widths 32-512: within 1e-4 x max |plain|, bit-equal on
+    repeat."""
+    _force_body(monkeypatch, body)
+    gen = np.random.default_rng(n_run * 7 + k_vol + f_in)
+    b, c_in, c_out = 3, 700, 1000
+    feats = _bf16(gen, (b, c_in, f_in), cuda)
+    kmap = torch.from_numpy(_dw_runs_kmap(gen, b, k_vol, c_in, c_out, n_run)).to(cuda)
+    g = _bf16(gen, (b, c_out, f_out), cuda)
+    got = kernels.gather_dw(feats, kmap, g)
+    assert _rel_err(got, kernels.gather_dw_plain(feats, kmap, g)) <= DW_REL_TOL
+    assert torch.equal(kernels.gather_dw(feats, kmap, g), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", list(_BODIES))
+@pytest.mark.parametrize("chunks", [1, 7, 64])
+def test_gather_dw_bf16_cuda_chunk_counts(cuda, monkeypatch, body, chunks):
+    """One chunk walking every tile (many stages), an odd count, and more
+    chunks than the tiles a few of them reach (chunks without a tile write
+    zeros): within 1e-4 x max |plain|, bit-equal on repeat."""
+    _force_body(monkeypatch, body)
+    monkeypatch.setattr(kernels, "dw_tiling",
+                        lambda b, c_out, f_in, f_out, k_vol, body=0: (64, 64, chunks))
+    gen = np.random.default_rng(chunks)
+    b, c_in, c_out, f = 2, 900, 1500, 64
+    feats, kmap, g = _dw_bf16_case(gen, b, c_in, c_out, 27, f, f, cuda)
+    got = kernels.gather_dw(feats, kmap, g)
+    assert _rel_err(got, kernels.gather_dw_plain(feats, kmap, g)) <= DW_REL_TOL
+    assert torch.equal(kernels.gather_dw(feats, kmap, g), got)
+
+
+# bf16 call shapes (B, C_out, F_in, F_out, K) of the EgoNN forward and train
+# step and of wider convs
+_BF16_SHAPES = [(32, 9856, 32, 32, 27), (32, 9856, 32, 32, 8), (32, 6656, 32, 64, 27),
+                (32, 6656, 64, 64, 27), (32, 2560, 128, 128, 27), (32, 1664, 128, 128, 8),
+                (32, 1408, 128, 128, 27), (8, 1024, 128, 128, 27), (8, 9856, 32, 32, 27),
+                (8, 4096, 64, 32, 8), (4, 4096, 256, 512, 27), (32, 1665, 128, 128, 27),
+                (8, 20480, 32, 32, 27), (8, 10240, 32, 64, 27)]
+
+
+@pytest.mark.parametrize("b,c_out,f_in,f_out,k_vol", _BF16_SHAPES)
+def test_bf16_body_rules(b, c_out, f_in, f_out, k_vol):
+    """The bf16 bodies' launch rules against a plain statement of them: the
+    SM90 conv on the deep levels (C_out <= 1664) and the 32-wide K >= 27
+    self convs, with 64-column slices where F_out allows; offsets split
+    only on grids of at most two blocks an SM (SM90) or 512 blocks (SM80 on
+    bf16 features; f32 features keep their rule); the SM90 dW but
+    for 32-wide features at K >= 27, its chunks one wave of three blocks an
+    SM; the SM80 rules (slices, offset groups, chunks) unchanged."""
+    sm90_conv = c_out <= 1664 or (f_in == 32 and f_out == 32 and k_vol >= 27)
+    assert kernels.conv_body(b, c_out, f_in, f_out, k_vol) == (
+        kernels.SM90 if sm90_conv else kernels.SM80)
+    assert kernels.conv_cols(b, c_out, f_out, k_vol, kernels.SM90) == (
+        64 if f_out % 64 == 0 else 32)
+    assert kernels.conv_cols(b, c_out, f_out, k_vol, kernels.SM80) == kernels.conv_cols(
+        b, c_out, f_out, k_vol)
+    assert kernels.dw_body(b, c_out, f_in, f_out, k_vol) == (
+        kernels.SM80 if f_in <= 32 and k_vol >= 27 else kernels.SM90)
+    mb, nb, chunks = kernels.dw_tiling(b, c_out, f_in, f_out, k_vol, kernels.SM90)
+    blocks = k_vol * (f_in // mb) * (f_out // nb)
+    for body, limit in ((kernels.SM90, 2 * 132), (kernels.SM80, 512)):
+        groups = kernels.offset_groups(b, c_out, f_in, f_out, k_vol, body, True)
+        cols = kernels.conv_cols(b, c_out, f_out, k_vol, body)
+        assert 1 <= groups <= min(4, k_vol)
+        assert groups == 1 or b * -(-c_out // 128) * (f_out // cols) <= limit
+    assert kernels.offset_groups(b, c_out, f_in, f_out, k_vol) == kernels.offset_groups(
+        b, c_out, f_in, f_out, k_vol, kernels.SM80, False)
+    assert (mb, nb) == kernels.dw_tiling(b, c_out, f_in, f_out, k_vol)[:2]
+    assert chunks == max(1, min(b * -(-c_out // 64), 3 * 132 // blocks))
+    assert chunks * blocks <= 3 * 132 or chunks == 1
+
+
+def test_probe_cut_libraries_apart():
+    """The bf16 bodies' cut-outs are built only into libraries of their own
+    (EGONN_PROBE_CUTS), never into the port's, and each cut-out entry point
+    takes its production entry's arguments plus the cut-out (and, for the
+    conv, the room for the SM80 body's lists)."""
+    for src, extra in cuda_lib.PROBE_SIGNATURES.items():
+        probe = cuda_lib._library_path(src, cuda_lib.PROBE_FLAGS)
+        assert probe != cuda_lib._library_path(src) and "-probe-" in probe.name
+        for name, argtypes in extra.items():
+            base = cuda_lib.SIGNATURES[src][name.removesuffix("_cut")]
+            assert argtypes[:len(base) - 1] == base[:-1] and argtypes[-1] == base[-1]
+            assert len(argtypes) == len(base) + (2 if src == "gather_conv.cu" else 1)
+
+
+def test_bf16_body_counts_reset():
+    """The per-body launch counts start at zero after reset_launches, and CPU
+    calls (the plain versions) count nothing."""
+    kernels.reset_launches()
+    gen = np.random.default_rng(3)
+    feats = torch.from_numpy(gen.standard_normal((1, 50, 32)).astype(np.float32)).to(
+        torch.bfloat16)
+    kmap = torch.from_numpy(gen.integers(0, 51, (1, 27, 40)).astype(np.int32))
+    kernels.gather_conv(feats, kmap, torch.zeros(27, 32, 32))
+    kernels.gather_dw(feats, kmap, torch.zeros(1, 40, 32, dtype=torch.bfloat16))
+    assert kernels.body_launch_counts() == {name: {"sm80": 0, "sm90": 0}
+                                            for name in ("gather_conv_bf16", "gather_dw_bf16")}
