@@ -1,0 +1,7 @@
+"""Device ms a step of the kernels launched in `egonn.step.backward` (on
+any thread: autograd's worker launches them)."""
+from benchmark.core import spans
+
+
+def read(ctx):
+    return spans.device_ms(ctx, "egonn.train_step", "egonn.step.backward")

@@ -1,0 +1,6 @@
+"""Device ms a step of the kernels launched in `egonn.step.forward`."""
+from benchmark.core import spans
+
+
+def read(ctx):
+    return spans.device_ms(ctx, "egonn.train_step", "egonn.step.forward")

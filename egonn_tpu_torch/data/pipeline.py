@@ -36,6 +36,7 @@ from egonn_tpu_torch.data.base import TrainingDataset, in_sorted
 from egonn_tpu_torch.parallel.mesh import row_slice, world_size
 from egonn_tpu_torch.sparse.pyramid import PyramidSpec, build_pyramid
 from egonn_tpu_torch.sparse.types import Pyramid
+from egonn_tpu_torch.utils.tracing import span
 
 
 @dataclass
@@ -213,14 +214,16 @@ def device_preprocess_global(clouds: torch.Tensor, point_mask: torch.Tensor, qua
     each cloud is augmented as in a single process.  with_kmap_down builds
     the maps a training forward needs."""
     if gen is not None:
-        b, n, _ = clouds.shape
-        b_global = b * world_size(group)
-        draws = draw_train_transform(gen, b_global, n, aug_mode)
-        if b_global != b:
-            rows = row_slice(b_global, group)
-            draws = {k: v[rows] for k, v in draws.items()}
-        clouds = train_transform(clouds, point_mask, draws, aug_mode)
-        clouds = train_set_transform(clouds, draw_train_set_transform(gen, aug_mode), aug_mode)
+        with span("egonn.augment"):
+            b, n, _ = clouds.shape
+            b_global = b * world_size(group)
+            draws = draw_train_transform(gen, b_global, n, aug_mode)
+            if b_global != b:
+                rows = row_slice(b_global, group)
+                draws = {k: v[rows] for k, v in draws.items()}
+            clouds = train_transform(clouds, point_mask, draws, aug_mode)
+            clouds = train_set_transform(clouds, draw_train_set_transform(gen, aug_mode),
+                                         aug_mode)
     res = quantizer.quantize(clouds, point_mask, spec.capacities[0], need_index=False)
     return build_pyramid(res.coords_t, res.mask, spec, n_unique0=res.n_unique, keys0=res.keys,
                          with_kmap_down=with_kmap_down)

@@ -272,7 +272,7 @@ class GLEvaluator(Evaluator):
         enabled, self._traced = not self._traced, True
         with tracing.capture("gl_eval", enabled=enabled):
             n_k_max = max(self.n_k)
-            with tracing.annotate("eval_embed"):
+            with tracing.span("egonn.eval_embed"):
                 map_e = self.compute_embeddings(self.eval_set.map_set, with_local=True,
                                                 n_k=n_k_max)
                 query_e = self.compute_embeddings(self.eval_set.query_set, with_local=True,
@@ -286,7 +286,7 @@ class GLEvaluator(Evaluator):
             # pairs for the local evaluation: ground truth <= 20 m from the top-1
             eligible = [i for i in range(len(self.eval_set.query_set))
                         if np.linalg.norm(query_pos[i] - map_pos[top1[i]]) <= 20.0]
-            with tracing.annotate("eval_ransac"):
+            with tracing.span("egonn.eval_ransac"):
                 metrics = {n_k: self._eval_local(eligible, top1, query_e, map_e, n_k)
                            for n_k in self.n_k}
         return global_metrics, metrics

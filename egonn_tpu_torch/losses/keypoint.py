@@ -24,6 +24,7 @@ from egonn_tpu_torch.losses.triplet import (
 )
 from egonn_tpu_torch.ops.geometry import apply_transform, true_f32
 from egonn_tpu_torch.parallel.mesh import all_reduce_sum
+from egonn_tpu_torch.utils.tracing import span
 
 BIG = 1e9
 _CLOUD_CHUNK = 8192  # points per block of the keypoint-to-cloud distance search
@@ -44,23 +45,24 @@ def _nearest_point_dist(kp: torch.Tensor, pc: torch.Tensor, pc_mask: torch.Tenso
     in blocks of points without autograd, and the distance to it is then
     recomputed, with its gradient, by the same formula (the cloud carries no
     gradient, so the min's gradient reaches the nearest point only)."""
-    b, k, _ = kp.shape
-    with torch.no_grad():
-        best = torch.full((b, k), math.inf, dtype=kp.dtype, device=kp.device)
-        best_i = torch.zeros((b, k), dtype=torch.long, device=kp.device)
-        for s in range(0, pc.shape[1], _CLOUD_CHUNK):
-            d = pairwise_l2(kp, pc[:, s:s + _CLOUD_CHUNK])
-            d = torch.where(pc_mask[:, None, s:s + _CLOUD_CHUNK], d, BIG)
-            d_min, i_min = d.min(-1)
-            better = d_min < best  # strict: the first of equal points wins
-            best = torch.where(better, d_min, best)
-            best_i = torch.where(better, i_min + s, best_i)
-    nearest = torch.gather(pc, 1, best_i[..., None].expand(-1, -1, 3))
-    sq = (kp ** 2).sum(-1) + (nearest ** 2).sum(-1) - 2.0 * (kp * nearest).sum(-1)
-    sq = torch.clamp_min(sq, 0.0)
-    pos = sq > 0.0
-    d = torch.where(pos, torch.sqrt(torch.where(pos, sq, 1.0)), 0.0)
-    return torch.where(pc_mask.any(1)[:, None], d, BIG)
+    with span("egonn.loss.nearest_point"):
+        b, k, _ = kp.shape
+        with torch.no_grad():
+            best = torch.full((b, k), math.inf, dtype=kp.dtype, device=kp.device)
+            best_i = torch.zeros((b, k), dtype=torch.long, device=kp.device)
+            for s in range(0, pc.shape[1], _CLOUD_CHUNK):
+                d = pairwise_l2(kp, pc[:, s:s + _CLOUD_CHUNK])
+                d = torch.where(pc_mask[:, None, s:s + _CLOUD_CHUNK], d, BIG)
+                d_min, i_min = d.min(-1)
+                better = d_min < best  # strict: the first of equal points wins
+                best = torch.where(better, d_min, best)
+                best_i = torch.where(better, i_min + s, best_i)
+        nearest = torch.gather(pc, 1, best_i[..., None].expand(-1, -1, 3))
+        sq = (kp ** 2).sum(-1) + (nearest ** 2).sum(-1) - 2.0 * (kp * nearest).sum(-1)
+        sq = torch.clamp_min(sq, 0.0)
+        pos = sq > 0.0
+        d = torch.where(pos, torch.sqrt(torch.where(pos, sq, 1.0)), 0.0)
+        return torch.where(pc_mask.any(1)[:, None], d, BIG)
 
 
 class _GatherRows(torch.autograd.Function):

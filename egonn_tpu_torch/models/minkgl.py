@@ -39,6 +39,7 @@ from egonn_tpu_torch.models.layers import (
 from egonn_tpu_torch.sparse import conv as sconv
 from egonn_tpu_torch.sparse.norm import SparseBatchNorm
 from egonn_tpu_torch.sparse.types import Pyramid, masked
+from egonn_tpu_torch.utils.tracing import span
 
 
 class MinkTrunk(nn.Module):
@@ -149,28 +150,31 @@ class MinkGL(nn.Module):
 
     def forward(self, pyramid: Pyramid, quantizer, disable_global_head: bool = False,
                 disable_local_head: bool = False) -> Dict[str, torch.Tensor]:
-        trunk_out = self.trunk(pyramid)
+        with span("egonn.trunk"):
+            trunk_out = self.trunk(pyramid)
         y: Dict[str, torch.Tensor] = {}
         if self.global_in_levels and not disable_global_head:
-            xg = self.global_descriptor_decoder(self.global_head(pyramid, trunk_out))
-            if self.global_normalize:
-                xg = l2_normalize(xg)
-            g_mask = pyramid[min(self.global_in_levels)].mask
-            y["global"] = self.global_pooling(masked(xg, g_mask), g_mask)
+            with span("egonn.global_head"):
+                xg = self.global_descriptor_decoder(self.global_head(pyramid, trunk_out))
+                if self.global_normalize:
+                    xg = l2_normalize(xg)
+                g_mask = pyramid[min(self.global_in_levels)].mask
+                y["global"] = self.global_pooling(masked(xg, g_mask), g_mask)
         if self.local_in_levels and not disable_local_head:
-            xl = self.local_head(pyramid, trunk_out)
-            l_level = min(self.local_in_levels)
-            lvl = pyramid[l_level]
-            y["descriptors"] = masked(self.local_descriptor_decoder(xl), lvl.mask)
-            kp_offset = self.local_keypoint_regressor(xl)
-            if self.ignore_keypoint_regressor:
-                kp_offset = torch.zeros_like(kp_offset)
-            # absolute level-0 voxel units (multiples of the stride), as ME's .C
-            stride = 2 ** l_level
-            kp_pos = quantizer.keypoint_position(
-                lvl.coords_rows * stride,
-                torch.full((3,), float(stride), device=kp_offset.device), kp_offset)
-            y["keypoints"] = masked(kp_pos, lvl.mask)
-            y["kp_mask"] = lvl.mask
-            y["sigma"] = masked(self.local_sigma_regressor(xl), lvl.mask)
+            with span("egonn.local_head"):
+                xl = self.local_head(pyramid, trunk_out)
+                l_level = min(self.local_in_levels)
+                lvl = pyramid[l_level]
+                y["descriptors"] = masked(self.local_descriptor_decoder(xl), lvl.mask)
+                kp_offset = self.local_keypoint_regressor(xl)
+                if self.ignore_keypoint_regressor:
+                    kp_offset = torch.zeros_like(kp_offset)
+                # absolute level-0 voxel units (multiples of the stride), as ME's .C
+                stride = 2 ** l_level
+                kp_pos = quantizer.keypoint_position(
+                    lvl.coords_rows * stride,
+                    torch.full((3,), float(stride), device=kp_offset.device), kp_offset)
+                y["keypoints"] = masked(kp_pos, lvl.mask)
+                y["kp_mask"] = lvl.mask
+                y["sigma"] = masked(self.local_sigma_regressor(xl), lvl.mask)
         return y

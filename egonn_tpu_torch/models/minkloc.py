@@ -30,6 +30,7 @@ from egonn_tpu_torch.models.layers import (
 from egonn_tpu_torch.models.senet import SEBasicBlock
 from egonn_tpu_torch.sparse.norm import SparseBatchNorm
 from egonn_tpu_torch.sparse.types import Pyramid, masked
+from egonn_tpu_torch.utils.tracing import span
 
 
 class MinkFPN(nn.Module):
@@ -105,5 +106,7 @@ class MinkLoc(nn.Module):
                 feats0: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """`quantizer` is unused (the entry point passes it to every model).
         Returns {"global": (B, output_dim)}."""
-        x, level = self.backbone(pyramid, feats0)
-        return {"global": self.pooling(x, pyramid[level].mask)}
+        with span("egonn.trunk"):
+            x, level = self.backbone(pyramid, feats0)
+        with span("egonn.global_head"):
+            return {"global": self.pooling(x, pyramid[level].mask)}

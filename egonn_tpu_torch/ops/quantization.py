@@ -24,6 +24,7 @@ import torch
 
 from egonn_tpu_torch.ops.geometry import polar_to_cartesian
 from egonn_tpu_torch.sparse.packing import SortedUnique, sorted_unique
+from egonn_tpu_torch.utils.tracing import span
 
 
 class PolarQuantizer:
@@ -59,8 +60,9 @@ class PolarQuantizer:
 
     def quantize(self, pc: torch.Tensor, mask: torch.Tensor, capacity: int,
                  need_index: bool = True) -> SortedUnique:
-        return sorted_unique(self.to_polar_voxels(pc), mask, capacity,
-                             need_index=need_index)
+        with span("egonn.quantize"):
+            return sorted_unique(self.to_polar_voxels(pc), mask, capacity,
+                                 need_index=need_index)
 
     __call__ = quantize
 
@@ -92,8 +94,9 @@ class CartesianQuantizer:
 
     def quantize(self, pc: torch.Tensor, mask: torch.Tensor, capacity: int,
                  need_index: bool = True) -> SortedUnique:
-        return sorted_unique(self.to_voxels(pc), mask, capacity,
-                             need_index=need_index)
+        with span("egonn.quantize"):
+            return sorted_unique(self.to_voxels(pc), mask, capacity,
+                                 need_index=need_index)
 
     __call__ = quantize
 

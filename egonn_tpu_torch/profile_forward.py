@@ -26,10 +26,14 @@ launch, the model), or one evaluation of `GLEvaluator` (n_k 128 and 256,
 model_configs/egonn.txt, or `do_train` for one epoch (config_egonn.txt at
 full width, loading, checkpoint and capacity audit included) on
 `chip_smoke.py` phase 10's synthetic set (192 scans, seed 0, written into
-build/train_synth when absent), 3 times under `torch.profiler`, and prints the device kernels with the most
-time, the summed kernel time (the port's own kernels apart), the wall time
-per iteration and the card's busy share over the profiled window.  The
-Chrome trace goes to build/<mode>_trace.json.  Needs a CUDA card.
+build/train_synth when absent), 3 times under `torch.profiler`, and prints the
+device kernels with the most time, the summed kernel time (the port's own
+kernels apart), the wall time per iteration, and one row per `egonn.*` span
+(`utils/tracing.py`): its calls, host ms and device ms per iteration.  A
+span's device ms counts the kernels launched on its own thread, so the
+backward's, which autograd's worker thread launches, are not in
+`egonn.step.backward`'s.  The Chrome trace goes to
+build/<mode>_trace.json.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -51,8 +55,9 @@ from egonn_tpu_torch.ops.quantization import PolarQuantizer
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
-def _device_us(event) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
+def _device_us(event, kind: str = "self_") -> float:
+    """The event's own (`kind` "self_") or total ("") device time."""
+    for name in (f"{kind}device_time_total", f"{kind}cuda_time_total"):
         if hasattr(event, name):
             return float(getattr(event, name))
     raise AttributeError("profiler event has no device time")
@@ -179,23 +184,33 @@ def main() -> int:
             run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
-    # device-side kernel events only: an aten op's own row repeats its kernels' time
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # device-side kernel events only: an aten op's own row repeats its kernels'
+    # time, and a host range's device-side twin (same name) spans its kernels
+    averages = prof.key_averages()
+    host_keys = {e.key for e in averages if e.device_type == DeviceType.CPU}
+    events = [e for e in averages
+              if e.device_type == DeviceType.CUDA and e.key not in host_keys]
     if not events:
         raise RuntimeError("the profiler recorded no device kernels")
     events.sort(key=_device_us, reverse=True)
     total_ms = sum(_device_us(e) for e in events) / 1e3 / ITERS
     own_ms = sum(_device_us(e) for e in events if "egonn::" in e.key) / 1e3 / ITERS
-    n_ops = sum(e.count for e in prof.key_averages()
+    n_ops = sum(e.count for e in averages
                 if e.device_type == DeviceType.CPU and e.key.startswith("aten::")) / ITERS
     print(f"{what} ({mode}): {n_ops:.0f} aten ops, wall {wall_ms:.3f} ms, kernels "
           f"{total_ms:.3f} ms per iteration ({own_ms:.3f} ms in the port's CUDA kernels, "
-          f"{sum(e.count for e in events) / ITERS:.0f} launches), busy share "
-          f"{total_ms / wall_ms:.3f} (kernel time / wall, profiler on)")
+          f"{sum(e.count for e in events) / ITERS:.0f} launches)")
     print(f"{'kernel':100s} {'ms/iter':>11s} {'share':>7s} {'calls/iter':>14s}")
     for e in events[:TOP]:
         ms = _device_us(e) / 1e3 / ITERS
         print(f"{e.key[:100]:100s} {ms:11.4f} {ms / total_ms:7.3f} {e.count / ITERS:14.1f}")
+    spans = sorted((e for e in averages
+                    if e.device_type == DeviceType.CPU and e.key.startswith("egonn.")),
+                   key=lambda e: e.key)
+    print(f"{'span':30s} {'calls/iter':>11s} {'host ms/iter':>13s} {'device ms/iter':>15s}")
+    for e in spans:
+        print(f"{e.key:30s} {e.count / ITERS:11.1f} {e.cpu_time_total / 1e3 / ITERS:13.3f} "
+              f"{_device_us(e, '') / 1e3 / ITERS:15.3f}")
     out = pathlib.Path("build")
     out.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(out / f"{mode}_trace.json"))

@@ -53,6 +53,7 @@ from egonn_tpu_torch.sparse.packing import (
     unpack_keys,
 )
 from egonn_tpu_torch.sparse.types import Level, Pyramid
+from egonn_tpu_torch.utils.tracing import span
 
 
 def _offsets(kernel_size: int, dims: int) -> np.ndarray:
@@ -196,52 +197,53 @@ def build_pyramid(coords0_t: torch.Tensor, mask0: torch.Tensor, spec: PyramidSpe
     with_kmap_down: also build `kmap_down` where the finer level records an
     up map (training); where it records none, `kmap_down` is always built.
     """
-    if n_unique0 is None:
-        n_unique0 = mask0.sum(1).to(torch.int32)
-    source_index = None
-    if keys0 is None:
-        u0 = sorted_unique(coords0_t, mask0, spec.capacities[0], spec.pack,
-                           need_index=spec.need_source_index)
-        coords0_t, mask0, keys0 = u0.coords_t, u0.mask, u0.keys
-        if spec.need_source_index:
-            source_index = u0.index
-    coords, masks, keys, n_uniques, up_parents = _dedup_chain(keys0, spec)
-    coords, masks, keys = [coords0_t] + coords, [mask0] + masks, [keys0] + keys
-    n_uniques = [n_unique0.to(torch.int32)] + n_uniques
+    with span("egonn.pyramid"):
+        if n_unique0 is None:
+            n_unique0 = mask0.sum(1).to(torch.int32)
+        source_index = None
+        if keys0 is None:
+            u0 = sorted_unique(coords0_t, mask0, spec.capacities[0], spec.pack,
+                               need_index=spec.need_source_index)
+            coords0_t, mask0, keys0 = u0.coords_t, u0.mask, u0.keys
+            if spec.need_source_index:
+                source_index = u0.index
+        coords, masks, keys, n_uniques, up_parents = _dedup_chain(keys0, spec)
+        coords, masks, keys = [coords0_t] + coords, [mask0] + masks, [keys0] + keys
+        n_uniques = [n_unique0.to(torch.int32)] + n_uniques
 
-    # the down maps of levels whose finer level records no up map: one
-    # launch (they need only the dedup chain's keys)
-    down_levels = [l for l in range(1, spec.num_levels + 1) if l - 1 not in spec.up_levels]
-    looked_up = {}
-    if down_levels:
-        looked_up = dict(zip(down_levels, kernels.lookup_down(
-            keys, [spec.pack_at(l) for l in range(spec.num_levels + 1)], down_levels)))
+        # the down maps of levels whose finer level records no up map: one
+        # launch (they need only the dedup chain's keys)
+        down_levels = [l for l in range(1, spec.num_levels + 1) if l - 1 not in spec.up_levels]
+        looked_up = {}
+        if down_levels:
+            looked_up = dict(zip(down_levels, kernels.lookup_down(
+                keys, [spec.pack_at(l) for l in range(spec.num_levels + 1)], down_levels)))
 
-    levels = []
-    for l in range(spec.num_levels + 1):
-        kmap_self = None
-        if l == 0 or l in spec.self_levels:
-            k = spec.conv0_kernel_size if l == 0 else spec.block_kernel_size
-            kmap_self = _self_kmap(keys[l], coords[l], masks[l], k, spec.pack_at(l),
-                                   presence_only=(l == 0 and spec.conv0_ones))
-        up_parent = up_koffset = None
-        if l in spec.up_levels:
-            if l + 1 > spec.num_levels:
-                raise ValueError(f"up level {l} has no parent level")
-            kbits = coords[l] - 2 * (coords[l] // 2)  # (B, 3, C) in {0, 1}
-            up_koffset = (4 * kbits[:, 0] + 2 * kbits[:, 1] + kbits[:, 2]).to(torch.int32)
-            up_parent = up_parents[l]
-        kmap_down = looked_up.get(l)
-        if kmap_down is None and l >= 1 and with_kmap_down:
-            kmap_down = kernels.invert_up(levels[l - 1].up_parent, levels[l - 1].up_koffset,
-                                          spec.capacities[l])
-        levels.append(Level(
-            coords=coords[l], mask=masks[l], n_unique=n_uniques[l],
-            kmap_self=kmap_self, kmap_down=kmap_down, up_parent=up_parent,
-            up_koffset=up_koffset,
-            source_index=source_index if l == 0 else None,
-        ))
-    return Pyramid(levels=tuple(levels))
+        levels = []
+        for l in range(spec.num_levels + 1):
+            kmap_self = None
+            if l == 0 or l in spec.self_levels:
+                k = spec.conv0_kernel_size if l == 0 else spec.block_kernel_size
+                kmap_self = _self_kmap(keys[l], coords[l], masks[l], k, spec.pack_at(l),
+                                       presence_only=(l == 0 and spec.conv0_ones))
+            up_parent = up_koffset = None
+            if l in spec.up_levels:
+                if l + 1 > spec.num_levels:
+                    raise ValueError(f"up level {l} has no parent level")
+                kbits = coords[l] - 2 * (coords[l] // 2)  # (B, 3, C) in {0, 1}
+                up_koffset = (4 * kbits[:, 0] + 2 * kbits[:, 1] + kbits[:, 2]).to(torch.int32)
+                up_parent = up_parents[l]
+            kmap_down = looked_up.get(l)
+            if kmap_down is None and l >= 1 and with_kmap_down:
+                kmap_down = kernels.invert_up(levels[l - 1].up_parent, levels[l - 1].up_koffset,
+                                              spec.capacities[l])
+            levels.append(Level(
+                coords=coords[l], mask=masks[l], n_unique=n_uniques[l],
+                kmap_self=kmap_self, kmap_down=kmap_down, up_parent=up_parent,
+                up_koffset=up_koffset,
+                source_index=source_index if l == 0 else None,
+            ))
+        return Pyramid(levels=tuple(levels))
 
 
 def capacity_report(pyramid: Pyramid, spec: PyramidSpec, group=None) -> dict:

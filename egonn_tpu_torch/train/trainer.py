@@ -145,31 +145,34 @@ class TrainStep:
         for name, t in (("clouds", clouds), ("mask", mask)):
             if t.device != b.device:
                 raise ValueError(f"{name} on {t.device}, the model on {b.device}")
-        pyr = device_preprocess_global(clouds, mask, b.quantizer, b.pyramid_spec, gen=gen,
-                                       aug_mode=self.aug_mode, with_kmap_down=train,
-                                       group=self.group)
-        return b.model(pyr, b.quantizer)
+        with tracing.span("egonn.step.forward"):
+            pyr = device_preprocess_global(clouds, mask, b.quantizer, b.pyramid_spec, gen=gen,
+                                           aug_mode=self.aug_mode, with_kmap_down=train,
+                                           group=self.group)
+            return b.model(pyr, b.quantizer)
 
     def _losses(self, g: Dict, l: Dict, gen, train: bool):
         """(this rank's share of the loss, the global stats)."""
         yg = self._forward(g["clouds"], g["point_mask"], gen, train)
-        # every rank mines the whole batch: its share is 1 / world of the loss
-        gl_loss, gl_stats = self.gl_loss_fn(all_gather_rows(yg["global"], self.group),
-                                            g["positives_mask"], g["negatives_mask"])
+        with tracing.span("egonn.step.loss"):
+            # every rank mines the whole batch: its share is 1 / world of the loss
+            gl_loss, gl_stats = self.gl_loss_fn(all_gather_rows(yg["global"], self.group),
+                                                g["positives_mask"], g["negatives_mask"])
         y1 = self._forward(l["anc_clouds"], l["anc_mask"], None, train)
         y2 = self._forward(l["pos_clouds"], l["pos_mask"], None, train)
-        loc_share, loc_stats = self.loc_loss_fn(
-            l["anc_clouds"], l["anc_mask"],
-            y1["keypoints"], y1["sigma"], y1["descriptors"], y1["kp_mask"],
-            l["pos_clouds"], l["pos_mask"],
-            y2["keypoints"], y2["sigma"], y2["descriptors"], y2["kp_mask"],
-            l["t_gt"], group=self.group)
-        share = gl_loss / world_size(self.group) + loc_share
-        stats = {k: v for k, v in gl_stats.items() if k != "loss"}
-        stats.update({k: v for k, v in loc_stats.items() if k != "loss"})
-        local_loss = loc_stats["loss"]
-        stats.update(global_loss=gl_loss.detach(), local_loss=local_loss,
-                     loss=gl_loss.detach() + local_loss)
+        with tracing.span("egonn.step.loss"):
+            loc_share, loc_stats = self.loc_loss_fn(
+                l["anc_clouds"], l["anc_mask"],
+                y1["keypoints"], y1["sigma"], y1["descriptors"], y1["kp_mask"],
+                l["pos_clouds"], l["pos_mask"],
+                y2["keypoints"], y2["sigma"], y2["descriptors"], y2["kp_mask"],
+                l["t_gt"], group=self.group)
+            share = gl_loss / world_size(self.group) + loc_share
+            stats = {k: v for k, v in gl_stats.items() if k != "loss"}
+            stats.update({k: v for k, v in loc_stats.items() if k != "loss"})
+            local_loss = loc_stats["loss"]
+            stats.update(global_loss=gl_loss.detach(), local_loss=local_loss,
+                         loss=gl_loss.detach() + local_loss)
         return share, stats
 
     def __call__(self, g: Dict, l: Dict, gen: Optional[torch.Generator], lr: float,
@@ -177,19 +180,22 @@ class TrainStep:
         model, optimizer = self.state.model, self.state.optimizer
         was_training = model.training
         try:
-            if train:
-                model.train()
-                set_lr(optimizer, lr)
-                optimizer.zero_grad(set_to_none=True)
-                share, stats = self._losses(g, l, gen, train=True)
-                share.backward()
-                all_reduce_grads(model.parameters(), self.group)
-                optimizer.step()
-            else:
-                # the reference's validation sets have no transform
-                model.eval()
-                with torch.no_grad():
-                    _, stats = self._losses(g, l, None, train=False)
+            with tracing.span("egonn.train_step"):
+                if train:
+                    model.train()
+                    set_lr(optimizer, lr)
+                    optimizer.zero_grad(set_to_none=True)
+                    share, stats = self._losses(g, l, gen, train=True)
+                    with tracing.span("egonn.step.backward"):
+                        share.backward()
+                    with tracing.span("egonn.step.optimizer"):
+                        all_reduce_grads(model.parameters(), self.group)
+                        optimizer.step()
+                else:
+                    # the reference's validation sets have no transform
+                    model.eval()
+                    with torch.no_grad():
+                        _, stats = self._losses(g, l, None, train=False)
         finally:
             model.train(was_training)
         return stats
@@ -408,7 +414,7 @@ def _train_epochs(params, built: BuiltModel, debug: bool, log_fn, dataset_type: 
 
                 def batches(ds=ds, lds=lds, smp=smp, local_batches=local_batches):
                     for gids, lids in zip(smp, local_batches):
-                        with tracing.annotate("batch_prep"):
+                        with tracing.span("egonn.batch_prep"):
                             yield (make_global_batch(ds, gids, num_points, buckets, group),
                                    make_local_batch(lds, lids, num_points))
 
@@ -431,8 +437,7 @@ def _train_epochs(params, built: BuiltModel, debug: bool, log_fn, dataset_type: 
                                         "t_gt": l.t_gt}, device)
                     copy_s += time.perf_counter() - t_copy
                     gen = step_generator(device, 0, epoch, phase_idx, count) if train else None
-                    with tracing.step_annotation(f"{phase}_step", count):
-                        stats = step(gdict, ldict, gen, lr, train)
+                    stats = step(gdict, ldict, gen, lr, train)
                     keys = keys or list(stats)
                     # the step's stats stay on the device; one copy per phase
                     running.append(torch.stack([stats[k].float() for k in keys]))

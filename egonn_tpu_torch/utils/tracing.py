@@ -1,15 +1,35 @@
-"""Phase-scoped profiler traces (port of `egonn_tpu/utils/tracing.py`) over
-`torch.profiler`.
+"""Named host ranges and phase-scoped profiler traces (port of
+`egonn_tpu/utils/tracing.py`) over `torch.profiler`.
 
-Off unless EGONN_TRACE_DIR=<dir> is set.  Then `capture(subdir)` records
-a profiler trace (host and CUDA activity) into <dir>/<subdir>/trace.json,
-viewable in Perfetto or chrome://tracing, and `annotate(name)` labels a
-host range (`record_function`: batch_prep, eval_embed, eval_ransac) so that
-the viewer separates the input pipeline from device work;
-`step_annotation(name, n)` labels one train or validation step.  The
+`span(name)` is a `record_function` range while a profiler runs, and one
+shared no-op context otherwise (one flag test: no range, no allocation, no
+environment read).  The program opens spans at its layer boundaries, so
+they show in any `torch.profiler` trace, on the profiler's clock beside the
+kernels they launch:
+
+    egonn.forward          inference.forward, the whole call
+    egonn.augment          the training augmentation (device_preprocess_global)
+    egonn.quantize         PolarQuantizer / CartesianQuantizer.quantize
+    egonn.pyramid          sparse/pyramid.py::build_pyramid
+    egonn.trunk            MinkGL's trunk, MinkLoc's backbone
+    egonn.global_head      head, decoder, normalisation, masking, pooling
+    egonn.local_head       MinkGL's local head through sigma and kp_mask
+    egonn.train_step       TrainStep.__call__ (train and validation)
+    egonn.step.forward     each of the step's three forwards
+    egonn.step.loss        the global loss, the local loss and the stats
+    egonn.loss.nearest_point  losses/keypoint.py::_nearest_point_dist
+    egonn.step.backward    the backward pass
+    egonn.step.optimizer   the gradient all-reduce and the optimizer step
+    egonn.batch_prep       do_train's batch assembly (the Prefetcher thread)
+    egonn.eval_embed       the evaluator's embeddings
+    egonn.eval_ransac      the evaluator's local registration
+
+Traces are off unless EGONN_TRACE_DIR=<dir> is set.  Then `capture(subdir)`
+records a profiler trace (host and CUDA activity, the spans included) into
+<dir>/<subdir>/trace.json, viewable in Perfetto or chrome://tracing.  The
 trainer captures epoch EGONN_TRACE_EPOCH (`trace_epoch`, default 2: past
-the kernels' build).  A capture inside an active one is a no-op: the
-profiler does not nest.
+the kernels' build), the evaluator its first evaluation.  A capture inside
+an active one is a no-op: the profiler does not nest.
 """
 from __future__ import annotations
 
@@ -17,6 +37,17 @@ import contextlib
 import os
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A `record_function` range named `name` while a profiler runs, else a
+    shared no-op context."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def trace_dir() -> str | None:
@@ -55,16 +86,3 @@ def capture(subdir: str, enabled: bool = True):
     os.makedirs(path, exist_ok=True)
     print(f"[trace] capturing profiler trace -> {path}")
     return _guarded_trace(path)
-
-
-def annotate(name: str):
-    """A labelled host range while tracing is on, else a no-op."""
-    if trace_dir() is None:
-        return contextlib.nullcontext()
-    return torch.profiler.record_function(name)
-
-
-def step_annotation(name: str, step_num: int):
-    """A host range labelled `<name>#<step_num>` while tracing is on, else a
-    no-op: one train or validation step in the trace."""
-    return annotate(f"{name}#{step_num}")

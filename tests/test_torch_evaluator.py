@@ -268,7 +268,8 @@ def test_gl_evaluate_matches_jax_from_jax_draws(setup, monkeypatch):
 
 def test_gl_evaluate_traced_and_icp_refined(setup, tmp_path, monkeypatch):
     """With EGONN_TRACE_DIR the first evaluation writes a profiler trace
-    with the eval_embed and eval_ransac ranges (a second one is not traced);
+    with the egonn.eval_embed and egonn.eval_ransac spans and the forwards'
+    (a second one is not traced);
     icp_refine adds the *_refined metrics against the ICP-refined ground
     truth, which `_icp_refine_gt` takes from `ops/icp.py`."""
     import json
@@ -281,7 +282,8 @@ def test_gl_evaluate_traced_and_icp_refined(setup, tmp_path, monkeypatch):
                      icp_refine=True)
     g, local = ev.evaluate()
     events = json.loads((tmp_path / "gl_eval" / "trace.json").read_text())["traceEvents"]
-    assert {"eval_embed", "eval_ransac"} <= {e.get("name") for e in events}
+    assert {"egonn.eval_embed", "egonn.eval_ransac", "egonn.forward"} <= {
+        e.get("name") for e in events}
     (tmp_path / "gl_eval" / "trace.json").unlink()
     ev.evaluate()
     assert not (tmp_path / "gl_eval" / "trace.json").exists()

@@ -381,8 +381,9 @@ def _state_tensors(state):
 def two_epochs(jdata, tmp_path_factory):
     """Two debug epochs of the port's loop (2 train steps and 1 validation
     step each, an expansion after each, cap0 256 below the scans' ~500
-    occupied voxels): the final state, the run's directory and model name,
-    its stdout, and each step's (global rows, train, kernel calls)."""
+    occupied voxels), the second captured under EGONN_TRACE_DIR: the final
+    state, the run's directory and model name, its stdout, each step's
+    (global rows, train, kernel calls) and the trace directory."""
     counts = []
     step_call = ttrainer.TrainStep.__call__
 
@@ -396,14 +397,18 @@ def two_epochs(jdata, tmp_path_factory):
         return out[0]
 
     weights = tmp_path_factory.mktemp("two_epochs")
+    traces = tmp_path_factory.mktemp("two_epochs_traces")
     stdout = io.StringIO()
     with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(stdout):
+        mp.setenv("EGONN_TRACE_DIR", str(traces))
+        mp.delenv("EGONN_TRACE_EPOCH", raising=False)
         mp.setattr(ttrainer.TrainStep, "__call__", counted)
         mp.setattr(torch.cuda, "synchronize", lambda *a: None)
         state, _, name = ttrainer.do_train(_params(TrainingParams, jdata, epochs=2), debug=True,
                                            weights_path=str(weights), log_fn=lambda m: None,
                                            dataset_type="synthetic", device="cpu")
-    return dict(state=state, run=weights / name, out=stdout.getvalue(), counts=counts)
+    return dict(state=state, run=weights / name, out=stdout.getvalue(), counts=counts,
+                traces=traces)
 
 
 def test_resume_matches_uninterrupted(jdata, two_epochs, tmp_path):
@@ -476,6 +481,19 @@ def test_do_train_on_mesh_of_two(jdata, tmp_path, capfd, monkeypatch):
     assert a.keys() == b.keys()
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+def test_do_train_capture_holds_the_step_spans(two_epochs):
+    """EGONN_TRACE_DIR captures the second epoch (EGONN_TRACE_EPOCH's
+    default) alone: each of its 2 train steps and 1 validation step is one
+    egonn.train_step span with its forwards, losses and, in training, its
+    backward and optimizer spans."""
+    assert sorted(p.name for p in two_epochs["traces"].iterdir()) == ["train_epoch2"]
+    events = json.loads((two_epochs["traces"] / "train_epoch2" / "trace.json").read_text())
+    names = [e["name"] for e in events["traceEvents"] if e.get("cat") == "user_annotation"]
+    assert names.count("egonn.train_step") == 3
+    assert names.count("egonn.step.forward") == 9 and names.count("egonn.step.loss") == 6
+    assert names.count("egonn.step.backward") == names.count("egonn.step.optimizer") == 2
 
 
 def test_capacity_audit_warns_within_one_epoch(two_epochs):
