@@ -30,24 +30,27 @@ Phases, each printing its lines:
    conv / dW call shape prints a line with its levels (L<in>->L<out>), rows,
    offsets and widths; a tdown line adds the fine rows its blocks stream
    (each coarse tile's hull) against the children, a zrun line the blocks
-   whose table slice overflowed shared memory (0 expected).  The largest
-   gather_conv call is re-run twice and must be bit-equal.
+   whose table slice overflowed shared memory (0 expected).  The stem
+   (stem_ones) is timed beside its plain form's GEMM alone as its library
+   call.  The largest gather_conv, tdown, zrun_rank and stem_ones calls are
+   re-run twice and must be bit-equal.
 3. slice: the same forward with every launch counter zeroed just before and
-   read just after (zrun_presence 1, zrun_rank 7, gather_conv 14, tdown 7
-   expected); output shapes, finiteness, capacity report.  Then 2 clouds on
-   the card and on the CPU with the same weights: from one shared
-   quantization every pyramid map must be bit-equal and the outputs within
-   the tolerances of tests/test_torch_model.py; from independent
+   read just after (zrun_presence 1, zrun_rank 7, gather_conv 14, tdown 7,
+   stem_ones 1 expected); output shapes, finiteness, capacity report.
+   Then 2 clouds on the card and on the CPU with the same weights: from one
+   shared quantization every pyramid map must be bit-equal and the outputs
+   within the tolerances of tests/test_torch_model.py; from independent
    quantizations the voxel mismatch rate (atan2 may differ by an ulp) is
    reported.  Last, clouds/s over 10 forwards on varied inputs (host clock;
    `python -m egonn_tpu_torch.profile_forward` splits a forward's device time).
 3b. bf16 forward: the same forward with EGONN_BF16_ACTS=1 (set by the
    phase alone, every other phase runs f32 activations): launches 1 / 7 /
-   14 / 7 (zrun_presence / zrun_rank / gather_conv_bf16 / tdown_bf16), no
-   f32 conv launch; every bf16 gather_conv and tdown call held against its
-   bf16 plain version (within one bf16 ulp, or 1e-6 x max |plain| near 0)
-   and timed as in phase 2 beside the split-TF32 kernel on the same call in
-   f32 and (gather_conv) the SM80 bf16 body on the same call, its bound at 2
+   14 / 7 / 1 (zrun_presence / zrun_rank / gather_conv_bf16 / tdown_bf16 /
+   stem_ones: the stem sums in f32 either way), no f32 conv launch; every
+   bf16 gather_conv and tdown call held against its bf16 plain version
+   (within one bf16 ulp, or 1e-6 x max |plain| near 0) and timed as in
+   phase 2 beside the split-TF32 kernel on the same call in f32 and
+   (gather_conv) the SM80 bf16 body on the same call, its bound at 2
    bytes a feature element or one bf16 MMA per product at 989 TFLOP/s; the
    launches by body (`kernels.conv_body` picks the Hopper or the SM80 one per
    call: the Hopper body must launch); the largest call of each re-run and
@@ -161,7 +164,7 @@ Phases, each printing its lines:
    written into build/eval_synth by the port's generator; EgoNN from
    model_configs/egonn.txt (cap0 16384), seeded weights with seeded
    BatchNorm statistics.  GLEvaluator (n_k 128 and 256, 1,024 hypotheses):
-   launches of the whole evaluation (each embedding batch 1/7/14/7, plus the
+   launches of the whole evaluation (each embedding batch 1/7/14/7/1, plus the
    capacity check's pyramid), the recall at 5 and 20 m, the 6DoF metrics,
    t_ransac; one embedding batch's launches and every kernel call of it
    against its plain version and timed (the `eval` path); embedding
@@ -288,7 +291,8 @@ INT32_OPS_PER_S = 33.5e12   # 64 INT32 lanes per SM against 128 FP32 lanes
 B, N_POINTS, CAP0, SEED = 8, 65536, 16384, 0
 EXPECTED_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 14, "tdown": 7,
                      "gather_dw": 0, "lookup": 0,
-                     "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0}
+                     "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
+                     "stem_ones": 1}
 # Kernel launches of one training step: three train-mode forwards (global,
 # anchor, positive), each 1 zrun_presence + 7 zrun_rank (the pyramid), 7 down
 # convs + 14 self convs through gather_conv; then one backward, which reaches
@@ -300,28 +304,35 @@ EXPECTED_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 14, "tdo
 # backward runs levels 1-4 (8 self-conv dX, 4 + 8 dW) and one transposed
 # conv.  gather_conv 3 x 21 + 14 + 2 + 2 x (8 + 1) = 97; gather_dw
 # 21 + 2 x 12 = 45.  The down convs' dX is the transposed conv in torch.
+# Every forward runs the stem once: stem_ones 3 (its dW is a torch.mm).
 TRAIN_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 97, "tdown": 0,
                        "gather_dw": 45, "lookup": 0,
-                       "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0}
-# The validation step: three eval forwards (7 tdown, 14 gather_conv each).
+                       "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
+                       "stem_ones": 3}
+# The validation step: three eval forwards (7 tdown, 14 gather_conv, the stem
+# each).
 VAL_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 42, "tdown": 21,
                      "gather_dw": 0, "lookup": 0,
-                     "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0}
+                     "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
+                     "stem_ones": 3}
 # Phase 6a: the EgoNN pyramid without up maps, kmap_down looked up at L1-L7
 # in one launch of the lookup kernel.
 LOOKUP_MAPS_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 0, "tdown": 0,
                         "gather_dw": 0, "lookup": 1,
-                        "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0}
+                        "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
+                        "stem_ones": 0}
 # Phase 6b: one MinkLoc forward: the stem map, 3 self maps, 2 convs in each
 # of 3 blocks; the factory pyramid runs the 3 down convs from the up maps,
 # the one with level 2's up map alone looks up L1 and L2's down maps (one
 # lookup launch) and runs those down convs as gathers.
 MINKLOC_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 3, "gather_conv": 6, "tdown": 3,
                     "gather_dw": 0, "lookup": 0,
-                    "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0}
+                    "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
+                    "stem_ones": 1}
 MINKLOC_LOOKUP_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 3, "gather_conv": 8, "tdown": 1,
                            "gather_dw": 0, "lookup": 1,
-                           "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0}
+                           "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
+                           "stem_ones": 1}
 MINKLOC_CAP0 = 40960
 MINKLOC_ROUNDS = 20  # throughput turns of each MinkLoc pyramid
 # Phase 8: ResNet14 at torchvision widths over MinkLoc's quantizer and
@@ -333,22 +344,25 @@ RESNET_CAPACITIES = (40960, 20480, 10240, 5120, 2560)
 RESNET_PLANES, RESNET_INIT_DIM = (64, 128, 256, 512), 64
 RESNET_LAUNCHES = {"zrun_presence": 0, "zrun_rank": 5, "gather_conv": 13, "tdown": 0,
                    "gather_dw": 0, "lookup": 1,
-                   "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0}
+                   "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
+                   "stem_ones": 0}
 # Phase 3b: the forward of phases 2-3 with EGONN_BF16_ACTS=1: the same maps,
-# the 21 convs on the bf16 kernels
+# the 21 convs on the bf16 kernels (the stem sums and returns f32, then casts)
 BF16_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 0, "tdown": 0,
                  "gather_dw": 0, "lookup": 0, "gather_conv_bf16": 14, "tdown_bf16": 7,
-                 "gather_dw_bf16": 0}
+                 "gather_dw_bf16": 0, "stem_ones": 1}
 # Phase 5b: the train and validation steps of phases 4-5 with
 # EGONN_BF16_ACTS=1: TRAIN_STEP_LAUNCHES and VAL_STEP_LAUNCHES with every
 # conv, dX and dW on the bf16 kernels (the activations and their cotangents
 # are bf16 from the stem on)
 BF16_TRAIN_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 0, "tdown": 0,
                             "gather_dw": 0, "lookup": 0, "gather_conv_bf16": 97,
-                            "tdown_bf16": 0, "gather_dw_bf16": 45}
+                            "tdown_bf16": 0, "gather_dw_bf16": 45,
+                            "stem_ones": 3}
 BF16_VAL_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 0, "tdown": 0,
                           "gather_dw": 0, "lookup": 0, "gather_conv_bf16": 42,
-                          "tdown_bf16": 21, "gather_dw_bf16": 0}
+                          "tdown_bf16": 21, "gather_dw_bf16": 0,
+                          "stem_ones": 3}
 # card vs CPU bf16 forward, of each output's max |CPU| (tests/test_banded.py's
 # bf16 rule): roundings to bf16 at other places flip single activations by an ulp
 BF16_REL_TOL = 3e-2
@@ -386,6 +400,8 @@ REPLACES = {
     "tdown": ("egonn_tpu_torch/csrc/tdown.cu", "egonn_tpu/sparse/banded.py:506"),
     "gather_dw": ("egonn_tpu_torch/csrc/gather_dw.cu", "egonn_tpu/sparse/banded.py:688"),
     "lookup": ("egonn_tpu_torch/csrc/lookup.cu", "egonn_tpu/sparse/banded.py:808"),
+    # no Pallas kernel: the JAX package's stem is a jnp product
+    "stem_ones": ("egonn_tpu_torch/csrc/stem.cu", "none (egonn_tpu/sparse/conv.py, jnp)"),
 }
 # Phase 7: synthetic ResNet-width calls (name, K, F_in, F_out); the last
 # six at widths the kernels take only through the wrappers' width plan
@@ -420,7 +436,7 @@ LOOP_DATA, LOOP_DIR = OUT_DIR / "train_synth", OUT_DIR / "train_loop"
 LOOP_SCANS, LOOP_EPOCHS, LOOP_SAVE_FREQ = 192, 10, 5
 LOOP_BUCKET = 128  # config_egonn.txt's batch_size_limit: the largest bucket
 # the kernels a loop step launches (lookup builds no EgoNN map)
-LOOP_KERNELS = ("zrun_presence", "zrun_rank", "gather_conv", "tdown", "gather_dw")
+LOOP_KERNELS = ("zrun_presence", "zrun_rank", "gather_conv", "tdown", "gather_dw", "stem_ones")
 # Phase 11: data parallel over DP_WORLD ranks sharing the card (gloo); each
 # rank times DP_TIMED_STEPS train steps; do_train on the mesh for DP_EPOCHS
 # epochs against one process at DP_LR (see phase_data_parallel)
@@ -544,6 +560,10 @@ def work(name: str, args: tuple, kwargs: dict, out) -> tuple:
         nbytes = sum(_nbytes(keys[l], keys[l - 1], pos) for l, pos in zip(levels, out))
         return (nbytes, _lookup_ops([keys[l - 1] for l in levels], _down_queries(args)),
                 INT32_OPS_PER_S)
+    if name == "stem_ones":  # one f32 addition per valid entry and feature
+        kmap, t, n_in = args[:3]
+        ops = int((kmap < n_in).sum()) * t.shape[2]
+        return _nbytes(kmap, t, out), ops, F32_OPS_PER_S / 2
     # bf16 features: 2 bytes a feature (and g) element, bf16 tensor-core rate
     rate = BF16_OPS_PER_S if args[0].dtype == torch.bfloat16 else F32_OPS_PER_S
     if name == "gather_dw":
@@ -572,11 +592,13 @@ def plain_call(name: str, kernels):
         "gather_dw": kernels.gather_dw_plain,
         "lookup": kernels.lookup_plain,
         "lookup_down": kernels.lookup_down_plain,
+        "stem_ones": kernels.stem_ones_plain,
     }[name]
 
 
 def library_call(name: str, args: tuple):
-    """One PyTorch call computing the same function, where there is one."""
+    """One PyTorch call computing the same function, where there is one
+    (the stem's: its GEMM alone, on the 0/1 matrix built beforehand)."""
     if name in ("zrun_rank", "lookup"):
         keys, q = args[:2]
         q = q.reshape(keys.shape[0], -1)
@@ -586,6 +608,10 @@ def library_call(name: str, args: tuple):
         pairs = [(keys[l - 1], q.reshape(q.shape[0], -1))
                  for l, q in zip(levels, _down_queries(args))]
         return lambda: [torch.searchsorted(t, q, out_int32=True) for t, q in pairs]
+    if name == "stem_ones":  # the plain form's GEMM on its built 0/1 matrix
+        kmap, kernel, n_in = args[:3]
+        valid = (kmap < n_in).to(torch.float32)
+        return lambda: torch.matmul(valid.transpose(1, 2), kernel[:, 0, :])
     return None
 
 
@@ -784,6 +810,10 @@ def call_desc(name: str, args: tuple) -> str:
         feats, _, _, kernel, c_out = args
         return (f"B {feats.shape[0]} C {feats.shape[1]}->{c_out} K 8 "
                 f"F {kernel.shape[1]}->{kernel.shape[2]}")
+    if name == "stem_ones":  # (kmap, kernel, n_in_rows)
+        kmap, kernel, n_in = args
+        return (f"B {kmap.shape[0]} C {kmap.shape[2]} K {kmap.shape[1]} F 1->{kernel.shape[2]} "
+                f"valid {float((kmap < n_in).float().mean()):.3f}")
     feats, kmap = args[0], args[1]
     f_out = args[2].shape[2]
     return (f"B {feats.shape[0]} C {feats.shape[1]}->{kmap.shape[2]} K {kmap.shape[1]} "
@@ -964,7 +994,7 @@ def phase_kernels(built, kernels, inference, cycles_per_ms):
     measure_calls(rows, calls, kernels, cycles_per_ms, reps=20, tag="kernels",
                   levels=level_of(built.pyramid_spec.capacities))
     return rows, [check_repeat(kernels, calls, name, "kernels")
-                  for name in ("gather_conv", "tdown", "zrun_rank")]
+                  for name in ("gather_conv", "tdown", "zrun_rank", "stem_ones")]
 
 
 def _wide_call(gen, name, k_vol, f_in, f_out, device):

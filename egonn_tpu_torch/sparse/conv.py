@@ -5,8 +5,10 @@
   has no gradient: training goes through the three functions below.
 * `sparse_tdown`: the k=2 s=2 down conv in transposed form, driven by the
   fine level's up map (`kernels.tdown`), so inference never builds kmap_down.
-* `sparse_conv_ones`, `sparse_conv1x1`, `sparse_tconv2x2`: plain products
-  (the JAX package leaves them to XLA), written with torch matmuls.
+* `sparse_conv_ones`: the stem over constant-ones features
+  (`kernels.stem_ones`).
+* `sparse_conv1x1`, `sparse_tconv2x2`: plain products (the JAX package
+  leaves them to XLA), written with torch matmuls.
 
 Activations may be bf16 (`activation_dtype`, `EGONN_BF16_ACTS=1` on a CUDA
 device, as the JAX package's on a TPU): every conv returns its features'
@@ -190,13 +192,34 @@ def sparse_tdown(feats: torch.Tensor, up_parent: torch.Tensor, up_koffset: torch
     return kernels.tdown(feats, up_parent, up_koffset, kernel, c_coarse, epi=epi)
 
 
+class _StemOnes(torch.autograd.Function):
+    """The stem in f32, saving only the map: its gradient is dW alone (the
+    features are constant), the one torch.mm that autograd runs through the
+    plain form's product, on the 0/1 matrix rebuilt from the map."""
+
+    @staticmethod
+    def forward(ctx, kmap, kernel, n_in_rows):
+        ctx.save_for_backward(kmap)
+        ctx.n_in_rows = n_in_rows
+        return kernels.stem_ones(kmap, kernel, n_in_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        d_kernel = None
+        if ctx.needs_input_grad[1]:
+            (kmap,) = ctx.saved_tensors
+            k_vol = kmap.shape[1]
+            valid = (kmap < ctx.n_in_rows).to(g.dtype).transpose(1, 2).reshape(-1, k_vol)
+            d_kernel = torch.mm(valid.t(), g.reshape(-1, g.shape[-1]))[:, None, :]
+        return None, d_kernel, None
+
+
 def sparse_conv_ones(kmap: torch.Tensor, kernel: torch.Tensor, n_in_rows: int,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Stem conv over constant-ones 1-channel features:
-    out[b, c] = sum_k [kmap[b, k, c] valid] * kernel[k, 0, :], summed in
-    the kernel's type and returned in `dtype`."""
-    valid = (kmap < n_in_rows).to(kernel.dtype)  # (B, K, C_out)
-    return torch.matmul(valid.transpose(1, 2), kernel[:, 0, :]).to(dtype)
+    out[b, c] = sum_k [kmap[b, k, c] valid] * kernel[k, 0, :], summed in f32
+    (`kernels.stem_ones`) and returned in `dtype`."""
+    return _StemOnes.apply(kmap, kernel, n_in_rows).to(dtype)
 
 
 def sparse_conv1x1(feats: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:

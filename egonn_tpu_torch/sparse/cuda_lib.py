@@ -26,7 +26,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "egonn_tpu_torch"
-SOURCES = ("zrun.cu", "gather_conv.cu", "tdown.cu", "gather_dw.cu", "lookup.cu")
+SOURCES = ("zrun.cu", "gather_conv.cu", "tdown.cu", "gather_dw.cu", "lookup.cu", "stem.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -53,6 +53,9 @@ SIGNATURES = {
     },
     "lookup.cu": {  # host arrays of per-level pointers and sizes, then scalars
         "egonn_lookup": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    },
+    "stem.cu": {
+        "egonn_stem_ones": [_P, _P, _P] + [_I] * 6 + [_P],
     },
 }
 

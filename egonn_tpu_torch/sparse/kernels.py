@@ -1,5 +1,5 @@
-"""The port's six hand-written CUDA kernels, each with its plain PyTorch
-version and a launch counter.
+"""The port's hand-written CUDA kernels, each with its plain PyTorch version
+and a launch counter.
 
 | here            | CUDA source             | replaces (egonn_tpu/sparse/banded.py)          |
 |-----------------|-------------------------|------------------------------------------------|
@@ -9,12 +9,16 @@ version and a launch counter.
 | `tdown`         | `csrc/tdown.cu`         | `_pallas_banded_tdown` / `banded_tdown_pallas` |
 | `gather_dw`     | `csrc/gather_dw.cu`     | `_pallas_banded_dw` / `banded_conv_dw`         |
 | `lookup`        | `csrc/lookup.cu`        | `_pallas_banded_lookup` / `banded_lookup`      |
+| `stem_ones`     | `csrc/stem.cu`          | none: jnp in `egonn_tpu/sparse/conv.py`        |
 
 `gather_conv` runs every sparse conv: the eval forward, and in training the
 self and down convs' forwards and the dX backwards (`sparse/conv.py`);
 `gather_dw` is the weight gradient of the self and down convs; `lookup`
 builds the down maps of levels whose finer level records no up map
-(`sparse/pyramid.py`).
+(`sparse/pyramid.py`).  `stem_ones` is the stem conv over constant-ones
+features (each output row the sum of the kernel rows of the offsets whose
+neighbour exists): one pass over the level-0 map, where the plain version
+builds a 0/1 f32 matrix of the map and multiplies it.
 
 The TPU kernels work on band windows of the key-sorted tables and drop what
 falls outside a window; these kernels index directly, so they are exact on
@@ -125,7 +129,8 @@ _SPLIT_BLOCKS, _SPLIT_STAGES = 1280, 24
 _BF16_SPLIT_BLOCKS, _SM90_SPLIT_BLOCKS = 512, 2 * 132
 # kernel launches per wrapper (CUDA tensors only; the plain versions do not count)
 LAUNCHES = {"zrun_presence": 0, "zrun_rank": 0, "gather_conv": 0, "tdown": 0, "gather_dw": 0,
-            "lookup": 0, "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0}
+            "lookup": 0, "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
+            "stem_ones": 0}
 # per CUDA device: zrun and lookup blocks whose table slice did not fit
 # (`zrun_overflow_blocks`, `lookup_overflow_blocks`)
 _ZRUN_OVERFLOW: dict = {}
@@ -964,7 +969,52 @@ def lookup_down(keys: Sequence[torch.Tensor], packs: Sequence[PackSpec],
     return outs
 
 
-KERNELS = (zrun_presence, zrun_rank, gather_conv, tdown, gather_dw, lookup)
+# ---------------------------------------------------------------------------
+# the stem over constant-ones features
+# ---------------------------------------------------------------------------
+
+# stem_ones: output columns of a block (one a thread)
+_STEM_THREADS, _STEM_MAX_K = 256, 343
+
+
+def stem_ones_plain(kmap: torch.Tensor, kernel: torch.Tensor, n_in_rows: int) -> torch.Tensor:
+    """Plain version of `stem_ones`: the 0/1 map of the entries below
+    n_in_rows, in the kernel's type, times kernel[:, 0, :] (the JAX
+    package's form)."""
+    valid = (kmap < n_in_rows).to(kernel.dtype)  # (B, K, C_out)
+    return torch.matmul(valid.transpose(1, 2), kernel[:, 0, :])
+
+
+def _stem_ones_cuda(kmap, kernel, n_in_rows, threads=_STEM_THREADS):
+    b, k_vol, c_out = kmap.shape
+    f_out = kernel.shape[2]
+    if not (1 <= k_vol <= _STEM_MAX_K and f_out >= 4 and f_out % 4 == 0):
+        raise ValueError(f"stem_ones: K={k_vol}, F_out={f_out}; the kernel takes "
+                         f"K <= {_STEM_MAX_K} and F_out a multiple of 4")
+    _check(kmap, "kmap", torch.int32, (b, k_vol, c_out))
+    _check(kernel, "kernel", torch.float32, (k_vol, 1, f_out), align16=True)
+    out = torch.empty((b, c_out, f_out), dtype=torch.float32, device=kmap.device)
+    fn = cuda_lib.function("stem.cu", "egonn_stem_ones")
+    _raise_on(fn(kmap.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, k_vol, c_out, f_out,
+                 n_in_rows, threads, _stream(kmap)), "stem_ones")
+    return out
+
+
+def stem_ones(kmap: torch.Tensor, kernel: torch.Tensor, n_in_rows: int) -> torch.Tensor:
+    """The stem conv over constant-ones features: out[b, c] = sum_k
+    [kmap[b, k, c] < n_in_rows] kernel[k, 0, :], summed in f32 over the
+    offsets in order.
+
+    kmap (B, K, C_out) int32, kernel (K, 1, F_out) f32; out (B, C_out, F_out)
+    f32.  On the card K <= 343 and F_out a multiple of 4."""
+    if not _on_cuda(kmap, kernel):
+        return stem_ones_plain(kmap, kernel, n_in_rows)
+    out = _stem_ones_cuda(kmap, kernel, n_in_rows)
+    LAUNCHES["stem_ones"] += 1
+    return out
+
+
+KERNELS = (zrun_presence, zrun_rank, gather_conv, tdown, gather_dw, lookup, stem_ones)
 
 
 def reset_launches() -> None:

@@ -23,6 +23,11 @@ the rules in `egonn_tpu_torch/sparse/kernels.py` that choose them:
   (every tiling fits the bf16 bodies, `tdown_tiling_ok`);
 - zrun_presence / zrun_rank: the queries of a block (256, 512, 1024,
   `zrun_chunk`);
+- stem_ones: the columns of a block (128, 256, 512, `_STEM_THREADS`); on
+  the forward's, MinkLoc's and the train step's calls and at the embed
+  cells' shapes (the 8 clouds' level-0 maps repeated to 128 EgoNN and 64
+  MinkLoc3D clouds), beside its plain form, that form's GEMM alone and its
+  bytes bound;
 - lookup (the grouped down-map launch, `lookup_down`): the coarse rows of a
   block's tile (32, 64, 128, 256, `lookup_rows`) by the table rows its
   shared-memory slice holds (1,024 to 8,192, `_LOOKUP_SLICE`), with the
@@ -183,6 +188,10 @@ def _lookup_setting(kernels, args, rows: int, cap: int):
 
 def _settings(name, args, kwargs, kernels, cuda_lib):
     """(description, the rule's setting, every setting, setting -> run)."""
+    if name == "stem_ones":
+        kmap, kernel, n_in = args
+        return (chip_smoke.call_desc(name, args), kernels._STEM_THREADS, [128, 256, 512],
+                lambda s: lambda: kernels._stem_ones_cuda(kmap, kernel, n_in, s))
     if name == "lookup_down":
         settings = list(itertools.product((32, 64, 128, 256), (1024, 2048, 4096, 8192)))
         return (chip_smoke.call_desc(name, args), (kernels.lookup_rows(8), kernels._LOOKUP_SLICE),
@@ -270,6 +279,15 @@ def sweep(tag, name, args, kwargs, kernels, cuda_lib, cycles_per_ms) -> dict:
     hull = ""
     if overflow:
         hull = "; overflow blocks " + ", ".join(f"{s} {v}" for s, v in overflow.items() if v)
+    if name == "stem_ones":  # its plain form and that form's GEMM alone
+        nbytes, _, _ = chip_smoke.work(name, args, kwargs, want)
+        plain = chip_smoke.plain_call(name, kernels)
+        times["plain"] = chip_smoke.device_ms(lambda: plain(*args), cycles_per_ms, reps=10)
+        times["library"] = chip_smoke.device_ms(chip_smoke.library_call(name, args),
+                                                cycles_per_ms, reps=10)
+        times["bound"] = nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3
+        hull = (f"; plain {times['plain']:.4f}, its GEMM alone {times['library']:.4f}, bytes "
+                f"bound {times['bound']:.4f}")
     if name == "tdown":  # its first launch alone, at each tile height
         hull_ms = {r: chip_smoke.device_ms(
             lambda r=r: kernels._tdown_hulls_cuda(args[1], args[4], r), cycles_per_ms, reps=10)
@@ -374,10 +392,11 @@ def main() -> int:
         for tag, calls in paths.items():
             for name, args, kwargs, _ in calls:
                 # the validation step's tdown calls, the bf16 train step's conv and
-                # dW calls
+                # dW calls (the stem is f32 on every path: swept on the f32 ones)
                 if (name == "lookup" or (tag == "val" and name != "tdown")
                         or (tag in ("bf16_train", "bf16_minkloc", "bf16_wide")
-                            and name not in ("gather_conv", "gather_dw"))):
+                            and name not in ("gather_conv", "gather_dw"))
+                        or (tag == "bf16_forward" and name == "stem_ones")):
                     continue
                 shapes = chip_smoke._shape(args)
                 key = (tag, name, str(shapes), kwargs.get("epi") is not None)
@@ -428,6 +447,13 @@ def _f32_paths(paths, built, clouds, mask, device, train, mink) -> list:
     paths["val"] = chip_smoke.record_calls(kernels, lambda: step(g, l, None, lr, False))
     paths["minkloc"] = chip_smoke.record_calls(
         kernels, lambda: inference.forward(mink, clouds, mask))
+    # the stem at the embed cells' shapes: the 8 clouds' level-0 maps repeated
+    # to 128 (EgoNN) and 64 (MinkLoc3D) clouds
+    paths["stem_cells"] = []
+    for tag, reps in (("forward", 16), ("minkloc", 8)):
+        _, (kmap, kernel, n_in), _, _ = next(c for c in paths[tag] if c[0] == "stem_ones")
+        paths["stem_cells"].append(("stem_ones", (kmap.repeat(reps, 1, 1), kernel, n_in), {},
+                                    None))
     rng = np.random.default_rng(chip_smoke.SEED)
     paths["wide"] = [(name, chip_smoke._wide_call(rng, name, k_vol, f_in, f_out, device), {},
                       None) for name, k_vol, f_in, f_out in chip_smoke.WIDE_CALLS
