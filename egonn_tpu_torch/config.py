@@ -6,7 +6,21 @@ Quirks kept from the reference (misc/utils.py): `trans_max` falls back to
 the `rot_max` key; the scheduler defaults to MultiStepLR; `l_gammas` becomes
 `loss_gammas`; a `mink_quantization_size` key means cartesian coordinates.
 The optional [TPU] section carries the point budget and the level-0
-capacity.
+capacity, and for MinkLoc optionally a per-level capacity table
+(`capacities`, one entry per level 0..len(planes)), which replaces the
+cap0 >> l rule.
+
+MinkLoc3Dv2's training keys (Komorowski, ICPR 2022): `batch_split_size`
+(multistaged backpropagation in chunks of that many clouds,
+`train/trainer.py::StagedTrainStep`), `set_aug_mode` (the batch's
+TrainSetTransform: the port's follows aug_mode, so only that value is
+taken), and with `loss = TruncatedSmoothAP`
+`tau1`, `positives_per_query` and `similarity` (cosine | euclidean).  The
+augmentation's amplitudes follow `dataset` (`data/augmentation.py::amplitudes`:
+Oxford's submaps are normalized).  The JAX package knows
+none of these keys: each becomes an attribute only when the file gives it
+(read with getattr and a default), so a file without them parses to the
+JAX package's fields.
 """
 from __future__ import annotations
 
@@ -66,11 +80,20 @@ class ModelParams:
             self.conv0_kernel_size = params.getint("conv0_kernel_size", 5)
             self.block = params.get("block", "BasicBlock")
             self.pooling = params.get("pooling", "GeM")
+            if params.getboolean("normalize_embeddings", False):
+                raise NotImplementedError("normalize_embeddings = True is not ported")
 
         tpu = config["TPU"] if config.has_section("TPU") else {}
         self.num_points = int(tpu.get("num_points", 65536))  # padded raw points per cloud
         self.num_points_explicit = "num_points" in tpu
         self.cap0 = int(tpu.get("cap0", 16384))              # level-0 voxel capacity
+        if "capacities" in tpu:
+            if not hasattr(self, "planes"):
+                raise ValueError("a capacity table is read for MinkLoc models only")
+            self.capacities = [int(e) for e in tpu["capacities"].split(",")]
+            if len(self.capacities) != len(self.planes) + 1 or min(self.capacities) <= 0:
+                raise ValueError(f"capacities needs {len(self.planes) + 1} positive entries "
+                                 f"(levels 0..{len(self.planes)})")
 
     def print(self):
         print("Model parameters:")
@@ -111,6 +134,10 @@ class TrainingParams:
         self.num_workers = params.getint("num_workers", 4)
         self.batch_size = params.getint("batch_size", 64)
         self.local_batch_size = params.getint("local_batch_size", 2)
+        if "batch_split_size" in params:
+            self.batch_split_size = params.getint("batch_split_size")
+            if self.batch_split_size <= 0:
+                raise ValueError("batch_split_size must be positive")
 
         self.batch_expansion_th = params.getfloat("batch_expansion_th", None)
         if self.batch_expansion_th is not None:
@@ -154,10 +181,20 @@ class TrainingParams:
             self.neg_margin = params.getfloat("neg_margin", 0.65)
         elif "Triplet" in self.loss:
             self.margin = params.getfloat("margin", 0.4)
+        elif self.loss == "TruncatedSmoothAP":
+            self.tau1 = params.getfloat("tau1", 0.01)
+            self.positives_per_query = params.getint("positives_per_query", 4)
+            self.similarity = params.get("similarity", "euclidean")
+            if self.similarity not in ("cosine", "euclidean"):
+                raise NotImplementedError(f"Unsupported similarity: {self.similarity}")
+            if not self.tau1 > 0.0 or self.positives_per_query <= 0:
+                raise ValueError("tau1 and positives_per_query must be positive")
         else:
             raise NotImplementedError(f"Unsupported loss function: {self.loss}")
 
         self.aug_mode = params.getint("aug_mode", 1)
+        if params.getint("set_aug_mode", self.aug_mode) != self.aug_mode:
+            raise NotImplementedError("a set_aug_mode other than aug_mode is not ported")
         # data-parallel ranks of do_train (parallel/mesh.py::resolve_mesh)
         self.mesh = params.get("mesh", "auto")
 

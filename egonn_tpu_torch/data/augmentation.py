@@ -4,6 +4,10 @@ batched over a leading cloud dimension.
 * TrainTransform, per cloud: jitter (sigma 0.1, clip 0.2) -> remove random
   points (r ~ U(0, 0.1)) -> random translation (0.3 * N(0, 1)) -> (aug_mode 2
   only) random z-rotation (up to 180 deg) -> remove a random block (p 0.4).
+  The jitter and translation amplitudes are those of metric LiDAR scans;
+  submaps normalized to [-1, 1] (Oxford RobotCar's, as MinkLoc3D and
+  MinkLoc3Dv2 train on them) take sigma 0.001, clip 0.002 and 0.01 * N(0, 1)
+  (`amplitudes`, chosen by the dataset).
 * TrainSetTransform, one draw for the whole batch: aug_mode 1 a z-rotation
   (up to 5 deg) then a random axis flip (p = .25, .25, 0); aug_mode 2 the
   flip only.
@@ -19,12 +23,19 @@ the apply functions.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 Draws = Dict[str, torch.Tensor]
+
+
+def amplitudes(dataset: Optional[str] = None) -> tuple:
+    """TrainTransform's (jitter sigma, jitter clip, translation) for the
+    clouds of `dataset`: Oxford's submaps are normalized to [-1, 1], every
+    other dataset's scans are metric."""
+    return (0.001, 0.002, 0.01) if dataset == "oxford" else (0.1, 0.2, 0.3)
 
 
 # ---------------------------------------------------------------------------
@@ -98,15 +109,16 @@ def random_flip(pc: torch.Tensor, r: torch.Tensor, p=(0.25, 0.25, 0.0)) -> torch
     return pc * torch.stack([sign_x, sign_y, sign_z])
 
 
-def train_transform(pc: torch.Tensor, mask: torch.Tensor, draws: Draws, aug_mode: int = 2
-                    ) -> torch.Tensor:
+def train_transform(pc: torch.Tensor, mask: torch.Tensor, draws: Draws, aug_mode: int = 2,
+                    dataset: Optional[str] = None) -> torch.Tensor:
     """TrainTransform of each cloud of pc (B, N, 3) with its draws
-    (`draw_train_transform`)."""
+    (`draw_train_transform`), at the amplitudes of `dataset`'s clouds."""
     if aug_mode not in (1, 2):
         raise NotImplementedError(f"Unknown aug_mode: {aug_mode}")
-    pc = jitter_points(pc, draws["noise"])
+    sigma, clip, delta = amplitudes(dataset)
+    pc = jitter_points(pc, draws["noise"], sigma, clip)
     pc = remove_random_points(pc, draws["remove_r"], draws["remove_u"])
-    pc = random_translation(pc, draws["translation"])
+    pc = random_translation(pc, draws["translation"], delta)
     if aug_mode == 2:
         pc = random_rotation_z(pc, draws["rotation_u"], 180.0)
     return remove_random_block(pc, mask, draws["block_area"], draws["block_aspect"],

@@ -131,7 +131,8 @@ class TrainingDataset:
 
 
 def get_pointcloud_loader(dataset_type: str) -> Callable[[str], np.ndarray]:
-    """The loader of a dataset type: mulran, southbay, kitti or synthetic."""
+    """The loader of a dataset type: mulran, southbay, kitti, oxford or
+    synthetic."""
     t = dataset_type.lower()
     if t == "mulran":
         from egonn_tpu_torch.data.mulran import MulranPointCloudLoader
@@ -145,6 +146,10 @@ def get_pointcloud_loader(dataset_type: str) -> Callable[[str], np.ndarray]:
         from egonn_tpu_torch.data.kitti import KittiPointCloudLoader
 
         return KittiPointCloudLoader()
+    if t == "oxford":
+        from egonn_tpu_torch.data.oxford import OxfordPointCloudLoader
+
+        return OxfordPointCloudLoader()
     if t == "synthetic":
         from egonn_tpu_torch.data.synthetic import SyntheticPointCloudLoader
 

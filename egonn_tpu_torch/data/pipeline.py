@@ -71,8 +71,10 @@ def pad_cloud_drop_stats() -> dict:
 
 def default_num_points(dataset_type: str) -> int:
     """Points per cloud: KITTI's velodyne scans hold ~120-130k points before
-    ground and zero removal; MulRan and SouthBay fit in 65,536."""
-    return 131072 if dataset_type.lower() == "kitti" else 65536
+    ground and zero removal; MulRan and SouthBay fit in 65,536; Oxford's
+    submaps hold 4,096."""
+    t = dataset_type.lower()
+    return 131072 if t == "kitti" else 4096 if t == "oxford" else 65536
 
 
 def resolve_num_points(model_params, dataset_type: str) -> int:
@@ -200,6 +202,27 @@ class Prefetcher:
         self._thread.join()
 
 
+def augment_global(clouds: torch.Tensor, point_mask: torch.Tensor, gen: torch.Generator,
+                   aug_mode: int = 2, group=None, dataset: Optional[str] = None
+                   ) -> torch.Tensor:
+    """The global batch's training augmentation: each cloud's TrainTransform
+    (aug_mode, at the amplitudes of `dataset`'s clouds), then one TrainSetTransform
+    for the batch.  With a data-parallel
+    `group` the clouds are this rank's rows of the global batch: the draws
+    are those of the whole global batch (from the generator every rank
+    shares) and the rank takes its rows, so each cloud is augmented as in a
+    single process."""
+    with span("egonn.augment"):
+        b, n, _ = clouds.shape
+        b_global = b * world_size(group)
+        draws = draw_train_transform(gen, b_global, n, aug_mode)
+        if b_global != b:
+            rows = row_slice(b_global, group)
+            draws = {k: v[rows] for k, v in draws.items()}
+        clouds = train_transform(clouds, point_mask, draws, aug_mode, dataset)
+        return train_set_transform(clouds, draw_train_set_transform(gen, aug_mode), aug_mode)
+
+
 def device_preprocess_global(clouds: torch.Tensor, point_mask: torch.Tensor, quantizer,
                              spec: PyramidSpec, gen: Optional[torch.Generator] = None,
                              aug_mode: int = 2, with_kmap_down: bool = False,
@@ -207,23 +230,10 @@ def device_preprocess_global(clouds: torch.Tensor, point_mask: torch.Tensor, qua
     """(augment ->) quantize -> dedup -> pyramid, on the clouds' device.
 
     clouds (B, N, 3), point_mask (B, N).  With a generator the clouds are
-    augmented first: each cloud's TrainTransform, then one TrainSetTransform
-    for the batch.  With a data-parallel `group` the clouds are this rank's
-    rows of the global batch: the draws are those of the whole global batch
-    (from the generator every rank shares) and the rank takes its rows, so
-    each cloud is augmented as in a single process.  with_kmap_down builds
-    the maps a training forward needs."""
+    augmented first (`augment_global`).  with_kmap_down builds the maps a
+    training forward needs."""
     if gen is not None:
-        with span("egonn.augment"):
-            b, n, _ = clouds.shape
-            b_global = b * world_size(group)
-            draws = draw_train_transform(gen, b_global, n, aug_mode)
-            if b_global != b:
-                rows = row_slice(b_global, group)
-                draws = {k: v[rows] for k, v in draws.items()}
-            clouds = train_transform(clouds, point_mask, draws, aug_mode)
-            clouds = train_set_transform(clouds, draw_train_set_transform(gen, aug_mode),
-                                         aug_mode)
+        clouds = augment_global(clouds, point_mask, gen, aug_mode, group)
     res = quantizer.quantize(clouds, point_mask, spec.capacities[0], need_index=False)
     return build_pyramid(res.coords_t, res.mask, spec, n_unique0=res.n_unique, keys0=res.keys,
                          with_kmap_down=with_kmap_down)

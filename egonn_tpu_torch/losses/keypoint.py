@@ -17,6 +17,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from egonn_tpu_torch.losses.smoothap import truncated_smooth_ap
 from egonn_tpu_torch.losses.triplet import (
     batch_hard_contrastive_loss,
     batch_hard_triplet_loss,
@@ -216,7 +217,11 @@ def keypoint_corr_loss(clouds1, clouds1_mask, kp1, sigma1, desc1, kp1_mask,
 
 
 def make_losses(params):
-    """(global_loss_fn, local_loss_fn) from TrainingParams."""
+    """(global_loss_fn, local_loss_fn) from TrainingParams; MinkLoc3Dv2's
+    TruncatedSmoothAP is a global loss alone (local_loss_fn None)."""
+    if params.loss == "TruncatedSmoothAP":
+        return partial(truncated_smooth_ap, tau1=params.tau1, k=params.positives_per_query,
+                       similarity=params.similarity), None
     if params.loss == "BatchHardTripletMarginLoss":
         gl_loss_fn = partial(batch_hard_triplet_loss, margin=params.margin)
     elif params.loss == "BatchHardContrastiveLoss":

@@ -8,6 +8,8 @@
 * `create_minkloc_model`: MinkLoc (global descriptor only) from the model
   parameters, or frozen as the published MinkLoc3D (planes 32/64/64, layers
   1/1/1, one top-down step, conv0 k=5, BasicBlock, GeM, 256-d).  Capacities
+  from the config's per-level table (`capacities`, e.g. MinkLoc3Dv2's
+  normalized submaps, where the finest levels barely merge), else
   max(256, cap0 >> min(l, 4)); every level records its up map.
 * `model_factory`: dispatch on the model name (`MinkLoc3D`, `MinkLoc*` /
   `MinkFPN*`, `egonn`).
@@ -74,7 +76,8 @@ def create_minkloc_model(model_params, cap0: Optional[int] = None,
     """model_params needs `.quantizer` and `.cap0`, and unless frozen the
     MinkLoc fields of a `config.ModelParams` (`planes`, `layers`,
     `num_top_down`, `conv0_kernel_size`, `block`, `pooling`, `feature_size`,
-    `output_dim`)."""
+    `output_dim`, optionally `capacities`: a table given there is used as is
+    and `cap0` is not read)."""
     if frozen_minkloc3d:
         planes, layers, num_top_down, conv0, block, pooling = (
             (32, 64, 64), (1, 1, 1), 1, 5, "BasicBlock", "GeM")
@@ -89,9 +92,16 @@ def create_minkloc_model(model_params, cap0: Optional[int] = None,
                     planes=planes, layers=layers, num_top_down=num_top_down,
                     conv0_kernel_size=conv0, gen=gen, block=block, pooling_method=pooling)
     num_levels = len(planes)
-    c0 = cap0 or model_params.cap0
+    table = None if frozen_minkloc3d else getattr(model_params, "capacities", None)
+    if table is not None:
+        if len(table) != num_levels + 1:
+            raise ValueError(f"capacities needs {num_levels + 1} entries, got {len(table)}")
+        capacities = tuple(int(c) for c in table)
+    else:
+        c0 = cap0 or model_params.cap0
+        capacities = tuple(max(256, c0 >> min(l, 4)) for l in range(num_levels + 1))
     spec = PyramidSpec(
-        capacities=tuple(max(256, c0 >> min(l, 4)) for l in range(num_levels + 1)),
+        capacities=capacities,
         conv0_kernel_size=conv0,
         block_kernel_size=3,
         self_levels=tuple(range(1, num_levels + 1)),

@@ -1,5 +1,5 @@
-"""Training (port of `egonn_tpu/train/trainer.py`): the EgoNN training step
-and `do_train`, the epoch loop around it.
+"""Training (port of `egonn_tpu/train/trainer.py`): the EgoNN training step,
+MinkLoc3Dv2's staged step, and `do_train`, the epoch loop around them.
 
 One step processes one global batch (batch-hard triplet loss on the global
 descriptors) and one local batch of cloud pairs (keypoint + correspondence
@@ -9,6 +9,12 @@ in order, global (augmented), anchor, positive, so the BatchNorm running
 statistics advance through all three as the JAX step threads them.  The
 validation form runs the same forwards in eval mode under no_grad, without
 augmentation, and changes nothing.
+
+`StagedTrainStep` trains a MinkLoc model as MinkLoc3Dv2 does (Komorowski,
+ICPR 2022): multistaged backpropagation of a global-only batch in chunks of
+`batch_split_size` clouds around a loss over the whole batch (Truncated
+Smooth AP).  `make_train_step` returns it for a MinkLoc model with
+`batch_split_size` set; `do_train` then reads global batches alone.
 
 `do_train` keeps the JAX loop's semantics: an epoch zips the sampler's
 global batches with the shuffled local batches (the shorter ends it),
@@ -44,6 +50,7 @@ calibrate.
 """
 from __future__ import annotations
 
+import itertools
 import os
 import time
 import traceback
@@ -58,6 +65,7 @@ from egonn_tpu_torch.data.local_dataset import Training6DOFDataset, make_local_b
 from egonn_tpu_torch.data.pipeline import (
     GlobalBatch,
     Prefetcher,
+    augment_global,
     device_preprocess_global,
     make_global_batch,
     resolve_num_points,
@@ -79,6 +87,7 @@ from egonn_tpu_torch.parallel.mesh import (
     world_size,
 )
 from egonn_tpu_torch.sparse.pyramid import capacity_report
+from egonn_tpu_torch.sparse.types import Pyramid
 from egonn_tpu_torch.train.state import (
     TrainState,
     load_checkpoint,
@@ -201,9 +210,119 @@ class TrainStep:
         return stats
 
 
-def make_train_step(built: BuiltModel, params, group=None) -> TrainStep:
+class StagedTrainStep:
+    """`step(g, None, gen, lr, train)` -> stats: MinkLoc3Dv2's multistaged
+    backpropagation (its training/trainer.py::multistaged_training_step).
+
+    g: {"clouds" (B, N, 3), "point_mask" (B, N), "positives_mask" (B, B),
+    "negatives_mask" (B, B)} on the model's device.  The batch's
+    augmentation is drawn once from gen (each cloud's TrainTransform, one
+    TrainSetTransform for the batch; None skips it), then:
+
+    1. embed every chunk of `batch_split_size` clouds, in order, in train
+       mode with gradients off (`egonn.step.embed`);
+    2. the loss over the whole batch and its gradient with respect to the
+       (B, D) embeddings (`egonn.step.loss`);
+    3. each chunk forward again with gradients on (`egonn.step.forward`)
+       and its slice of the embedding gradient backpropagated through it
+       (`egonn.step.backward`), the parameter gradients accumulating;
+
+    then one optimizer step (`egonn.step.optimizer`).  Both stages run the
+    same augmented clouds in the same chunks, so BatchNorm's batch
+    statistics, and the embeddings, are the same in both; the running
+    statistics advance in both, twice a chunk, as in the published step.
+    Stage 3 reuses each chunk's pyramid from stage 1 (it depends only on the
+    chunk's augmented coordinates): no map is built twice, for ~0.2-0.4 GB
+    of maps a 128-cloud chunk of 4,096-point submaps kept through the step.
+    The validation form runs stages 1-2 in eval mode under no_grad and
+    changes nothing.  Returns the loss's stats as detached 0-d tensors; the
+    step makes no host-blocking call.  `state` holds the model, the
+    optimizer and the epoch; `embeddings` the last call's stage-1
+    embeddings (B, D), detached.  No data-parallel form."""
+
+    def __init__(self, built: BuiltModel, params, group=None):
+        if world_size(group) > 1:
+            raise NotImplementedError("the staged step runs in one process")
+        self.built = built
+        self.split = params.batch_split_size
+        self.aug_mode = params.aug_mode
+        self.dataset = params.dataset
+        self.loss_fn, _ = make_losses(params)
+        self.state = TrainState(built.model, make_optimizer(built.model.parameters(), params))
+        self.embeddings: Optional[torch.Tensor] = None
+
+    def _embed(self, clouds: torch.Tensor, mask: torch.Tensor, train: bool) -> tuple:
+        """Stage 1: (the batch's embeddings (B, D), each chunk's pyramid
+        when training)."""
+        b = self.built
+        embeddings, pyramids = [], []
+        with torch.no_grad():
+            for at in range(0, clouds.shape[0], self.split):
+                rows = slice(at, at + self.split)
+                pyr = device_preprocess_global(clouds[rows], mask[rows], b.quantizer,
+                                               b.pyramid_spec, with_kmap_down=train)
+                embeddings.append(b.model(pyr, b.quantizer)["global"])
+                if train:
+                    pyramids.append(pyr)
+        return torch.cat(embeddings), pyramids
+
+    def _backprop(self, pyramids: List[Pyramid], grad: torch.Tensor) -> None:
+        """Stage 3: each chunk's forward again, and its slice of the
+        embedding gradient backpropagated."""
+        b, at = self.built, 0
+        for pyr in pyramids:
+            with tracing.span("egonn.step.forward"):
+                emb = b.model(pyr, b.quantizer)["global"]
+            with tracing.span("egonn.step.backward"):
+                emb.backward(gradient=grad[at:at + emb.shape[0]])
+            at += emb.shape[0]
+
+    def __call__(self, g: Dict, l: None, gen: Optional[torch.Generator], lr: float,
+                 train: bool) -> Dict[str, torch.Tensor]:
+        if l is not None:
+            raise ValueError("the staged step takes a global batch alone")
+        model, optimizer = self.state.model, self.state.optimizer
+        clouds, mask = g["clouds"], g["point_mask"]
+        if clouds.device != self.built.device:
+            raise ValueError(f"clouds on {clouds.device}, the model on {self.built.device}")
+        was_training = model.training
+        try:
+            with tracing.span("egonn.train_step"):
+                model.train(train)
+                with tracing.span("egonn.step.embed"):
+                    if train and gen is not None:
+                        clouds = augment_global(clouds, mask, gen, self.aug_mode,
+                                                dataset=self.dataset)
+                    embeddings, pyramids = self._embed(clouds, mask, train)
+                self.embeddings = embeddings.detach()
+                if not train:
+                    with tracing.span("egonn.step.loss"), torch.no_grad():
+                        return self.loss_fn(embeddings, g["positives_mask"],
+                                            g["negatives_mask"])[1]
+                set_lr(optimizer, lr)
+                with tracing.span("egonn.step.loss"):
+                    embeddings.requires_grad_(True)
+                    loss, stats = self.loss_fn(embeddings, g["positives_mask"],
+                                               g["negatives_mask"])
+                    grad, = torch.autograd.grad(loss, embeddings)
+                optimizer.zero_grad(set_to_none=True)
+                self._backprop(pyramids, grad)
+                with tracing.span("egonn.step.optimizer"):
+                    optimizer.step()
+        finally:
+            model.train(was_training)
+        return stats
+
+
+def make_train_step(built: BuiltModel, params, group=None):
     """The combined (global + local) train / validation step (on this
-    rank's rows, given a data-parallel group)."""
+    rank's rows, given a data-parallel group); for a MinkLoc model with
+    `batch_split_size` set, the staged global-only step."""
+    if built.model_type == "minkloc":
+        if getattr(params, "batch_split_size", None) is None:
+            raise NotImplementedError("a MinkLoc model trains through the staged step: "
+                                      "set batch_split_size")
+        return StagedTrainStep(built, params, group)
     return TrainStep(built, params, group)
 
 
@@ -220,6 +339,10 @@ def print_stats(stats: Dict[str, float], phase: str) -> None:
                   stats["min_pos_pair_dist"], stats["mean_pos_pair_dist"],
                   stats["max_pos_pair_dist"], stats["min_neg_pair_dist"],
                   stats["mean_neg_pair_dist"], stats["max_neg_pair_dist"]))
+    if "best_positive_ranking" in stats:
+        print(f"{phase} - Loss: {stats['loss']:.6f}   Positives per query: "
+              f"{stats['positives_per_query']:.1f}   Best positive ranking: "
+              f"{stats['best_positive_ranking']:.2f}   Recall@1: {stats['recall@1']:.3f}")
     if "local_loss" in stats:
         print(f"Local loss: {stats['local_loss']:.4f}   "
               f"loss chamfer: {stats['loss_chamfer']:.4f}   "
@@ -245,18 +368,28 @@ def _to_device(arrays: Dict[str, np.ndarray], device: torch.device) -> Dict[str,
 
 
 def capacity_audit(built: BuiltModel, g: GlobalBatch, aug_mode: int, epoch: int,
-                   group=None) -> dict:
+                   group=None, split: Optional[int] = None, dataset: Optional[str] = None
+                   ) -> dict:
     """The voxel-capacity report of one global batch's pyramid, augmented as
     in training (from a generator seeded (1, epoch)), with a warning where a
     level dropped voxels.  With a data-parallel group, g holds the rank's
-    rows and the report is the global batch's (the same on every rank)."""
+    rows and the report is the global batch's (the same on every rank);
+    with `split`, the pyramids are built a chunk of that many clouds at a
+    time, as the staged step builds them, and the report is their worst."""
     device = built.device
     clouds = _to_device({"c": g.clouds, "m": g.point_mask}, device)
     with torch.no_grad():
-        pyr = device_preprocess_global(clouds["c"], clouds["m"], built.quantizer,
-                                       built.pyramid_spec, gen=step_generator(device, 1, epoch),
-                                       aug_mode=aug_mode, group=group)
-        caps = capacity_report(pyr, built.pyramid_spec, group)
+        m = clouds["m"]
+        c = augment_global(clouds["c"], m, step_generator(device, 1, epoch), aug_mode, group,
+                           dataset)
+        chunk = split or c.shape[0]
+        caps = {}
+        for at in range(0, c.shape[0], chunk):
+            pyr = device_preprocess_global(c[at:at + chunk], m[at:at + chunk], built.quantizer,
+                                           built.pyramid_spec, group=group)
+            for k, (n, cap, _) in capacity_report(pyr, built.pyramid_spec, group).items():
+                n = max(n, caps.get(k, (0,))[0])
+                caps[k] = (n, cap, n <= cap)
     bad = {k: (n, c) for k, (n, c, ok) in caps.items() if not ok}
     if bad:
         detail = ", ".join(f"{k}: {n} > {c}" for k, (n, c) in sorted(bad.items()))
@@ -284,6 +417,10 @@ def do_train(params, debug: bool = False, weights_path: str = "weights", log_fn=
     training restores the model, the optimizer, the epoch and the
     sampler's batch size from its latest step and continues into that
     directory.  debug: 2 steps per phase.
+
+    A MinkLoc config (with `batch_split_size`) trains through the staged
+    step on global batches alone: no local pairs are read, and batch
+    expansion, which reads the triplet miner's stats, stays off.
 
     params.mesh (`parallel/mesh.py::resolve_mesh`): N > 1 trains on N ranks,
     this process rank 0 (whose state and stats are returned); `backend`
@@ -350,16 +487,20 @@ def _train_epochs(params, built: BuiltModel, debug: bool, log_fn, dataset_type: 
     world, main_rank = world_size(group), rank_of(group) == 0
     num_points = resolve_num_points(params.model_params, dataset_type)
     quantizer = built.quantizer
+    # a MinkLoc model trains on global batches alone (the staged step)
+    global_only = built.model_type == "minkloc"
     train_ds = TrainingDataset(params.dataset_folder, dataset_type, params.train_file)
-    local_train_ds = Training6DOFDataset(params.dataset_folder, dataset_type, params.train_file,
-                                         quantizer, rot_max=params.rot_max,
-                                         trans_max=params.trans_max)
-    val_ds = local_val_ds = None
+    local_train_ds = val_ds = local_val_ds = None
+    if not global_only:
+        local_train_ds = Training6DOFDataset(params.dataset_folder, dataset_type,
+                                             params.train_file, quantizer,
+                                             rot_max=params.rot_max, trans_max=params.trans_max)
     if params.val_file:
         val_ds = TrainingDataset(params.dataset_folder, dataset_type, params.val_file)
-        local_val_ds = Training6DOFDataset(params.dataset_folder, dataset_type,
-                                           params.val_file, quantizer, rot_max=params.rot_max,
-                                           trans_max=params.trans_max)
+        if not global_only:
+            local_val_ds = Training6DOFDataset(params.dataset_folder, dataset_type,
+                                               params.val_file, quantizer,
+                                               rot_max=params.rot_max, trans_max=params.trans_max)
     sampler = BatchSampler(train_ds, batch_size=params.batch_size,
                            batch_size_limit=params.batch_size_limit,
                            batch_expansion_rate=params.batch_expansion_rate, seed=0)
@@ -369,7 +510,7 @@ def _train_epochs(params, built: BuiltModel, debug: bool, log_fn, dataset_type: 
                                 params.batch_expansion_rate, multiple_of=world)
     # local batches hold real pairs only, split evenly over the ranks
     lbs = -(-params.local_batch_size // world) * world
-    if lbs != params.local_batch_size:
+    if lbs != params.local_batch_size and not global_only:
         print(f"local_batch_size {params.local_batch_size} -> {lbs} "
               f"(multiple of {world} mesh devices)")
     lr_sched = make_lr_schedule(params)
@@ -392,9 +533,11 @@ def _train_epochs(params, built: BuiltModel, debug: bool, log_fn, dataset_type: 
         t_epoch = time.perf_counter()
         lr = lr_sched(epoch - 1)
         sampler.set_epoch(epoch)
-        local_train_ds.set_epoch(epoch)
+        if local_train_ds is not None:
+            local_train_ds.set_epoch(epoch)
         if val_ds is not None:
             val_sampler.set_epoch(epoch)
+        if local_val_ds is not None:
             local_val_ds.set_epoch(epoch)
         record = {"epoch": epoch, "lr": lr, "steps": {}, "seconds": {}, "input_wait_s": {},
                   "copy_s": {}}
@@ -406,16 +549,20 @@ def _train_epochs(params, built: BuiltModel, debug: bool, log_fn, dataset_type: 
                 train = phase == "train"
                 ds, lds, smp = ((train_ds, local_train_ds, sampler) if train
                                 else (val_ds, local_val_ds, val_sampler))
-                local_ids = list(lds.valid_ids)
-                np.random.default_rng([0, epoch, phase_idx]).shuffle(local_ids)
-                rows = row_slice(lbs, group)
-                local_batches = [local_ids[i : i + lbs][rows]
-                                 for i in range(0, len(local_ids) - lbs + 1, lbs)]
+                if global_only:
+                    local_batches = itertools.repeat(None)
+                else:
+                    local_ids = list(lds.valid_ids)
+                    np.random.default_rng([0, epoch, phase_idx]).shuffle(local_ids)
+                    rows = row_slice(lbs, group)
+                    local_batches = [local_ids[i : i + lbs][rows]
+                                     for i in range(0, len(local_ids) - lbs + 1, lbs)]
 
                 def batches(ds=ds, lds=lds, smp=smp, local_batches=local_batches):
                     for gids, lids in zip(smp, local_batches):
                         with tracing.span("egonn.batch_prep"):
                             yield (make_global_batch(ds, gids, num_points, buckets, group),
+                                   None if lids is None else
                                    make_local_batch(lds, lids, num_points))
 
                 keys, running, copy_s = None, [], 0.0
@@ -432,9 +579,10 @@ def _train_epochs(params, built: BuiltModel, debug: bool, log_fn, dataset_type: 
                     gdict = _to_device({"clouds": g.clouds, "point_mask": g.point_mask,
                                         "positives_mask": g.positives_mask,
                                         "negatives_mask": g.negatives_mask}, device)
-                    ldict = _to_device({"anc_clouds": l.anc_clouds, "anc_mask": l.anc_mask,
-                                        "pos_clouds": l.pos_clouds, "pos_mask": l.pos_mask,
-                                        "t_gt": l.t_gt}, device)
+                    ldict = None if l is None else _to_device(
+                        {"anc_clouds": l.anc_clouds, "anc_mask": l.anc_mask,
+                         "pos_clouds": l.pos_clouds, "pos_mask": l.pos_mask, "t_gt": l.t_gt},
+                        device)
                     copy_s += time.perf_counter() - t_copy
                     gen = step_generator(device, 0, epoch, phase_idx, count) if train else None
                     stats = step(gdict, ldict, gen, lr, train)
@@ -458,7 +606,8 @@ def _train_epochs(params, built: BuiltModel, debug: bool, log_fn, dataset_type: 
         state.epoch += 1
 
         if last_global is not None:
-            capacity_audit(built, last_global, params.aug_mode, epoch, group)
+            capacity_audit(built, last_global, params.aug_mode, epoch, group,
+                           split=getattr(step, "split", None), dataset=params.dataset)
 
         if params.test_file and epoch % EVAL_EVERY == 0:
             test_evaluator = _evaluate(params, built, dataset_type, num_points, test_evaluator,

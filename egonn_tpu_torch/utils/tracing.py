@@ -14,11 +14,16 @@ kernels they launch:
     egonn.trunk            MinkGL's trunk, MinkLoc's backbone
     egonn.global_head      head, decoder, normalisation, masking, pooling
     egonn.local_head       MinkGL's local head through sigma and kp_mask
-    egonn.train_step       TrainStep.__call__ (train and validation)
-    egonn.step.forward     each of the step's three forwards
-    egonn.step.loss        the global loss, the local loss and the stats
+    egonn.train_step       TrainStep / StagedTrainStep.__call__ (train and
+                           validation)
+    egonn.step.embed       the staged step's stage 1: the augmentation and
+                           every chunk's forward with gradients off
+    egonn.step.forward     each of the step's three forwards; each chunk's
+                           forward of the staged step's stage 3
+    egonn.step.loss        the global loss, the local loss and the stats; the
+                           staged step's loss and its embedding gradient
     egonn.loss.nearest_point  losses/keypoint.py::_nearest_point_dist
-    egonn.step.backward    the backward pass
+    egonn.step.backward    the backward pass (each chunk's, staged)
     egonn.step.optimizer   the gradient all-reduce and the optimizer step
     egonn.batch_prep       do_train's batch assembly (the Prefetcher thread)
     egonn.eval_embed       the evaluator's embeddings
