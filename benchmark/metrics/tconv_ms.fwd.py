@@ -1,0 +1,10 @@
+"""Device ms a forward of the kernels launched in `egonn.tconv` (the
+transposed convs); nothing where the program opens no such span."""
+from benchmark.core import spans
+
+
+def read(ctx):
+    st = spans.stretch(ctx, "egonn.forward")
+    if st is None or not st.spans.get("egonn.tconv"):
+        return None
+    return spans.device_ms(ctx, "egonn.forward", "egonn.tconv")

@@ -32,11 +32,12 @@ Phases, each printing its lines:
    (each coarse tile's hull) against the children, a zrun line the blocks
    whose table slice overflowed shared memory (0 expected).  The stem
    (stem_ones) is timed beside its plain form's GEMM alone as its library
-   call.  The largest gather_conv, tdown, zrun_rank and stem_ones calls are
+   call; the transposed conv (tconv) beside its all-slot form's GEMM alone.
+   The largest gather_conv, tdown, zrun_rank, stem_ones and tconv calls are
    re-run twice and must be bit-equal.
 3. slice: the same forward with every launch counter zeroed just before and
    read just after (zrun_presence 1, zrun_rank 7, gather_conv 14, tdown 7,
-   stem_ones 1 expected); output shapes, finiteness, capacity report.
+   stem_ones 1, tconv 3, slot_order 3 expected); output shapes, finiteness, capacity report.
    Then 2 clouds on the card and on the CPU with the same weights: from one
    shared quantization every pyramid map must be bit-equal and the outputs
    within the tolerances of tests/test_torch_model.py; from independent
@@ -164,7 +165,7 @@ Phases, each printing its lines:
    written into build/eval_synth by the port's generator; EgoNN from
    model_configs/egonn.txt (cap0 16384), seeded weights with seeded
    BatchNorm statistics.  GLEvaluator (n_k 128 and 256, 1,024 hypotheses):
-   launches of the whole evaluation (each embedding batch 1/7/14/7/1, plus the
+   launches of the whole evaluation (each embedding batch 1/7/14/7/1/3/3, plus the
    capacity check's pyramid), the recall at 5 and 20 m, the 6DoF metrics,
    t_ransac; one embedding batch's launches and every kernel call of it
    against its plain version and timed (the `eval` path); embedding
@@ -232,8 +233,8 @@ Phases, each printing its lines:
    evaluation of phase 9's set sharded over DP_WORLD gloo ranks: recalls
    and top-1 equal to the unsharded ones, phase 9's embedding batch
    `global` within JAX's sharded-vs-unsharded embedding bound (rtol 2e-4,
-   atol 2e-5), launches per rank EVAL_BATCH_LAUNCHES.  (d) `do_train` on a
-   mesh of DP_WORLD (gloo, one card) for DP_EPOCHS epochs on phase 10's
+   atol 2e-5), launches per rank GLOBAL_EVAL_BATCH_LAUNCHES.  (d) `do_train`
+   on a mesh of DP_WORLD (gloo, one card) for DP_EPOCHS epochs on phase 10's
    set against one process with the same buckets and draws, both at lr
    DP_LR (known difference 20): every epoch stat within rel 1e-4; only rank
    0 writes the checkpoint and the metrics log.  A rank that fails or does
@@ -278,12 +279,14 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # f32 FMA pipes, outside the tensor cores (data sheet)
 TF32_OPS_PER_S = 495e12     # dense TF32 tensor cores (data sheet)
 BF16_OPS_PER_S = 989e12     # dense bf16 tensor cores (data sheet)
-TC_KERNELS = ("gather_conv", "tdown", "gather_dw")  # split TF32: 3 TF32 MMAs per product
+# split TF32: 3 TF32 MMAs per product
+TC_KERNELS = ("gather_conv", "tdown", "gather_dw", "tconv")
 # the bf16 kernels of gather_conv, tdown and gather_dw (bf16 features), one
 # MMA per product, with their own rows and launch counts
 BF16_ROWS = {"gather_conv": "gather_conv_bf16", "tdown": "tdown_bf16",
              "gather_dw": "gather_dw_bf16"}
-SPILL_FREE = ("gather_conv.cu", "tdown.cu", "gather_dw.cu")  # ptxas must report no spills
+# ptxas must report no spills
+SPILL_FREE = ("gather_conv.cu", "tdown.cu", "gather_dw.cu", "tconv.cu")
 # the Hopper bf16 bodies (wgmma, mbarrier rings) and their sources
 HOPPER_BODIES = (("gather_conv.cu", "gather_mm_sm90_kernel"),
                  ("gather_dw.cu", "gather_dw_sm90_kernel"))
@@ -292,7 +295,8 @@ B, N_POINTS, CAP0, SEED = 8, 65536, 16384, 0
 EXPECTED_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 14, "tdown": 7,
                      "gather_dw": 0, "lookup": 0,
                      "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
-                     "stem_ones": 1}
+                     "stem_ones": 1, "tconv": 3,
+                     "slot_order": 3}
 # Kernel launches of one training step: three train-mode forwards (global,
 # anchor, positive), each 1 zrun_presence + 7 zrun_rank (the pyramid), 7 down
 # convs + 14 self convs through gather_conv; then one backward, which reaches
@@ -303,24 +307,30 @@ EXPECTED_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 14, "tdo
 # read the local head alone, which takes levels 3 and 4, so each local
 # backward runs levels 1-4 (8 self-conv dX, 4 + 8 dW) and one transposed
 # conv.  gather_conv 3 x 21 + 14 + 2 + 2 x (8 + 1) = 97; gather_dw
-# 21 + 2 x 12 = 45.  The down convs' dX is the transposed conv in torch.
-# Every forward runs the stem once: stem_ones 3 (its dW is a torch.mm).
+# 21 + 2 x 12 = 45.  Every forward runs the stem once: stem_ones 3 (its dW
+# is a torch.mm).  tconv: each forward's three transposed convs (the global
+# head's two, the local head's one) and the down convs' dX, 7 + 2 x 4:
+# 9 + 15 = 24, over slot orders built once per level a forward (slot_order:
+# the down convs' 7 levels, which the heads' levels are among: 3 x 7).
 TRAIN_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 97, "tdown": 0,
                        "gather_dw": 45, "lookup": 0,
                        "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
-                       "stem_ones": 3}
-# The validation step: three eval forwards (7 tdown, 14 gather_conv, the stem
-# each).
+                       "stem_ones": 3, "tconv": 24,
+                       "slot_order": 21}
+# The validation step: three eval forwards (7 tdown, 14 gather_conv, the stem,
+# 3 tconv and their 3 slot orders each).
 VAL_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 42, "tdown": 21,
                      "gather_dw": 0, "lookup": 0,
                      "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
-                     "stem_ones": 3}
+                     "stem_ones": 3, "tconv": 9,
+                     "slot_order": 9}
 # Phase 6a: the EgoNN pyramid without up maps, kmap_down looked up at L1-L7
 # in one launch of the lookup kernel.
 LOOKUP_MAPS_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 0, "tdown": 0,
                         "gather_dw": 0, "lookup": 1,
                         "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
-                        "stem_ones": 0}
+                        "stem_ones": 0, "tconv": 0,
+                        "slot_order": 0}
 # Phase 6b: one MinkLoc forward: the stem map, 3 self maps, 2 convs in each
 # of 3 blocks; the factory pyramid runs the 3 down convs from the up maps,
 # the one with level 2's up map alone looks up L1 and L2's down maps (one
@@ -328,11 +338,13 @@ LOOKUP_MAPS_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 0, "t
 MINKLOC_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 3, "gather_conv": 6, "tdown": 3,
                     "gather_dw": 0, "lookup": 0,
                     "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
-                    "stem_ones": 1}
+                    "stem_ones": 1, "tconv": 1,
+                    "slot_order": 1}
 MINKLOC_LOOKUP_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 3, "gather_conv": 8, "tdown": 1,
                            "gather_dw": 0, "lookup": 1,
                            "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
-                           "stem_ones": 1}
+                           "stem_ones": 1, "tconv": 1,
+                           "slot_order": 1}
 MINKLOC_CAP0 = 40960
 MINKLOC_ROUNDS = 20  # throughput turns of each MinkLoc pyramid
 # Phase 8: ResNet14 at torchvision widths over MinkLoc's quantizer and
@@ -345,12 +357,14 @@ RESNET_PLANES, RESNET_INIT_DIM = (64, 128, 256, 512), 64
 RESNET_LAUNCHES = {"zrun_presence": 0, "zrun_rank": 5, "gather_conv": 13, "tdown": 0,
                    "gather_dw": 0, "lookup": 1,
                    "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
-                   "stem_ones": 0}
+                   "stem_ones": 0, "tconv": 0,
+                   "slot_order": 0}
 # Phase 3b: the forward of phases 2-3 with EGONN_BF16_ACTS=1: the same maps,
 # the 21 convs on the bf16 kernels (the stem sums and returns f32, then casts)
 BF16_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 0, "tdown": 0,
                  "gather_dw": 0, "lookup": 0, "gather_conv_bf16": 14, "tdown_bf16": 7,
-                 "gather_dw_bf16": 0, "stem_ones": 1}
+                 "gather_dw_bf16": 0, "stem_ones": 1, "tconv": 0,
+                 "slot_order": 0}
 # Phase 5b: the train and validation steps of phases 4-5 with
 # EGONN_BF16_ACTS=1: TRAIN_STEP_LAUNCHES and VAL_STEP_LAUNCHES with every
 # conv, dX and dW on the bf16 kernels (the activations and their cotangents
@@ -358,11 +372,13 @@ BF16_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 0, "tdown": 
 BF16_TRAIN_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 0, "tdown": 0,
                             "gather_dw": 0, "lookup": 0, "gather_conv_bf16": 97,
                             "tdown_bf16": 0, "gather_dw_bf16": 45,
-                            "stem_ones": 3}
+                            "stem_ones": 3, "tconv": 0,
+                            "slot_order": 0}
 BF16_VAL_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 0, "tdown": 0,
                           "gather_dw": 0, "lookup": 0, "gather_conv_bf16": 42,
                           "tdown_bf16": 21, "gather_dw_bf16": 0,
-                          "stem_ones": 3}
+                          "stem_ones": 3, "tconv": 0,
+                          "slot_order": 0}
 # card vs CPU bf16 forward, of each output's max |CPU| (tests/test_banded.py's
 # bf16 rule): roundings to bf16 at other places flip single activations by an ulp
 BF16_REL_TOL = 3e-2
@@ -402,6 +418,9 @@ REPLACES = {
     "lookup": ("egonn_tpu_torch/csrc/lookup.cu", "egonn_tpu/sparse/banded.py:808"),
     # no Pallas kernel: the JAX package's stem is a jnp product
     "stem_ones": ("egonn_tpu_torch/csrc/stem.cu", "none (egonn_tpu/sparse/conv.py, jnp)"),
+    # nor for the transposed conv: XLA's product there
+    "tconv": ("egonn_tpu_torch/csrc/tconv.cu", "none (egonn_tpu/sparse/conv.py, XLA)"),
+    "slot_order": ("egonn_tpu_torch/csrc/tconv.cu", "none (tconv's row order)"),
 }
 # Phase 7: synthetic ResNet-width calls (name, K, F_in, F_out); the last
 # six at widths the kernels take only through the wrappers' width plan
@@ -424,6 +443,9 @@ EVAL_DIR = OUT_DIR / "eval_synth"
 EVAL_SCANS, EVAL_N_K, EVAL_HYPOTHESES = 64, (128, 256), 1024
 EVAL_THETAS = (0.0, 90.0, 180.0)
 EVAL_BATCH_LAUNCHES = dict(EXPECTED_LAUNCHES)  # each embedding batch: one eval forward
+# each global-only embedding batch: the forward without the local head, whose
+# transposed conv (and its level's slot order) it skips
+GLOBAL_EVAL_BATCH_LAUNCHES = dict(EVAL_BATCH_LAUNCHES, tconv=2, slot_order=2)
 # known-transform RANSAC pairs at evaluation sizes; 10240 hypotheses is the
 # reference's Open3D budget (evaluate.py --ransac_hypotheses)
 RANSAC_PAIRS, RANSAC_K, RANSAC_DIM, RANSAC_HYPOTHESES = 32, 256, 128, (1024, 10240)
@@ -436,7 +458,8 @@ LOOP_DATA, LOOP_DIR = OUT_DIR / "train_synth", OUT_DIR / "train_loop"
 LOOP_SCANS, LOOP_EPOCHS, LOOP_SAVE_FREQ = 192, 10, 5
 LOOP_BUCKET = 128  # config_egonn.txt's batch_size_limit: the largest bucket
 # the kernels a loop step launches (lookup builds no EgoNN map)
-LOOP_KERNELS = ("zrun_presence", "zrun_rank", "gather_conv", "tdown", "gather_dw", "stem_ones")
+LOOP_KERNELS = ("zrun_presence", "zrun_rank", "gather_conv", "tdown", "gather_dw", "stem_ones",
+                "tconv", "slot_order")
 # Phase 11: data parallel over DP_WORLD ranks sharing the card (gloo); each
 # rank times DP_TIMED_STEPS train steps; do_train on the mesh for DP_EPOCHS
 # epochs against one process at DP_LR (see phase_data_parallel)
@@ -564,6 +587,15 @@ def work(name: str, args: tuple, kwargs: dict, out) -> tuple:
         kmap, t, n_in = args[:3]
         ops = int((kmap < n_in).sum()) * t.shape[2]
         return _nbytes(kmap, t, out), ops, F32_OPS_PER_S / 2
+    if name == "slot_order":  # the up map read twice, a key and a count each row and pass
+        up_parent, up_koffset = args[:2]
+        return (_nbytes(up_parent, up_koffset, *out), 4 * up_parent.numel(),
+                INT32_OPS_PER_S)
+    if name == "tconv":  # one product a fine row with a parent
+        feats, up_parent, up_koffset, kernel = args[:4]
+        n_child = int(((up_parent >= 0) & (up_parent < feats.shape[1])).sum())
+        ops = 2 * n_child * kernel.shape[1] * kernel.shape[2]
+        return _nbytes(feats, up_parent, up_koffset, kernel, out), ops, F32_OPS_PER_S
     # bf16 features: 2 bytes a feature (and g) element, bf16 tensor-core rate
     rate = BF16_OPS_PER_S if args[0].dtype == torch.bfloat16 else F32_OPS_PER_S
     if name == "gather_dw":
@@ -593,6 +625,9 @@ def plain_call(name: str, kernels):
         "lookup": kernels.lookup_plain,
         "lookup_down": kernels.lookup_down_plain,
         "stem_ones": kernels.stem_ones_plain,
+        "tconv": lambda feats, up, ko, kernel, slots=None: kernels.tconv_plain(feats, up, ko,
+                                                                               kernel),
+        "slot_order": kernels.slot_order_plain,
     }[name]
 
 
@@ -612,6 +647,13 @@ def library_call(name: str, args: tuple):
         kmap, kernel, n_in = args[:3]
         valid = (kmap < n_in).to(torch.float32)
         return lambda: torch.matmul(valid.transpose(1, 2), kernel[:, 0, :])
+    if name == "tconv":  # the all-slot form's GEMM on its gathered parent rows
+        feats, up_parent, _, kernel = args[:4]
+        f_in = feats.shape[2]
+        rows = torch.cat([feats, feats.new_zeros(feats.shape[0], 1, f_in)], dim=1)
+        rows = torch.gather(rows, 1, up_parent.long()[..., None].expand(-1, -1, f_in))
+        w_all = kernel.permute(1, 0, 2).reshape(f_in, -1)
+        return lambda: torch.matmul(rows, w_all)
     return None
 
 
@@ -789,6 +831,8 @@ def call_level(name: str, args: tuple, levels: dict) -> str:
     """'L<in>->L<out>' of a conv or dW call from its row counts."""
     if name == "tdown":
         c_in, c_out = args[0].shape[1], args[4]
+    elif name == "tconv":
+        c_in, c_out = args[0].shape[1], args[1].shape[1]
     elif name in ("gather_conv", "gather_dw"):
         c_in, c_out = args[0].shape[1], args[1].shape[2]
     else:
@@ -810,6 +854,15 @@ def call_desc(name: str, args: tuple) -> str:
         feats, _, _, kernel, c_out = args
         return (f"B {feats.shape[0]} C {feats.shape[1]}->{c_out} K 8 "
                 f"F {kernel.shape[1]}->{kernel.shape[2]}")
+    if name == "slot_order":  # (up_parent, up_koffset, c_coarse)
+        up_parent, _, c_coarse = args
+        return (f"B {up_parent.shape[0]} C {c_coarse}<-{up_parent.shape[1]} rows "
+                f"{int((up_parent < c_coarse).sum())}")
+    if name == "tconv":  # (feats, up_parent, up_koffset, kernel, slots)
+        feats, up_parent, _, kernel = args[:4]
+        rows = int(((up_parent >= 0) & (up_parent < feats.shape[1])).sum())
+        return (f"B {feats.shape[0]} C {feats.shape[1]}->{up_parent.shape[1]} K 8 "
+                f"F {kernel.shape[1]}->{kernel.shape[2]} rows {rows}")
     if name == "stem_ones":  # (kmap, kernel, n_in_rows)
         kmap, kernel, n_in = args
         return (f"B {kmap.shape[0]} C {kmap.shape[2]} K {kmap.shape[1]} F 1->{kernel.shape[2]} "
@@ -994,7 +1047,7 @@ def phase_kernels(built, kernels, inference, cycles_per_ms):
     measure_calls(rows, calls, kernels, cycles_per_ms, reps=20, tag="kernels",
                   levels=level_of(built.pyramid_spec.capacities))
     return rows, [check_repeat(kernels, calls, name, "kernels")
-                  for name in ("gather_conv", "tdown", "zrun_rank", "stem_ones")]
+                  for name in ("gather_conv", "tdown", "zrun_rank", "stem_ones", "tconv")]
 
 
 def _wide_call(gen, name, k_vol, f_in, f_out, device):
@@ -2029,10 +2082,11 @@ def phase_resnet(kernels, pyramid_mod, cycles_per_ms, device):
 # evaluation
 # ---------------------------------------------------------------------------
 
-def _eval_set_launches(n_batches: int) -> dict:
+def _eval_set_launches(n_batches: int, per_batch: dict = EVAL_BATCH_LAUNCHES) -> dict:
     """Launches of an evaluation over n_batches embedding batches: each an
-    eval forward, plus the capacity check's pyramid on the first batch."""
-    out = {k: n_batches * v for k, v in EVAL_BATCH_LAUNCHES.items()}
+    eval forward (`per_batch`), plus the capacity check's pyramid on the
+    first batch."""
+    out = {k: n_batches * v for k, v in per_batch.items()}
     out["zrun_presence"] += 1
     out["zrun_rank"] += 7
     return out
@@ -2305,7 +2359,8 @@ def phase_eval(kernels, cycles_per_ms, device, smi):
 
     # the global-only evaluator and the rotation sweep
     evg = Evaluator(str(EVAL_DIR), "synthetic", names[2], built, **kw)
-    gm, launches_g = _path_launches(kernels, evg.evaluate, _eval_set_launches(n_batches),
+    gm, launches_g = _path_launches(kernels, evg.evaluate,
+                                    _eval_set_launches(n_batches, GLOBAL_EVAL_BATCH_LAUNCHES),
                                     "global-only evaluation", tag="eval")
     if not np.array_equal(gm["top1_ndx"], g["top1_ndx"]):
         raise AssertionError("the global-only and GL evaluators retrieve differently")
@@ -3062,7 +3117,7 @@ def phase_data_parallel(tp, g, l, lr, kernels, cycles_per_ms, smi, bare_steps_pe
     # embeddings at JAX's own sharded-vs-unsharded bound (rtol 2e-4, atol
     # 2e-5, tests/test_multichip.py): each rank's batch is half as large
     if not (same and err <= 2e-5 + 2e-4 * scale
-            and all(r["launches"] == EVAL_BATCH_LAUNCHES for r in shard)):
+            and all(r["launches"] == GLOBAL_EVAL_BATCH_LAUNCHES for r in shard)):
         raise AssertionError("the sharded evaluation differs from the unsharded one")
 
     # (d) do_train on a mesh of DP_WORLD against one process, DP_EPOCHS epochs

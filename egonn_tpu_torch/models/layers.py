@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from egonn_tpu_torch.sparse import conv as sconv
+from egonn_tpu_torch.sparse.kernels import SlotOrder
 from egonn_tpu_torch.sparse.norm import (
     SparseBatchNorm,
     broadcast_mul,
@@ -71,9 +72,12 @@ class SparseConv(nn.Module):
     def forward(self, feats: Optional[torch.Tensor], kmap: Optional[torch.Tensor] = None,
                 up_parent: Optional[torch.Tensor] = None,
                 up_koffset: Optional[torch.Tensor] = None,
-                epi: Optional[tuple] = None) -> torch.Tensor:
+                epi: Optional[tuple] = None,
+                slots: Optional[SlotOrder] = None) -> torch.Tensor:
         """feats None: the stem over constant-ones features, whose kmap (a
-        self map, C_in == C_out) records neighbour presence only."""
+        self map, C_in == C_out) records neighbour presence only.  `slots`:
+        the up map's slot order, for the down conv's backward
+        (`sconv.level_slots`)."""
         if feats is None:
             return sconv.sparse_conv_ones(kmap, self.kernel, kmap.shape[-1])
         k_vol = self.kernel.shape[0]
@@ -87,7 +91,8 @@ class SparseConv(nn.Module):
             if kmap is None:
                 raise ValueError("the down conv without an epilogue needs kmap_down: build "
                                  "the pyramid with with_kmap_down=True")
-            return sconv.sparse_conv_down(feats, kmap, up_parent, up_koffset, self.kernel)
+            return sconv.sparse_conv_down(feats, kmap, up_parent, up_koffset, self.kernel,
+                                          slots)
         if k_vol in (27, 125, 343):
             return sconv.sparse_conv_sym(feats, kmap, self.kernel)
         return sconv.sparse_conv(feats, kmap, self.kernel)
@@ -103,7 +108,9 @@ def down_conv(conv: SparseConv, bn: SparseBatchNorm, feats: torch.Tensor, level:
     transposed form where the pyramid has no kmap_down."""
     if training or not sconv.FUSE_BN_EVAL:
         if training or level.kmap_down is not None:
-            x = conv(feats, level.kmap_down, finer.up_parent, finer.up_koffset)
+            x = conv(feats, level.kmap_down, finer.up_parent, finer.up_koffset,
+                     slots=sconv.level_slots(finer, level.capacity, feats.dtype)
+                     if training else None)
         else:
             x = sconv.sparse_tdown(feats, finer.up_parent, finer.up_koffset, conv.kernel,
                                    level.mask.shape[-1])
@@ -141,12 +148,13 @@ class SparseConvTranspose2x2(nn.Module):
 
     def forward(self, feats: torch.Tensor, fine_level: Level,
                 coarse_level: Optional[Level] = None) -> torch.Tensor:
+        slots = sconv.level_slots(fine_level, feats.shape[1], feats.dtype)
         if coarse_level is not None and coarse_level.kmap_down is not None:
             return sconv.sparse_tconv2x2_vjp(feats, fine_level.up_parent,
                                              fine_level.up_koffset, coarse_level.kmap_down,
-                                             self.kernel)
+                                             self.kernel, slots)
         return sconv.sparse_tconv2x2(feats, fine_level.up_parent, fine_level.up_koffset,
-                                     self.kernel)
+                                     self.kernel, slots)
 
 
 class Linear(nn.Module):

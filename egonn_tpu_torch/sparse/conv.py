@@ -7,13 +7,18 @@
   fine level's up map (`kernels.tdown`), so inference never builds kmap_down.
 * `sparse_conv_ones`: the stem over constant-ones features
   (`kernels.stem_ones`).
-* `sparse_conv1x1`, `sparse_tconv2x2`: plain products (the JAX package
-  leaves them to XLA), written with torch matmuls.
+* `sparse_tconv2x2`: the transposed k=2 s=2 conv (`kernels.tconv`: each
+  fine voxel times its own slot's kernel, over the up map's slot order,
+  which `level_slots` keeps on the level).
+* `sparse_conv1x1`: a plain product (the JAX package leaves it to XLA),
+  written with a torch matmul.
 
 Activations may be bf16 (`activation_dtype`, `EGONN_BF16_ACTS=1` on a CUDA
 device, as the JAX package's on a TPU): every conv returns its features'
 type.  The gather convs then run the bf16 kernels; the plain products
-compute in f32 on the bf16 values (torch's matmul does not promote, JAX's
+(the 1x1 conv, and the transposed conv, which keeps its all-slot torch
+product for bf16 activations until a bf16 cell measures it) compute in f32
+on the bf16 values (torch's matmul does not promote, JAX's
 einsum does) and round once to bf16.  In the backward the cotangents of
 bf16 activations are bf16: every dX is a bf16 conv again, every dW sums the
 exact products of the bf16 values in f32 and is returned f32, the
@@ -27,7 +32,7 @@ activations, and its backward is a gather program again:
 * `sparse_conv_sym` (odd self kernels): dX = gather_conv(g, kmap reversed
   along K, W^T) (offset -d is offset d reversed in C order), dW = gather_dw.
 * `sparse_conv_down` (k=2 s=2 over kmap_down): dX = sparse_tconv2x2(g, up map,
-  W^T), dW = gather_dw.
+  W^T) (`kernels.tconv` over the fine level's slot order), dW = gather_dw.
 * `sparse_tconv2x2_vjp`: dX = gather_conv(g, the coarse level's kmap_down,
   W^T), dW = the slot-masked products of the gathered coarse features.
 """
@@ -39,6 +44,8 @@ from typing import Optional
 import torch
 
 from egonn_tpu_torch.sparse import kernels
+from egonn_tpu_torch.sparse.types import Level
+from egonn_tpu_torch.utils.tracing import span
 
 # Eval-mode BN affine + ReLU + row mask fused into the conv kernels' output
 # store (the models pass an `epi` tuple).  EGONN_FUSE_BN=0, or
@@ -70,12 +77,12 @@ def _transposed(kernel: torch.Tensor) -> torch.Tensor:
     return kernel.transpose(1, 2).contiguous()
 
 
-def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+def _refuse_grad(name: str, *tensors: torch.Tensor,
+                 instead: str = "sparse_conv_sym or sparse_conv_down") -> None:
     """The inference-only convs have no backward: raise rather than let a
     CUDA kernel's output silently cut the graph."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(f"{name} has no gradient: use sparse_conv_sym or "
-                                  "sparse_conv_down")
+        raise NotImplementedError(f"{name} has no gradient: use {instead}")
 
 
 def sparse_conv(feats: torch.Tensor, kmap: torch.Tensor, kernel: torch.Tensor,
@@ -121,8 +128,9 @@ def sparse_conv_sym(feats: torch.Tensor, kmap: torch.Tensor, kernel: torch.Tenso
 
 class _ConvDown(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, feats, kmap_down, up_parent, up_koffset, kernel):
+    def forward(ctx, feats, kmap_down, up_parent, up_koffset, kernel, slots):
         ctx.save_for_backward(feats, kmap_down, up_parent, up_koffset, kernel)
+        ctx.slots = slots
         return kernels.gather_conv(feats, kmap_down, kernel)
 
     @staticmethod
@@ -132,24 +140,27 @@ class _ConvDown(torch.autograd.Function):
         d_feats = d_kernel = None
         if ctx.needs_input_grad[0]:
             # the transpose of the down conv is the transposed conv
-            d_feats = sparse_tconv2x2(g, up_parent, up_koffset, kernel.transpose(1, 2))
+            d_feats = sparse_tconv2x2(g, up_parent, up_koffset, kernel.transpose(1, 2),
+                                      ctx.slots)
         if ctx.needs_input_grad[4]:
             d_kernel = kernels.gather_dw(feats, kmap_down, g)
-        return d_feats, None, None, None, d_kernel
+        return d_feats, None, None, None, d_kernel, None
 
 
 def sparse_conv_down(feats: torch.Tensor, kmap_down: torch.Tensor, up_parent: torch.Tensor,
-                     up_koffset: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+                     up_koffset: torch.Tensor, kernel: torch.Tensor,
+                     slots: Optional[kernels.SlotOrder] = None) -> torch.Tensor:
     """k=2 s=2 down conv over the coarse level's kmap_down (B, 8, C_coarse),
-    with the gather-only backward through the fine level's up map."""
-    return _ConvDown.apply(feats, kmap_down, up_parent, up_koffset, kernel)
+    with the gather-only backward through the fine level's up map (`slots`
+    its slot order, None: built by the backward on the card)."""
+    return _ConvDown.apply(feats, kmap_down, up_parent, up_koffset, kernel, slots)
 
 
 class _Tconv2x2(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, feats_coarse, up_parent, up_koffset, kmap_down, kernel):
+    def forward(ctx, feats_coarse, up_parent, up_koffset, kmap_down, kernel, slots):
         ctx.save_for_backward(feats_coarse, up_parent, up_koffset, kmap_down, kernel)
-        return sparse_tconv2x2(feats_coarse, up_parent, up_koffset, kernel)
+        return sparse_tconv2x2(feats_coarse, up_parent, up_koffset, kernel, slots)
 
     @staticmethod
     def backward(ctx, g):
@@ -169,15 +180,16 @@ class _Tconv2x2(torch.autograd.Function):
             d_kernel = torch.stack([
                 torch.einsum("bcf,bco->fo", gathered * (up_koffset == k)[..., None], g32)
                 for k in range(kernel.shape[0])])
-        return d_feats, None, None, None, d_kernel
+        return d_feats, None, None, None, d_kernel, None
 
 
 def sparse_tconv2x2_vjp(feats_coarse: torch.Tensor, up_parent: torch.Tensor,
                         up_koffset: torch.Tensor, kmap_down: torch.Tensor,
-                        kernel: torch.Tensor) -> torch.Tensor:
+                        kernel: torch.Tensor,
+                        slots: Optional[kernels.SlotOrder] = None) -> torch.Tensor:
     """sparse_tconv2x2 with the gather-only backward: dX is the down conv of
     g with W^T over the coarse level's kmap_down."""
-    return _Tconv2x2.apply(feats_coarse, up_parent, up_koffset, kmap_down, kernel)
+    return _Tconv2x2.apply(feats_coarse, up_parent, up_koffset, kmap_down, kernel, slots)
 
 
 def sparse_tdown(feats: torch.Tensor, up_parent: torch.Tensor, up_koffset: torch.Tensor,
@@ -228,22 +240,40 @@ def sparse_conv1x1(feats: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return torch.matmul(feats.to(kernel.dtype), kernel).to(feats.dtype)
 
 
+def level_slots(level: Level, c_coarse: int, dtype: torch.dtype
+                ) -> Optional[kernels.SlotOrder]:
+    """The slot order of `level`'s up map onto a level of c_coarse rows
+    (`kernels.slot_order`), built at the first call and kept on the level:
+    the transposed conv onto the level and the backward of the down conv
+    from it share one.  None where the level records no up map or where the
+    transposed conv takes none: a level off the card, or activations of
+    type `dtype` bf16 (both multiply all slots, `kernels.tconv_plain`)."""
+    if level.up_parent is None or not level.up_parent.is_cuda or dtype == torch.bfloat16:
+        return None
+    if level.up_slots is None:
+        level.up_slots = kernels.slot_order(level.up_parent, level.up_koffset, c_coarse)
+    return level.up_slots
+
+
 def sparse_tconv2x2(feats_coarse: torch.Tensor, up_parent: torch.Tensor,
-                    up_koffset: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+                    up_koffset: torch.Tensor, kernel: torch.Tensor,
+                    slots: Optional[kernels.SlotOrder] = None) -> torch.Tensor:
     """Transposed k=2 s=2 conv from level l+1 onto level l's coordinates:
     out[c] = feats_coarse[up_parent[c]] @ kernel[up_koffset[c]] (zero where
-    up_parent is the sentinel C_coarse).
+    up_parent is the sentinel C_coarse), in the span `egonn.tconv`.
 
     feats_coarse (B, C_coarse, F_in); up_parent, up_koffset (B, C_fine);
-    kernel (8, F_in, F_out).  Computed in the kernel's type, returned in the
+    kernel (8, F_in, F_out); `slots` the up map's slot order (`level_slots`;
+    None: built per call on the card).  f32 features: `kernels.tconv`, on
+    the card each voxel times its own slot's kernel (without a gradient:
+    training takes `sparse_tconv2x2_vjp`), on the CPU its plain version.
+    bf16 features (no cell runs them yet) keep that plain all-slot product
+    on the card too, computed in the kernel's type and returned in the
     features'."""
-    b, c_coarse, f_in = feats_coarse.shape
-    n_slots, _, f_out = kernel.shape
-    feats_p = torch.cat([feats_coarse, feats_coarse.new_zeros(b, 1, f_in)], dim=1)
-    g = torch.gather(feats_p, 1, up_parent.long()[..., None].expand(-1, -1, f_in))
-    # every slot's product in one matmul, then each voxel keeps its own slot
-    all_slots = torch.matmul(g.to(kernel.dtype),
-                             kernel.permute(1, 0, 2).reshape(f_in, n_slots * f_out))
-    all_slots = all_slots.reshape(b, -1, n_slots, f_out)
-    slot = up_koffset.long()[..., None, None].expand(-1, -1, 1, f_out)
-    return torch.gather(all_slots, 2, slot)[:, :, 0, :].to(feats_coarse.dtype)
+    with span("egonn.tconv"):
+        if feats_coarse.dtype == torch.bfloat16:
+            return kernels.tconv_plain(feats_coarse, up_parent, up_koffset, kernel)
+        if feats_coarse.is_cuda:  # the kernel's output has no gradient
+            _refuse_grad("sparse_tconv2x2 on the card", feats_coarse, kernel,
+                         instead="sparse_tconv2x2_vjp")
+        return kernels.tconv(feats_coarse, up_parent, up_koffset, kernel, slots)

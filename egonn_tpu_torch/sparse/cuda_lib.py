@@ -26,7 +26,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "egonn_tpu_torch"
-SOURCES = ("zrun.cu", "gather_conv.cu", "tdown.cu", "gather_dw.cu", "lookup.cu", "stem.cu")
+SOURCES = ("zrun.cu", "gather_conv.cu", "tdown.cu", "gather_dw.cu", "lookup.cu", "stem.cu",
+           "tconv.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -56,6 +57,10 @@ SIGNATURES = {
     },
     "stem.cu": {
         "egonn_stem_ones": [_P, _P, _P] + [_I] * 6 + [_P],
+    },
+    "tconv.cu": {
+        "egonn_tconv": [_P] * 6 + [_I] * 6 + [_P],
+        "egonn_slot_order": [_P] * 4 + [_I] * 3 + [_P],
     },
 }
 

@@ -10,6 +10,8 @@ and a launch counter.
 | `gather_dw`     | `csrc/gather_dw.cu`     | `_pallas_banded_dw` / `banded_conv_dw`         |
 | `lookup`        | `csrc/lookup.cu`        | `_pallas_banded_lookup` / `banded_lookup`      |
 | `stem_ones`     | `csrc/stem.cu`          | none: jnp in `egonn_tpu/sparse/conv.py`        |
+| `tconv`         | `csrc/tconv.cu`         | none: XLA's product in `egonn_tpu/sparse/conv.py` |
+| `slot_order`    | `csrc/tconv.cu`         | none: `tconv`'s row order                      |
 
 `gather_conv` runs every sparse conv: the eval forward, and in training the
 self and down convs' forwards and the dX backwards (`sparse/conv.py`);
@@ -18,18 +20,23 @@ builds the down maps of levels whose finer level records no up map
 (`sparse/pyramid.py`).  `stem_ones` is the stem conv over constant-ones
 features (each output row the sum of the kernel rows of the offsets whose
 neighbour exists): one pass over the level-0 map, where the plain version
-builds a 0/1 f32 matrix of the map and multiplies it.
+builds a 0/1 f32 matrix of the map and multiplies it.  `tconv` is the
+transposed k=2 s=2 conv (the heads' and MinkFPN's top-down step, and the
+down conv's dX in training): each fine row times its own slot's kernel,
+over the rows in slot order (`slot_order`, a counting sort per cloud),
+where its plain version (the JAX package's form) multiplies every row by
+all 8 slots' kernels and keeps one.
 
 The TPU kernels work on band windows of the key-sorted tables and drop what
 falls outside a window; these kernels index directly, so they are exact on
 all data and equal the JAX package's exact gather engine.
 
-`gather_conv`, `tdown` and `gather_dw` multiply on the tensor cores in
-split TF32 (`csrc/tf32x3.cuh`: each f32 operand split into two TF32 halves,
+`gather_conv`, `tdown`, `gather_dw` and `tconv` multiply on the tensor
+cores in split TF32 (`csrc/tf32x3.cuh`: each f32 operand split into two TF32 halves,
 three `mma.sync` products, f32 accuracy), with their rows copied by
 `cp.async` through a ring of shared-memory buffers, so later stages' rows
-fly while one multiplies.  All three follow the valid map entries, not
-dense tiles.  A `gather_conv` block (`csrc/gather_mm.cuh`) owns (32- or
+fly while one multiplies.  The first three follow the valid map entries,
+not dense tiles.  A `gather_conv` block (`csrc/gather_mm.cuh`) owns (32- or
 64-column slice of F_out, 128-row tile, cloud) and walks the offsets with
 any valid index and the 32-column F_in chunks, each offset's valid rows
 gathered, compacted into dense 16-row MMA tiles and scatter-added into a
@@ -46,6 +53,9 @@ the tiles, each tile's valid rows compacted along the MMA depth, and a
 second launch sums the chunks in order.  `zrun_presence` / `zrun_rank`
 copy the slice of the key table that a chunk of a row's (sorted) queries
 needs into shared memory and search there (`zrun_chunk` picks the chunk).
+A `tconv` block owns
+(32- or 64-column slice, 128-row tile of one slot's rows, cloud): a dense
+product whose gathered parent rows all take w[slot], in 32-column stages.
 `lookup` does the same per tile of a level's output rows, and in down mode
 (`lookup_down`) forms the child queries itself, for every lookup-built level
 of a pyramid in one launch.
@@ -130,7 +140,7 @@ _BF16_SPLIT_BLOCKS, _SM90_SPLIT_BLOCKS = 512, 2 * 132
 # kernel launches per wrapper (CUDA tensors only; the plain versions do not count)
 LAUNCHES = {"zrun_presence": 0, "zrun_rank": 0, "gather_conv": 0, "tdown": 0, "gather_dw": 0,
             "lookup": 0, "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
-            "stem_ones": 0}
+            "stem_ones": 0, "tconv": 0, "slot_order": 0}
 # per CUDA device: zrun and lookup blocks whose table slice did not fit
 # (`zrun_overflow_blocks`, `lookup_overflow_blocks`)
 _ZRUN_OVERFLOW: dict = {}
@@ -1014,7 +1024,133 @@ def stem_ones(kmap: torch.Tensor, kernel: torch.Tensor, n_in_rows: int) -> torch
     return out
 
 
-KERNELS = (zrun_presence, zrun_rank, gather_conv, tdown, gather_dw, lookup, stem_ones)
+# ---------------------------------------------------------------------------
+# the transposed k=2 s=2 conv
+# ---------------------------------------------------------------------------
+
+_TCONV_SEGMENTS = 9  # slots 0..7, then the fine rows without a parent
+
+
+class SlotOrder(NamedTuple):
+    """Each cloud's fine rows ordered by their slot in the up map:
+    `order` (B, C_fine) int32 holds the rows of slot 0 in ascending order,
+    then slot 1's, ..., slot 7's, then the rows without a parent (sentinel
+    parents and padding rows); `seg` (B, 10) int32 the bounds, segment s
+    being order[b, seg[b, s]:seg[b, s + 1]]."""
+    order: torch.Tensor
+    seg: torch.Tensor
+
+
+def slot_order_plain(up_parent: torch.Tensor, up_koffset: torch.Tensor, c_coarse: int
+                     ) -> SlotOrder:
+    """Plain version of `slot_order`: a stable torch sort of the keys (the
+    slot, 8 for no parent) and the bounds searched in the sorted keys."""
+    valid = (up_parent >= 0) & (up_parent < c_coarse) & (up_koffset >= 0) & (up_koffset < 8)
+    key = torch.where(valid, up_koffset, _TCONV_SEGMENTS - 1)
+    sorted_key, order = torch.sort(key, dim=1, stable=True)
+    bounds = torch.arange(_TCONV_SEGMENTS + 1, dtype=key.dtype, device=key.device)
+    seg = torch.searchsorted(sorted_key, bounds.expand(key.shape[0], -1).contiguous(),
+                             out_int32=True)
+    return SlotOrder(order.to(torch.int32), seg)
+
+
+def slot_order(up_parent: torch.Tensor, up_koffset: torch.Tensor, c_coarse: int) -> SlotOrder:
+    """The `SlotOrder` of an up map (up_parent, up_koffset (B, C_fine) int32;
+    a parent outside [0, c_coarse) or a slot outside [0, 8) counts as no
+    parent): on the card one launch of a counting sort (`csrc/tconv.cu`),
+    without a host sync.  The pyramid keeps it per level
+    (`sparse/conv.py::level_slots`)."""
+    if not _on_cuda(up_parent, up_koffset):
+        return slot_order_plain(up_parent, up_koffset, c_coarse)
+    b, c_fine = up_parent.shape
+    _check(up_parent, "up_parent", torch.int32, (b, c_fine))
+    _check(up_koffset, "up_koffset", torch.int32, (b, c_fine))
+    order = torch.empty((b, c_fine), dtype=torch.int32, device=up_parent.device)
+    seg = torch.empty((b, _TCONV_SEGMENTS + 1), dtype=torch.int32, device=up_parent.device)
+    fn = cuda_lib.function("tconv.cu", "egonn_slot_order")
+    _raise_on(fn(up_parent.data_ptr(), up_koffset.data_ptr(), order.data_ptr(), seg.data_ptr(),
+                 b, c_coarse, c_fine, _stream(up_parent)), "slot_order")
+    LAUNCHES["slot_order"] += 1
+    return SlotOrder(order, seg)
+
+
+def tconv_plain(feats: torch.Tensor, up_parent: torch.Tensor, up_koffset: torch.Tensor,
+                kernel: torch.Tensor) -> torch.Tensor:
+    """Plain version of `tconv` (the JAX package's form): every fine row's
+    parent (a zero row for the sentinel) times all 8 slots' kernels in one
+    product, of which each row keeps its own slot's; in the kernel's type,
+    returned in the features' (bf16 features: the f32 products of the bf16
+    values, rounded once)."""
+    b, c_coarse, f_in = feats.shape
+    n_slots, _, f_out = kernel.shape
+    feats_p = torch.cat([feats, feats.new_zeros(b, 1, f_in)], dim=1)
+    g = torch.gather(feats_p, 1, up_parent.long()[..., None].expand(-1, -1, f_in))
+    all_slots = torch.matmul(g.to(kernel.dtype),
+                             kernel.permute(1, 0, 2).reshape(f_in, n_slots * f_out))
+    all_slots = all_slots.reshape(b, -1, n_slots, f_out)
+    slot = up_koffset.long()[..., None, None].expand(-1, -1, 1, f_out)
+    return torch.gather(all_slots, 2, slot)[:, :, 0, :].to(feats.dtype)
+
+
+def tconv_cols(f_out: int) -> int:
+    """The output columns of a tconv block: 64 where F_out allows (each
+    block gathers its rows once for all its columns), else 32."""
+    return 64 if f_out % 64 == 0 else 32
+
+
+def _tconv_cuda(feats, up_parent, kernel, slots: SlotOrder, cols: Optional[int] = None):
+    """One tconv launch at widths the kernel takes (F_in a multiple of 4,
+    F_out of 32); `cols` the column slice (None: `tconv_cols`'s)."""
+    b, c_coarse, f_in = feats.shape
+    c_fine, f_out = up_parent.shape[1], kernel.shape[2]
+    cols = tconv_cols(f_out) if cols is None else cols
+    if f_in % 4 or f_out % 32:
+        raise ValueError(f"tconv: F_in={f_in}, F_out={f_out}; the kernel takes F_in a multiple "
+                         "of 4 and F_out of 32")
+    if feats.dtype != torch.float32:
+        raise TypeError(f"tconv: feats {feats.dtype}; the kernel takes f32 features (bf16 "
+                        "activations keep the all-slot product, sparse/conv.py)")
+    _check(feats, "feats", torch.float32, (b, c_coarse, f_in), align16=True)
+    _check(up_parent, "up_parent", torch.int32, (b, c_fine))
+    _check(slots.order, "order", torch.int32, (b, c_fine))
+    _check(slots.seg, "seg", torch.int32, (b, _TCONV_SEGMENTS + 1))
+    _check(kernel, "kernel", torch.float32, (8, f_in, f_out), align16=True)
+    out = torch.empty((b, c_fine, f_out), dtype=torch.float32, device=feats.device)
+    fn = cuda_lib.function("tconv.cu", "egonn_tconv")
+    _raise_on(fn(feats.data_ptr(), up_parent.data_ptr(), slots.order.data_ptr(),
+                 slots.seg.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, c_coarse, c_fine,
+                 f_in, f_out, cols, _stream(feats)), "tconv")
+    return out
+
+
+def tconv(feats: torch.Tensor, up_parent: torch.Tensor, up_koffset: torch.Tensor,
+          kernel: torch.Tensor, slots: Optional[SlotOrder] = None) -> torch.Tensor:
+    """Transposed k=2 s=2 conv from level l+1 onto level l's coordinates:
+    out[b, i] = feats[b, up_parent[b, i]] @ kernel[up_koffset[b, i]], zero
+    where i has no parent.
+
+    feats (B, C_coarse, F_in) f32; up_parent, up_koffset (B, C_fine) int32;
+    kernel (8, F_in, F_out) f32; `slots` the up map's `slot_order` (None:
+    built here).  Returns (B, C_fine, F_out) f32.  Any widths: on the card
+    through `width_plan`'s launches."""
+    if not _on_cuda(feats, up_parent, up_koffset, kernel):
+        return tconv_plain(feats, up_parent, up_koffset, kernel)
+    if feats.dim() != 3 or kernel.dim() != 3 or kernel.shape[0] != 8 or \
+            feats.shape[2] != kernel.shape[1]:
+        raise ValueError(f"feats {tuple(feats.shape)} and kernel {tuple(kernel.shape)}: "
+                         "expected (B, C_coarse, F_in) and (8, F_in, F_out)")
+    if slots is None:
+        slots = slot_order(up_parent, up_koffset, feats.shape[1])
+
+    def launch(f, w, e):
+        out = _tconv_cuda(f, up_parent, w, slots)
+        LAUNCHES["tconv"] += 1
+        return out
+    return planned_conv(launch, feats, kernel, None, width_plan(kernel.shape[1], kernel.shape[2]))
+
+
+KERNELS = (zrun_presence, zrun_rank, gather_conv, tdown, gather_dw, lookup, stem_ones, tconv,
+           slot_order)
 
 
 def reset_launches() -> None:

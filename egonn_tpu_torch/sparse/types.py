@@ -9,9 +9,12 @@ sentinel) gathers a zero row.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
 
 import torch
+
+if TYPE_CHECKING:
+    from egonn_tpu_torch.sparse.kernels import SlotOrder
 
 
 @dataclass
@@ -26,6 +29,8 @@ class Level:
     up_parent: Optional[torch.Tensor] = None    # (B, C) gather into level l+1
     up_koffset: Optional[torch.Tensor] = None   # (B, C) int32 in [0, 8) kernel slot
     source_index: Optional[torch.Tensor] = None  # (B, C) level 0 only: input row
+    # the up map's slot order, built at first use (sparse/conv.py::level_slots)
+    up_slots: Optional[SlotOrder] = None
 
     @property
     def capacity(self) -> int:

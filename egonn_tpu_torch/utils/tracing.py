@@ -14,6 +14,10 @@ kernels they launch:
     egonn.trunk            MinkGL's trunk, MinkLoc's backbone
     egonn.global_head      head, decoder, normalisation, masking, pooling
     egonn.local_head       MinkGL's local head through sigma and kp_mask
+    egonn.tconv            each transposed conv (sparse/conv.py::
+                           sparse_tconv2x2): the FPN top-down steps and
+                           heads, and every down conv's dX in a backward,
+                           inside whichever phase runs it
     egonn.train_step       TrainStep / StagedTrainStep.__call__ (train and
                            validation)
     egonn.step.embed       the staged step's stage 1: the augmentation and

@@ -28,6 +28,14 @@ the rules in `egonn_tpu_torch/sparse/kernels.py` that choose them:
   cells' shapes (the 8 clouds' level-0 maps repeated to 128 EgoNN and 64
   MinkLoc3D clouds), beside its plain form, that form's GEMM alone and its
   bytes bound;
+- tconv (the transposed conv, `csrc/tconv.cu`): the column slice (32, 64,
+  `tconv_cols`) at MinkLoc3D's b64 cell's shape (64 clouds, L3 -> L2, 256
+  wide) and at a MinkLoc3Dv2 staged chunk's (128 submaps, L4 -> L3 and
+  L3 -> L2, 256 wide), on the maps of real forwards, beside the slot order's
+  counting sort alone (`slot_order`), the bytes / operations bound (three
+  TF32 MMAs a product), the all-slot product it replaced (`tconv_plain`)
+  and the route of a slot map handed to gather_conv (`slot_kmap`: the map
+  built beforehand, the gather conv alone);
 - lookup (the grouped down-map launch, `lookup_down`): the coarse rows of a
   block's tile (32, 64, 128, 256, `lookup_rows`) by the table rows its
   shared-memory slice holds (1,024 to 8,192, `_LOOKUP_SLICE`), with the
@@ -36,8 +44,9 @@ the rules in `egonn_tpu_torch/sparse/kernels.py` that choose them:
   in one grouped launch against the per-level form they replace (each
   level's queries formed by torch ops, then one lookup launch per level).
 
-    python3 probe_kernels.py       # from the repository root; one CUDA card, nvcc
-    python3 probe_kernels.py bf16  # the bf16 calls alone (conv and dW)
+    python3 probe_kernels.py        # from the repository root; one CUDA card, nvcc
+    python3 probe_kernels.py bf16   # the bf16 calls alone (conv and dW)
+    python3 probe_kernels.py tconv  # the transposed conv's rows alone
 
 The calls are those of one EgoNN forward (f32, and bf16 under
 EGONN_BF16_ACTS=1: chip_smoke's phase 3b), the gather_dw calls of one bf16
@@ -333,12 +342,78 @@ def map_build_kernels(tag, kernels, args) -> dict:
     return dict(tag=tag, **out)
 
 
+def slot_kmap(up_parent: torch.Tensor, up_koffset: torch.Tensor, c_coarse: int) -> torch.Tensor:
+    """(B, 8, C_fine) int32: the parent where the fine row's slot is k, else
+    the sentinel c_coarse: the transposed conv as a gather conv over 8
+    offsets (the route the tconv kernel was measured against)."""
+    k = torch.arange(8, dtype=torch.int32, device=up_parent.device)[None, :, None]
+    return torch.where(up_koffset[:, None, :] == k, up_parent[:, None, :],
+                       c_coarse).to(torch.int32).contiguous()
+
+
+def tconv_row(tag, args, kernels, cycles_per_ms) -> dict:
+    """One transposed-conv call (feats, up_parent, up_koffset, kernel): the
+    kernel at each column slice over a slot order built beforehand, the slot
+    order alone, the all-slot product, the slot-map gather conv; each
+    output held against the all-slot product."""
+    feats, up_parent, up_koffset, kernel = args[:4]
+    c_coarse, f_out = feats.shape[1], kernel.shape[2]
+    slots = kernels.slot_order(up_parent, up_koffset, c_coarse)
+    kmap = slot_kmap(up_parent, up_koffset, c_coarse)
+    want = kernels.tconv_plain(feats, up_parent, up_koffset, kernel)
+    runs = {f"tconv cols {c}": (lambda c=c: kernels._tconv_cuda(feats, up_parent, kernel,
+                                                                 slots, c))
+            for c in (32, 64) if f_out % c == 0}
+    runs["gather_conv slot map"] = lambda: kernels.gather_conv(feats, kmap, kernel)
+    for name, run in runs.items():
+        chip_smoke.compare("tconv", run(), want)
+    runs["slot_order"] = lambda: kernels.slot_order(up_parent, up_koffset, c_coarse)
+    runs["all-slot"] = lambda: kernels.tconv_plain(feats, up_parent, up_koffset, kernel)
+    times = {name: chip_smoke.device_ms(run, cycles_per_ms, reps=10) for name, run in runs.items()}
+    nbytes, ops, _ = chip_smoke.work("tconv", args, {}, want)
+    times["bound"] = chip_smoke.tc_bound_ms("tconv", nbytes, ops)
+    rule = f"tconv cols {kernels.tconv_cols(f_out)}"
+    chip_smoke.log(f"[{tag}] tconv {chip_smoke.call_desc('tconv', args)}: "
+                   + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+                   + f" ms; rule {rule}; bound by "
+                   + ("bytes" if nbytes / chip_smoke.HBM_BYTES_PER_S >=
+                      3 * ops / chip_smoke.TF32_OPS_PER_S else "operations")
+                   + f", the rule at {100 * times['bound'] / times[rule]:.1f}% of it")
+    return dict(tag=tag, name="tconv", call=chip_smoke.call_desc("tconv", args), times=times,
+                rule=rule, bytes=nbytes, ops=ops)
+
+
+def tconv_rows(kernels, device, cycles_per_ms) -> list:
+    """The transposed convs of a MinkLoc3D forward at the b64 cell's batch
+    and of a MinkLoc3Dv2 forward on a staged chunk of 128 submaps."""
+    from benchmark.core import submaps
+    from egonn_tpu_torch import inference
+    from egonn_tpu_torch.config import ModelParams
+    from egonn_tpu_torch.models.factory import model_factory
+
+    mink = model_factory(chip_smoke._minkloc_params(), cap0=chip_smoke.MINKLOC_CAP0,
+                         device=device, seed=chip_smoke.SEED + 3)
+    clouds, mask = chip_smoke.make_inputs(device, b=64)
+    calls = [("minkloc_b64", c) for c in chip_smoke.record_calls(
+        kernels, lambda: inference.forward(mink, clouds, mask)) if c[0] == "tconv"]
+    del clouds, mask
+    v2 = model_factory(ModelParams(str(chip_smoke.ROOT / "model_configs" / "minkloc3dv2.txt")),
+                       device=device, seed=chip_smoke.SEED)
+    gen = torch.Generator(device=device).manual_seed(chip_smoke.SEED)
+    chunk = submaps.make_places(gen, 32, 4, 4096).reshape(128, 4096, 3)
+    ones = torch.ones(chunk.shape[:2], dtype=torch.bool, device=device)
+    calls += [("staged_chunk", c) for c in chip_smoke.record_calls(
+        kernels, lambda: inference.forward(v2, chunk, ones)) if c[0] == "tconv"]
+    with torch.no_grad():
+        return [tconv_row(tag, args, kernels, cycles_per_ms) for tag, (_, args, _, _) in calls]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("probe_kernels: CUDA is not available", file=sys.stderr)
         return 1
-    if sys.argv[1:] not in ([], ["bf16"]):
-        print(f"probe_kernels: unknown arguments {sys.argv[1:]} (none, or `bf16`)",
+    if sys.argv[1:] not in ([], ["bf16"], ["tconv"]):
+        print(f"probe_kernels: unknown arguments {sys.argv[1:]} (none, `bf16` or `tconv`)",
               file=sys.stderr)
         return 2
     from egonn_tpu_torch import inference
@@ -351,6 +426,13 @@ def main() -> int:
     smi = chip_smoke.phase_environment(cuda_lib)
     device = torch.device("cuda")
     cycles_per_ms = chip_smoke._sleep_cycles_per_ms()
+    tconv = [] if sys.argv[1:] == ["bf16"] else tconv_rows(kernels, device, cycles_per_ms)
+    if sys.argv[1:] == ["tconv"]:
+        chip_smoke.OUT_DIR.mkdir(exist_ok=True)
+        (chip_smoke.OUT_DIR / "probe_kernels.json").write_text(
+            json.dumps(dict(card=smi, tconv=tconv), indent=1))
+        chip_smoke.log(f"card: {smi}")
+        return 0
     mp = types.SimpleNamespace(model="egonn", quantizer=PolarQuantizer([1.0, 0.3, 0.2]),
                                cap0=chip_smoke.CAP0)
     built = create_egonn_model(mp, cap0=chip_smoke.CAP0, device=device, seed=chip_smoke.SEED)
@@ -392,8 +474,10 @@ def main() -> int:
         for tag, calls in paths.items():
             for name, args, kwargs, _ in calls:
                 # the validation step's tdown calls, the bf16 train step's conv and
-                # dW calls (the stem is f32 on every path: swept on the f32 ones)
-                if (name == "lookup" or (tag == "val" and name != "tdown")
+                # dW calls (the stem is f32 on every path: swept on the f32 ones;
+                # the transposed conv has rows of its own, `tconv_rows`)
+                if (name in ("lookup", "tconv", "slot_order")
+                        or (tag == "val" and name != "tdown")
                         or (tag in ("bf16_train", "bf16_minkloc", "bf16_wide")
                             and name not in ("gather_conv", "gather_dw"))
                         or (tag == "bf16_forward" and name == "stem_ones")):
@@ -406,7 +490,7 @@ def main() -> int:
                                       cycles_per_ms))
     chip_smoke.OUT_DIR.mkdir(exist_ok=True)
     (chip_smoke.OUT_DIR / "probe_kernels.json").write_text(
-        json.dumps(dict(card=smi, rows=rows, map_builds=builds), indent=1))
+        json.dumps(dict(card=smi, rows=rows, map_builds=builds, tconv=tconv), indent=1))
     chip_smoke.log(f"card: {smi}")
     return 0
 

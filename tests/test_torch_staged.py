@@ -409,8 +409,10 @@ def test_staged_step_spans(tmp_path):
     """A staged train step is one egonn.train_step: egonn.step.embed (the
     augmentation, then each chunk's quantize, pyramid, trunk and head),
     egonn.step.loss, a forward (trunk and head) and a backward a chunk,
-    and the optimizer; validation the embed and the loss alone."""
-    from test_torch_tracing import _inside, _spans
+    and the optimizer; validation the embed and the loss alone.  Each
+    transposed conv is an egonn.tconv inside the phase that runs it: a
+    forward's two top-down steps, a backward's four down convs' dX."""
+    from test_torch_tracing import _inside, _phases, _spans, _tconvs_inside
 
     tp = _params()
     built, _, _, _ = _weighted(tp)
@@ -430,12 +432,15 @@ def test_staged_step_spans(tmp_path):
             want += ["egonn.step.forward", "egonn.step.backward"] * chunks
             want += ["egonn.step.optimizer"]
         assert [s[0] for s in phases] == want
-        names = [s[0] for s in _inside(spans, phases[0])]
+        names = [s[0] for s in _phases(_inside(spans, phases[0]))]
         per_chunk = ["egonn.quantize", "egonn.pyramid"] + model
         assert names == (["egonn.augment"] if train else []) + per_chunk * chunks
+        assert _tconvs_inside(spans, phases[0]) == 2 * chunks
         for p in phases[1:]:
-            assert [s[0] for s in _inside(spans, p)] == (
+            assert [s[0] for s in _phases(_inside(spans, p))] == (
                 model if p[0] == "egonn.step.forward" else [])
+            assert _tconvs_inside(spans, p) == {"egonn.step.forward": 2,
+                                                "egonn.step.backward": 4}.get(p[0], 0)
 
 
 def _normalized_synthetic(root: str, n_scans: int) -> None:

@@ -106,25 +106,42 @@ def _clouds(n):
     return clouds, torch.ones(clouds.shape[:2], dtype=torch.bool)
 
 
+def _phases(spans):
+    """The spans other than the transposed convs' (`egonn.tconv`), which
+    nest inside the phase that runs them."""
+    return [s for s in spans if s[0] != "egonn.tconv"]
+
+
+def _tconvs_inside(spans, outer):
+    return sum(s[0] == "egonn.tconv" for s in _inside(spans, outer))
+
+
 @pytest.mark.parametrize("model", ["egonn", "minkloc3d_mulran"])
 def test_forward_spans(model, tmp_path):
     """Each inference forward is one egonn.forward holding quantize,
-    pyramid, trunk and the heads, in that order."""
+    pyramid, trunk and the heads, in that order; each transposed conv is an
+    egonn.tconv inside the phase that runs it (MinkFPN's top-down step in
+    the trunk, EgoNN's in the global head (2) and the local head (1))."""
     if model == "egonn":
         built = create_egonn_model(ModelParams("model_configs/egonn.txt"), cap0=CAP0,
                                    device="cpu")
         heads = ["egonn.global_head", "egonn.local_head"]
+        tconvs = {"egonn.trunk": 0, "egonn.global_head": 2, "egonn.local_head": 1}
     else:
         built = model_factory(ModelParams("model_configs/minkloc3d_mulran.txt"), cap0=CAP0,
                               device="cpu")
         heads = ["egonn.global_head"]
+        tconvs = {"egonn.trunk": 1, "egonn.global_head": 0}
     clouds, mask = _clouds(2)
     spans = _spans(lambda: [inference.forward(built, clouds, mask) for _ in range(2)],
                    tmp_path / "trace.json")
     tops = [s for s in spans if s[0] == "egonn.forward"]
     assert len(tops) == 2
     for top in tops:
-        assert [s[0] for s in _inside(spans, top)] == FORWARD_PHASES + heads
+        inner = _inside(spans, top)
+        assert [s[0] for s in _phases(inner)] == FORWARD_PHASES + heads
+        assert {p[0]: _tconvs_inside(spans, p) for p in inner if p[0] in tconvs} == tconvs
+        assert _tconvs_inside(spans, top) == sum(tconvs.values())
     assert sum(len(_inside(spans, t)) + 1 for t in tops) == len(spans)
 
 
@@ -168,10 +185,14 @@ def test_train_step_spans(tmp_path):
         want += ["egonn.step.backward", "egonn.step.optimizer"] if train else []
         assert [s[0] for s in phases] == want
         for i, p in enumerate(phases):
-            names = [s[0] for s in _inside(spans, p)]
+            names = [s[0] for s in _phases(_inside(spans, p))]
             if p[0] == "egonn.step.forward":
                 assert names == (["egonn.augment"] if train and i == 0 else []) + forward
+                assert _tconvs_inside(spans, p) == 3  # the heads' transposed convs
             elif p is phases[4]:
                 assert names and set(names) == {"egonn.loss.nearest_point"}
             else:
                 assert names == []
+                # the backward runs the down convs' dX as transposed convs: 7
+                # levels for the global loss, 4 for each local side
+                assert _tconvs_inside(spans, p) == (15 if p[0] == "egonn.step.backward" else 0)
