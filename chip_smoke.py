@@ -42,8 +42,7 @@ Phases, each printing its lines:
    shared quantization every pyramid map must be bit-equal and the outputs
    within the tolerances of tests/test_torch_model.py; from independent
    quantizations the voxel mismatch rate (atan2 may differ by an ulp) is
-   reported.  Last, clouds/s over 10 forwards on varied inputs (host clock;
-   `python -m egonn_tpu_torch.profile_forward` splits a forward's device time).
+   reported.
 3b. bf16 forward: the same forward with EGONN_BF16_ACTS=1 (set by the
    phase alone, every other phase runs f32 activations): launches 1 / 7 /
    14 / 7 / 1 (zrun_presence / zrun_rank / gather_conv_bf16 / tdown_bf16 /
@@ -59,9 +58,7 @@ Phases, each printing its lines:
    bit-equal; 2 clouds on the card and on the CPU (bf16 forced there) from
    one shared quantization: `global`, descriptors, keypoints and sigma
    within 3e-2 of max |CPU| (tests/test_banded.py's bf16 rule), every
-   output's type the CPU run's; clouds/s (medians of 6 turns of 10
-   forwards, in rounds f32 / bf16 / bf16 / f32), peak memory of the bf16
-   forward beside f32's, max |bf16 - f32| of `global`.
+   output's type the CPU run's; max |bf16 - f32| of `global`.
 4. train kernels: the training parameters of config/config_egonn.txt +
    model_configs/egonn.txt (batch 32, local batch 8, Adam lr 1e-3, weight
    decay 1e-4, aug_mode 2), a full-width batch (16 places x 2 scans of
@@ -77,10 +74,10 @@ Phases, each printing its lines:
    optimizer untouched; finite stats; every parameter and BN statistic
    moved.  Every kernel call of one more validation step (three eval
    forwards, tdown's largest user) is held against its plain version and
-   timed as in phase 4: the `val_step` path.  Train steps/s and clouds/s (host clock, 48 clouds a step) and the
-   peak device memory.  Then one step on 4 global clouds and 2 pairs on the
-   card and on the CPU from the same weights, augmentation off, points at
-   voxel centres (so both build the same pyramids): stats within rel 1e-4,
+   timed as in phase 4: the `val_step` path.  Then one step on 4 global
+   clouds and 2 pairs on the card and on the CPU from the same weights,
+   augmentation off, points at voxel centres (so both build the same
+   pyramids): stats within rel 1e-4,
    every gradient within 1e-2 of the leaf's max |grad| and 2e-3 of its l2
    norm (ReLU branches and argmin matches flip on near-ties), the BN
    statistics within rel 1e-4, and on each side the first Adam update equal
@@ -102,11 +99,9 @@ Phases, each printing its lines:
    step with bf16 forced on the CPU:
    stats and BN statistics within BF16_REL_TOL, gradients by
    `bf16_grad_check` (the rule tests/test_torch_bf16_train.py measured),
-   f32 gradients, each side's first Adam update its closed form; train
-   steps/s and peak memory of the bf16 step beside the f32 step's in
-   BF16_TRAIN_ROUNDS rounds f32 / bf16 / bf16 / f32.  Then `do_train`
-   under the flag: one step at bucket LOOP_BUCKET on phase 10's set beside
-   the f32 step on the same batch (launches, peak memory), and
+   f32 gradients, each side's first Adam update its closed form.  Then
+   `do_train` under the flag: one step at bucket LOOP_BUCKET on phase 10's
+   set beside the f32 step on the same batch (launches), and
    BF16_LOOP_EPOCHS epochs checkpointed every epoch (only bf16 conv and dW
    launches), resumed from a copy of the epoch-1 checkpoint: parameters,
    BatchNorm statistics and Adam's state f32 and bit-equal to the
@@ -133,10 +128,8 @@ Phases, each printing its lines:
    `global` (8, 256), finite and equal (rel <= 1e-6); every kernel call of
    both is held against its plain version and timed (median of 10).  Then 2
    clouds on the card and on the CPU from one shared quantization, each
-   pyramid: maps bit-equal, `global` within rel 1e-5.  Last, clouds/s of
-   each pyramid (host clock): the median of 20 turns of 10 forwards on
-   varied inputs, the two pyramids in alternation.  The lookup pyramid's
-   grouped lookup call is re-run bit-equal.
+   pyramid: maps bit-equal, `global` within rel 1e-5.  The lookup
+   pyramid's grouped lookup call is re-run bit-equal.
 7. wide: gather_conv at (256, 256) and (512, 512) with K = 27 and at
    (256, 512) with K = 8, gather_dw at (256, 256) and (512, 512) with K = 27,
    on seeded ResNet-like inputs (4 clouds of capacity 4,096, 3,000 voxels,
@@ -157,9 +150,7 @@ Phases, each printing its lines:
    finite, every kernel call held against its plain version and timed
    (median of 10), the grouped lookup re-run bit-equal; 2 clouds on the
    card and on the CPU from one shared quantization: pyramids bit-equal,
-   each level's output within rel 1e-5; clouds/s (host clock, median of
-   RESNET_ROUNDS turns of 10 forwards on varied inputs, quantization
-   included).
+   each level's output within rel 1e-5.
 9. eval: the JAX package's synthetic dataset (64 scans, seed 0: 32 map and
    32 query scans of ~6k points after ground removal, padded to 65,536),
    written into build/eval_synth by the port's generator; EgoNN from
@@ -168,8 +159,7 @@ Phases, each printing its lines:
    launches of the whole evaluation (each embedding batch 1/7/14/7/1/3/3, plus the
    capacity check's pyramid), the recall at 5 and 20 m, the 6DoF metrics,
    t_ransac; one embedding batch's launches and every kernel call of it
-   against its plain version and timed (the `eval` path); embedding
-   clouds/s (host clock, loading and padding included).  The global-only
+   against its plain version and timed (the `eval` path).  The global-only
    Evaluator (same top1_ndx) and RotationEvaluator at 0 / 90 / 180 deg (0
    gives the Evaluator's recall).  Card vs CPU on the debug subset (4 + 4
    scans): embeddings within tests/test_torch_model.py's tolerances after
@@ -190,12 +180,10 @@ Phases, each printing its lines:
    points a scan) written by the port's generator into build/train_synth,
    with test_file set.  First one train step each at bucket 32 and at
    bucket 128 (the largest of batch expansion: 128 global clouds + 8
-   pairs): launches TRAIN_STEP_LAUNCHES and the peak device memory; on
-   the bucket-32 batch the host's batch assembly alone and a step's host
-   time alone and beside a thread assembling batches (the Prefetcher's
-   competition for the interpreter), and the same step twice from one
-   state: gradients bit-equal, and every aten op's inputs and outputs
-   checksummed to name the ops whose outputs differ from equal inputs
+   pairs): launches TRAIN_STEP_LAUNCHES; on the bucket-32 batch the same
+   step twice from one state: gradients bit-equal, and every aten op's
+   inputs and outputs checksummed to name the ops whose outputs differ
+   from equal inputs
    (where the steps differ, again under torch.use_deterministic_algorithms).
    Run (a): LOOP_EPOCHS epochs, checkpoints every LOOP_SAVE_FREQ, every
    launch counter zeroed before and read after (each kernel of the loop
@@ -205,10 +193,7 @@ Phases, each printing its lines:
    two is held against its plain version and timed (the `train_loop`
    path); every epoch's stats finite, checkpoints at 5 and 10, 10 epoch
    lines and one in-training evaluation (epoch 10, its Recall@1) in the
-   metrics JSONL; steps/s and clouds/s of the train phases of epochs 2-10
-   (host clock, loading included) beside phase 5's bare step, the loop's
-   wait for the Prefetcher and copy time per step, seconds per epoch, the
-   evaluation's seconds.  Run (b): resumed from a copy of (a)'s epoch-5
+   metrics JSONL.  Run (b): resumed from a copy of (a)'s epoch-5
    checkpoint in a fresh directory to epoch 10: parameters, BatchNorm
    statistics and Adam's state bit-equal to (a)'s.  Numbers under
    "train_loop".
@@ -226,18 +211,19 @@ Phases, each printing its lines:
    bit-equal across the ranks; each rank's launches TRAIN_STEP_LAUNCHES
    and VAL_STEP_LAUNCHES; rank 0's kernel calls of both steps held against
    their plain versions and timed (the `dp` path); the collectives per
-   step with their bytes, each rank's host ms over DP_TIMED_STEPS more
-   steps, the global step rate beside the 1-process step's, and peak
-   memory per rank.  (b) A 1-rank NCCL group runs the same steps: the NCCL
-   collectives on CUDA tensors, bit-equal to the 1-process steps.  (c) The
+   step with their bytes.  (b) A 1-rank NCCL group runs the same steps:
+   the NCCL collectives on CUDA tensors, bit-equal to the 1-process
+   steps.  (c) The
    evaluation of phase 9's set sharded over DP_WORLD gloo ranks: recalls
    and top-1 equal to the unsharded ones, phase 9's embedding batch
    `global` within JAX's sharded-vs-unsharded embedding bound (rtol 2e-4,
    atol 2e-5), launches per rank GLOBAL_EVAL_BATCH_LAUNCHES.  (d) `do_train`
    on a mesh of DP_WORLD (gloo, one card) for DP_EPOCHS epochs on phase 10's
    set against one process with the same buckets and draws, both at lr
-   DP_LR (known difference 20): every epoch stat within rel 1e-4; only rank
-   0 writes the checkpoint and the metrics log.  A rank that fails or does
+   DP_LR (known difference 20), by `epoch_stats_agree`: the continuous
+   stats within rel 1e-4 in epoch 1 and 1e-2 after, each count within one
+   flipped item an epoch; only rank 0 writes the checkpoint and the
+   metrics log.  A rank that fails or does
    not end within DP_TIMEOUT_S fails the phase.  Numbers under
    "data_parallel".
 
@@ -346,7 +332,6 @@ MINKLOC_LOOKUP_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 3, "gather_conv": 8,
                            "stem_ones": 1, "tconv": 1,
                            "slot_order": 1}
 MINKLOC_CAP0 = 40960
-MINKLOC_ROUNDS = 20  # throughput turns of each MinkLoc pyramid
 # Phase 8: ResNet14 at torchvision widths over MinkLoc's quantizer and
 # capacities max(256, cap0 >> min(l, 4)).  One forward: the L0 (k = 5) and
 # L1-L4 self maps by z-run rank (real features: positions, not presence),
@@ -386,11 +371,9 @@ BF16_REL_TOL = 3e-2
 # this much of max |plain| for outputs near 0 (both round the same f32 sums
 # once, summed in another order)
 BF16_ABS_TOL = 1e-6
-BF16_ROUNDS = 3  # rounds of throughput turns f32, bf16, bf16, f32
-# Phase 5b: train steps/s in BF16_TRAIN_ROUNDS rounds of turns f32, bf16,
-# bf16, f32, each turn one warm-up step and BF16_TRAIN_TIMED timed steps;
-# do_train under the flag for BF16_LOOP_EPOCHS epochs, resumed from epoch 1
-BF16_TRAIN_ROUNDS, BF16_TRAIN_TIMED, BF16_LOOP_EPOCHS = 2, 3, 2
+# Phase 5b: do_train under the flag for BF16_LOOP_EPOCHS epochs, resumed
+# from epoch 1
+BF16_LOOP_EPOCHS = 2
 # The bf16 step's gradients against a reference (`bf16_grad_check`: the card
 # against the CPU here, the port against JAX in
 # tests/test_torch_bf16_train.py): together within BF16_WHOLE_L2_TOL in l2,
@@ -403,7 +386,6 @@ BF16_TRAIN_ROUNDS, BF16_TRAIN_TIMED, BF16_LOOP_EPOCHS = 2, 3, 2
 BF16_WHOLE_L2_TOL, BF16_COS_MIN = 0.15, 0.8
 BF16_GRAD_MAX_TOL, BF16_GRAD_L2_TOL = 3e-2, 1e-2
 RESNET_Z_SCALE = 0.25  # the stem's one feature: the voxel centre's z, per 4 m
-RESNET_ROUNDS = 5      # throughput turns of 10 forwards
 # the wrappers recorded apart from KERNELS, and the kernel whose row they feed
 ROW_OF = {"lookup_down": "lookup"}
 REPLACES = {
@@ -460,12 +442,35 @@ LOOP_BUCKET = 128  # config_egonn.txt's batch_size_limit: the largest bucket
 # the kernels a loop step launches (lookup builds no EgoNN map)
 LOOP_KERNELS = ("zrun_presence", "zrun_rank", "gather_conv", "tdown", "gather_dw", "stem_ones",
                 "tconv", "slot_order")
-# Phase 11: data parallel over DP_WORLD ranks sharing the card (gloo); each
-# rank times DP_TIMED_STEPS train steps; do_train on the mesh for DP_EPOCHS
-# epochs against one process at DP_LR (see phase_data_parallel)
-DP_WORLD, DP_TIMED_STEPS, DP_EPOCHS, DP_LR = 2, 3, 2, 1e-5
+# Phase 11: data parallel over DP_WORLD ranks sharing the card (gloo);
+# do_train on the mesh for DP_EPOCHS epochs against one process at DP_LR
+# (see phase_data_parallel)
+DP_WORLD, DP_EPOCHS, DP_LR = 2, 2, 1e-5
 DP_TIMEOUT_S = 300.0  # a rank's wait in a collective, and for a rank to end
 DP_DIR = OUT_DIR / "train_dp"
+# Phase 11(d): do_train's epoch stats (EgoNN: the batch-hard triplet loss
+# and the keypoint losses), each the mean over a phase's steps of the
+# step's value.  The continuous ones are held within rel DP_REL_TOL_FIRST
+# in epoch 1, from the same weights, and DP_REL_TOL after: later epochs
+# follow Adam's updates, whose first step moves a weight with a near-zero
+# gradient by ~lr either way (known difference 10).  They include the means
+# over a pair's keypoints or matching rows (repeatability, pos_similarity,
+# the correspondence loss), whose item is worth one over a count the epoch
+# means do not keep.  The counts, which one rounding flips by a whole item,
+# may differ by DP_MAX_FLIPS items an epoch; DP_COUNT_STATS gives an item's
+# worth in a step's value and whether that value is a mean over the step's
+# pairs.
+DP_REL_TOL_FIRST, DP_REL_TOL = 1e-4, 1e-2
+DP_CONTINUOUS_STATS = ("loss", "global_loss", "local_loss", "avg_embedding_norm",
+                       "max_pos_pair_dist", "min_pos_pair_dist", "mean_pos_pair_dist",
+                       "max_neg_pair_dist", "min_neg_pair_dist", "mean_neg_pair_dist",
+                       "keypoint_loss", "loss_chamfer", "loss_p2p", "chamfer_pure",
+                       "chamfer_weighted", "mean_sigma", "correspondence_loss",
+                       "neg_similarity", "repeatability", "pos_similarity")
+DP_COUNT_STATS = {"num_triplets": (1.0, False), "num_non_zero_triplets": (1.0, False),
+                  "matching_keypoints": (1.0, True), "matching_descriptors": (1.0, True),
+                  "kp_per_cloud": (0.5, True)}  # the mean of a pair's two clouds' counts
+DP_MAX_FLIPS = 1.001  # one item, and f32 rounding of the means
 ROOT = pathlib.Path(__file__).resolve().parent
 
 
@@ -1175,29 +1180,14 @@ def phase_slice(built, kernels, inference, pyramid_mod):
                     / yc2["global"].abs().max())
     log(f"[slice] card vs CPU, independent quantization: voxel mismatch rate {mismatch:.3g} "
         f"of {vg.shape[0] * vg.shape[2]} points, global rel {e2e_rel:.3g}")
-
-    # throughput on varied inputs
-    cps = _clouds_per_s(inference, built, _varied(clouds), mask)
     return dict(launches=launches, capacity=report, global_rel_shared=g_rel,
                 descriptors_abs=d_err, keypoints_abs_m=k_err, sigma_rel=s_rel,
-                voxel_mismatch_rate=mismatch, global_rel_independent=e2e_rel,
-                clouds_per_s=cps, forward_ms=B / cps * 1e3)
+                voxel_mismatch_rate=mismatch, global_rel_independent=e2e_rel)
 
 
 # ---------------------------------------------------------------------------
 # bf16 activations
 # ---------------------------------------------------------------------------
-
-def _forward_peak_gb(run) -> tuple:
-    """run()'s output and its peak device memory above what was allocated
-    before it, in GiB."""
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    out = run()
-    torch.cuda.synchronize()
-    return out, (torch.cuda.max_memory_allocated() - base) / 2**30
-
 
 def _two_cloud_pyramids(built, pyramid_mod) -> tuple:
     """2 clouds (on the CPU) quantized once on the card, and their pyramid
@@ -1211,25 +1201,6 @@ def _two_cloud_pyramids(built, pyramid_mod) -> tuple:
     pc = pyramid_mod.build_pyramid(res2.coords_t.cpu(), res2.mask.cpu(), spec,
                                    keys0=res2.keys.cpu())
     return c2, m2, pg, pc
-
-
-def _varied(clouds: torch.Tensor, n: int = 10) -> list:
-    """n seeded jitters of the clouds (1 cm), so no forward repeats another."""
-    gen = torch.Generator(device=clouds.device).manual_seed(SEED)
-    return [clouds + 0.01 * torch.randn(clouds.shape, generator=gen, device=clouds.device)
-            for _ in range(n)]
-
-
-def _clouds_per_s(inference, built, variants, mask) -> float:
-    """Clouds/s of forwards over `variants` after one warm-up (host clock,
-    ending in a synchronize)."""
-    inference.forward(built, variants[0], mask)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for v in variants:
-        inference.forward(built, v, mask)
-    torch.cuda.synchronize()
-    return B * len(variants) / (time.perf_counter() - t0)
 
 
 def split_tf32_ms(kernels, calls: list, names: tuple, cycles_per_ms: float, reps: int) -> dict:
@@ -1288,22 +1259,19 @@ def phase_bf16(built, kernels, inference, pyramid_mod, cycles_per_ms):
     each re-run bit-equal; two forwards bit-equal; 2 clouds on the card and
     on the CPU (bf16 forced there: the flag keeps the CPU in f32, as JAX's
     keeps it off the TPU) from one shared quantization: each output within
-    BF16_REL_TOL of max |CPU|, every output's type the CPU run's; clouds/s
-    (host clock, medians of 6 turns of 10 forwards, in BF16_ROUNDS rounds
-    f32 / bf16 / bf16 / f32) and peak memory
-    of the bf16 forward beside f32's; max |bf16 - f32| of `global`.  The
-    flag is unset again at the end, whatever happens."""
+    BF16_REL_TOL of max |CPU|, every output's type the CPU run's; max
+    |bf16 - f32| of `global`.  The flag is unset again at the end, whatever
+    happens."""
     from egonn_tpu_torch.sparse import conv as sconv
 
     clouds, mask = make_inputs(built.device)
     spec = built.pyramid_spec
-    y32, peak32 = _forward_peak_gb(lambda: inference.forward(built, clouds, mask))
+    y32 = inference.forward(built, clouds, mask)
     os.environ["EGONN_BF16_ACTS"] = "1"
     try:
         if sconv.activation_dtype(built.device) != torch.bfloat16:
             raise AssertionError("EGONN_BF16_ACTS=1 did not give bf16 activations on the card")
-        y, peak16 = _forward_peak_gb(lambda: inference.forward(built, clouds, mask))
-        _, launches = _path_launches(kernels, lambda: inference.forward(built, clouds, mask),
+        y, launches = _path_launches(kernels, lambda: inference.forward(built, clouds, mask),
                                      BF16_LAUNCHES, "bf16 forward", tag="bf16")
         again = [inference.forward(built, clouds, mask) for _ in range(2)]
         repeat_equal = all(torch.equal(a[k], y[k]) for a in again for k in y)
@@ -1351,31 +1319,13 @@ def phase_bf16(built, kernels, inference, pyramid_mod, cycles_per_ms):
             raise AssertionError(f"bf16 forward: card and CPU disagree: {card_cpu}")
     finally:
         os.environ.pop("EGONN_BF16_ACTS", None)
-
-    # throughput, in BF16_ROUNDS rounds of turns f32, bf16, bf16, f32
-    variants = _varied(clouds)
-    turns = {"f32": [], "bf16": []}
-    for kind in ("f32", "bf16", "bf16", "f32") * BF16_ROUNDS:
-        if kind == "bf16":
-            os.environ["EGONN_BF16_ACTS"] = "1"
-        try:
-            turns[kind].append(_clouds_per_s(inference, built, variants, mask))
-        finally:
-            os.environ.pop("EGONN_BF16_ACTS", None)
     g_err = float((y["global"] - y32["global"]).abs().max())
     g_max = float(y32["global"].abs().max())
-    med = {k: statistics.median(v) for k, v in turns.items()}
-    log(f"[bf16] clouds/s (host clock, turns of 10 forwards of {B} x {N_POINTS} points): bf16 "
-        f"median {med['bf16']:.1f} {[round(t, 1) for t in turns['bf16']]} against f32 median "
-        f"{med['f32']:.1f} {[round(t, 1) for t in turns['f32']]}; "
-        f"forward peak memory above its inputs and weights: bf16 {peak16:.3f} GiB, f32 "
-        f"{peak32:.3f} GiB; max |bf16 - f32| of global {g_err:.3g} (max |f32| {g_max:.3g})")
+    log(f"[bf16] max |bf16 - f32| of global {g_err:.3g} (max |f32| {g_max:.3g})")
     return rows, dict(launches=launches, card_vs_cpu=card_cpu, output_types=types_,
                       repeat_bit_equal=repeat_equal, repeats=repeats, split_tf32_ms=f32_ms,
-                      sm80_body_ms=sm80_ms,
-                      clouds_per_s=turns, clouds_per_s_median=med,
-                      peak_gb=dict(bf16=peak16, f32=peak32),
-                      global_max_abs_diff_f32=g_err, global_max_abs_f32=g_max)
+                      sm80_body_ms=sm80_ms, global_max_abs_diff_f32=g_err,
+                      global_max_abs_f32=g_max)
 
 
 # ---------------------------------------------------------------------------
@@ -1425,24 +1375,18 @@ def _finite_stats(stats: dict, what: str) -> dict:
 def phase_train_slice(step, g, l, lr, kernels):
     model, opt = step.state.model, step.state.optimizer
     device = g["clouds"].device
-    n_clouds = g["clouds"].shape[0] + 2 * l["anc_clouds"].shape[0]
     step(g, l, _gen(device, 1), lr, True)  # warm-up
     torch.cuda.synchronize()
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    torch.cuda.reset_peak_memory_stats()
-    host_s = []
     for i in range(TRAIN_STEPS):
         kernels.reset_launches()
-        t0 = time.perf_counter()
         stats = step(g, l, _gen(device, 2 + i), lr, True)
         torch.cuda.synchronize()
-        host_s.append(time.perf_counter() - t0)
         launches = kernels.launch_counts()
         if launches != TRAIN_STEP_LAUNCHES:
             raise AssertionError(f"train step {i}: launches {launches}, expected "
                                  f"{TRAIN_STEP_LAUNCHES}")
     train_stats = _finite_stats(stats, "train step")
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
     after = model.state_dict()
     still = [k for k in before if torch.equal(before[k], after[k])]
     if still:
@@ -1468,11 +1412,8 @@ def phase_train_slice(step, g, l, lr, kernels):
         raise AssertionError(f"the validation step changed {changed}")
     log(f"[train] validation step: launches {val_launches}, loss {val_stats['loss']:.6g}; "
         "model and optimizer untouched")
-    sec = sum(host_s)
     return dict(train_launches=launches, val_launches=val_launches, train_stats=train_stats,
-                val_stats=val_stats, step_s=host_s, steps_per_s=TRAIN_STEPS / sec,
-                clouds_per_s=TRAIN_STEPS * n_clouds / sec, clouds_per_step=n_clouds,
-                peak_memory_gb=peak_gb)
+                val_stats=val_stats)
 
 
 def _voxel_centres(quantizer, pc):
@@ -1628,40 +1569,9 @@ def _bf16_card_vs_cpu(tp, g, l, lr) -> dict:
                 card_s=card["seconds"], cpu_s=host["seconds"])
 
 
-def _step_turns(tp, g, l, lr) -> dict:
-    """Train steps/s (host clock, ending in a synchronize) and peak device
-    memory of the f32 and the bf16 step on one model, in BF16_TRAIN_ROUNDS
-    rounds of turns f32, bf16, bf16, f32: each turn one warm-up step, then
-    BF16_TRAIN_TIMED steps."""
-    from egonn_tpu_torch.models.factory import create_egonn_model
-    from egonn_tpu_torch.train.trainer import make_train_step
-
-    device = g["clouds"].device
-    step = make_train_step(create_egonn_model(tp.model_params, cap0=CAP0, device=device,
-                                              seed=SEED + 1), tp)
-    turns, peak = {"f32": [], "bf16": []}, {"f32": 0.0, "bf16": 0.0}
-    for i, kind in enumerate(("f32", "bf16", "bf16", "f32") * BF16_TRAIN_ROUNDS):
-        if kind == "bf16":
-            os.environ["EGONN_BF16_ACTS"] = "1"
-        try:
-            step(g, l, _gen(device, 100 + i), lr, True)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            for j in range(BF16_TRAIN_TIMED):
-                step(g, l, _gen(device, 200 + 10 * i + j), lr, True)
-            torch.cuda.synchronize()
-            turns[kind].append(BF16_TRAIN_TIMED / (time.perf_counter() - t0))
-            peak[kind] = max(peak[kind], torch.cuda.max_memory_allocated() / 2**30)
-        finally:
-            os.environ.pop("EGONN_BF16_ACTS", None)
-    return dict(steps_per_s=turns, peak_gb=peak,
-                median={k: statistics.median(v) for k, v in turns.items()})
-
-
 def _bf16_loop(kernels, device, smi) -> dict:
     """do_train under the flag: one step at bucket LOOP_BUCKET beside the
-    f32 step on the same batch (launches, peak memory), then
+    f32 step on the same batch (launches), then
     BF16_LOOP_EPOCHS epochs with a checkpoint every epoch (every conv and dW
     launch on the bf16 kernels) and a resume from a copy of the epoch-1
     checkpoint: parameters, BatchNorm statistics and Adam's state bit-equal
@@ -1678,16 +1588,15 @@ def _bf16_loop(kernels, device, smi) -> dict:
         if kind == "bf16":
             os.environ["EGONN_BF16_ACTS"] = "1"
         try:
-            launches, peak, b_rows, _ = _bucket_step(tp, built, kernels, ds, lds, big, lids,
-                                                     device)
+            launches, b_rows, _ = _bucket_step(tp, built, kernels, ds, lds, big, lids, device)
         finally:
             os.environ.pop("EGONN_BF16_ACTS", None)
         torch.cuda.empty_cache()
         log(f"[bf16-loop] {kind} train step at bucket {b_rows} ({len(big)} global clouds + "
-            f"{len(lids)} pairs): launches {launches}, peak memory {peak:.2f} GiB on {smi}")
+            f"{len(lids)} pairs): launches {launches} on {smi}")
         if launches != want:
             raise AssertionError(f"{kind} step at bucket {b_rows}: launches {launches}")
-        out["bucket"][kind] = dict(rows=b_rows, launches=launches, peak_gb=peak)
+        out["bucket"][kind] = dict(rows=b_rows, launches=launches)
     del built
 
     run_dir = OUT_DIR / "train_loop_bf16"
@@ -1738,9 +1647,8 @@ def phase_bf16_train(tp, g, l, lr, kernels, cycles_per_ms, levels, smi):
     DW_REL_TOL of max |plain|) and each distinct shape timed (median of 10),
     the conv and dW calls beside the split-TF32 kernels on the same calls
     in f32; the largest gather_dw_bf16 call re-run bit-equal; a card vs CPU
-    step (bf16 forced on the CPU); steps/s and peak memory beside the f32
-    step's; the training loop under the flag (`_bf16_loop`).  Returns the
-    two paths' rows and the phase's numbers."""
+    step (bf16 forced on the CPU); the training loop under the flag
+    (`_bf16_loop`).  Returns the two paths' rows and the phase's numbers."""
     from egonn_tpu_torch.models.factory import create_egonn_model
     from egonn_tpu_torch.sparse import conv as sconv
     from egonn_tpu_torch.train.trainer import make_train_step
@@ -1797,15 +1705,6 @@ def phase_bf16_train(tp, g, l, lr, kernels, cycles_per_ms, levels, smi):
         out["card_vs_cpu"] = _bf16_card_vs_cpu(tp, g, l, lr)
     finally:
         os.environ.pop("EGONN_BF16_ACTS", None)
-    turns = out["turns"] = _step_turns(tp, g, l, lr)
-    n_clouds = g["clouds"].shape[0] + 2 * l["anc_clouds"].shape[0]
-    med = turns["median"]
-    log(f"[bf16-train] train steps/s (host clock, {BF16_TRAIN_TIMED} steps of {n_clouds} clouds "
-        f"a turn): bf16 median {med['bf16']:.3f} "
-        f"{[round(t, 3) for t in turns['steps_per_s']['bf16']]} against f32 median "
-        f"{med['f32']:.3f} {[round(t, 3) for t in turns['steps_per_s']['f32']]} "
-        f"({med['bf16'] * n_clouds:.1f} / {med['f32'] * n_clouds:.1f} clouds/s); peak memory "
-        f"bf16 {turns['peak_gb']['bf16']:.2f} GiB, f32 {turns['peak_gb']['f32']:.2f} GiB on {smi}")
     torch.cuda.empty_cache()
     out["loop"] = _bf16_loop(kernels, device, smi)
     return {"bf16_train_step": train_rows, "bf16_val_step": val_rows}, out
@@ -1954,28 +1853,8 @@ def phase_minkloc(kernels, inference, pyramid_mod, cycles_per_ms, device):
         f"{cpu_rel}")
     if not max(cpu_rel.values()) <= 1e-5:
         raise AssertionError("card and CPU MinkLoc forwards disagree beyond tolerance")
-
-    # throughput on varied inputs: the two pyramids in turns, 10 forwards a
-    # turn, the order swapped every round; the median turn of each
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    iters = 10
-    variants = [clouds + 0.01 * torch.randn(clouds.shape, generator=gen, device=device)
-                for _ in range(iters)]
-    paths = [("minkloc", built), ("minkloc_lookup", lookup_built)]
-    turns = {name: [] for name, _ in paths}
-    for rnd in range(MINKLOC_ROUNDS):
-        for name, b in paths[::1 if rnd % 2 == 0 else -1]:
-            inference.forward(b, variants[0], mask)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for v in variants:
-                inference.forward(b, v, mask)
-            torch.cuda.synchronize()
-            turns[name].append(B * iters / (time.perf_counter() - t0))
-    rates = {name: statistics.median(r) for name, r in turns.items()}
     return rows, dict(launches=launches, capacity=report, spec_rel=spec_rel,
-                      spec_bit_equal=spec_equal, card_vs_cpu_rel=cpu_rel, clouds_per_s=rates,
-                      clouds_per_s_turns=turns, lookup_repeat=repeat)
+                      spec_bit_equal=spec_equal, card_vs_cpu_rel=cpu_rel, lookup_repeat=repeat)
 
 
 # ---------------------------------------------------------------------------
@@ -2003,7 +1882,7 @@ def phase_resnet(kernels, pyramid_mod, cycles_per_ms, device):
     stem), seeded weights, on phase 2's 8 clouds through MinkLoc's cartesian
     0.3 m quantizer: capacity, launch counts, every kernel call against its
     plain version and timed, the grouped lookup re-run bit-equal, card vs
-    CPU on 2 clouds from one shared quantization, clouds/s."""
+    CPU on 2 clouds from one shared quantization."""
     from egonn_tpu_torch.models.resnet import ResNetBase
 
     quantizer = _minkloc_params().quantizer
@@ -2058,23 +1937,7 @@ def phase_resnet(kernels, pyramid_mod, cycles_per_ms, device):
         f"outputs rel {cpu_rel}")
     if not max(cpu_rel.values()) <= FLOAT_REL_TOL:
         raise AssertionError("card and CPU ResNet14 forwards disagree beyond tolerance")
-
-    # throughput on varied inputs: RESNET_ROUNDS turns of 10 forwards
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    iters = 10
-    variants = [clouds + 0.01 * torch.randn(clouds.shape, generator=gen, device=device)
-                for _ in range(iters)]
-    turns = []
-    for _ in range(RESNET_ROUNDS):
-        forward(model, variants[0], mask)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for v in variants:
-            forward(model, v, mask)
-        torch.cuda.synchronize()
-        turns.append(B * iters / (time.perf_counter() - t0))
     return rows, dict(launches=launches, capacity=report, card_vs_cpu_rel=cpu_rel,
-                      clouds_per_s=statistics.median(turns), clouds_per_s_turns=turns,
                       lookup_repeat=repeat)
 
 
@@ -2350,12 +2213,6 @@ def phase_eval(kernels, cycles_per_ms, device, smi):
     eval_rows, _ = _measured_path(kernels, lambda: inference.forward(built, clouds, mask),
                                   batch_launches, cycles_per_ms, reps=10, tag="eval-kernels",
                                   levels=level_of(built.pyramid_spec.capacities))
-    t0 = time.perf_counter()
-    ev.compute_embeddings(ev.eval_set.map_set, with_local=True, n_k=max(EVAL_N_K))
-    sec = time.perf_counter() - t0
-    out["embed_clouds_per_s"] = n_map / sec
-    log(f"[eval] embeddings: {out['embed_clouds_per_s']:.1f} clouds/s over the {n_map} map "
-        f"scans, loading and padding included (host clock) on {smi}")
 
     # the global-only evaluator and the rotation sweep
     evg = Evaluator(str(EVAL_DIR), "synthetic", names[2], built, **kw)
@@ -2485,7 +2342,7 @@ def _loop_params(names, epochs: int, save_freq: int = LOOP_SAVE_FREQ):
 
 class _LoopWatch:
     """While active, every `TrainStep` call of the loop is noted (epoch,
-    train, clouds); the first train step's and the first validation step's
+    train, global rows); the first train step's and the first validation step's
     kernel calls are recorded and their launches counted."""
 
     def __init__(self, trainer, kernels):
@@ -2498,8 +2355,7 @@ class _LoopWatch:
 
         def call(step, g, l, gen, lr, train):
             watch.steps.append(dict(epoch=step.state.epoch + 1, train=train,
-                                    rows=g["clouds"].shape[0],
-                                    clouds=g["clouds"].shape[0] + 2 * l["anc_clouds"].shape[0]))
+                                    rows=g["clouds"].shape[0]))
             if train in watch.calls:
                 return watch.orig(step, g, l, gen, lr, train)
             before, out = kernels.launch_counts(), []
@@ -2543,7 +2399,7 @@ def _read_metrics(path: pathlib.Path) -> list:
 
 def _bucket_step(tp, built, kernels, ds, lds, ids, lids, device) -> tuple:
     """One train step on the elements `ids` (padded to their bucket) and
-    the pairs `lids`: (launches, peak device memory in GiB, rows, inputs)."""
+    the pairs `lids`: (launches, rows, inputs)."""
     from egonn_tpu_torch.data.local_dataset import make_local_batch
     from egonn_tpu_torch.data.pipeline import make_global_batch
     from egonn_tpu_torch.train.trainer import expansion_buckets, make_train_step
@@ -2558,66 +2414,11 @@ def _bucket_step(tp, built, kernels, ds, lds, ids, lids, device) -> tuple:
               pos_clouds=as_t(l.pos_clouds), pos_mask=as_t(l.pos_mask), t_gt=as_t(l.t_gt))
     step = make_train_step(built, tp)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     before = kernels.launch_counts()
     _finite_stats(step(gd, ld, _gen(device, SEED), 1e-3, True), f"step at {len(g.clouds)} rows")
     torch.cuda.synchronize()
     after = kernels.launch_counts()
-    return ({k: after[k] - before[k] for k in after}, torch.cuda.max_memory_allocated() / 2**30,
-            len(g.clouds), (gd, ld))
-
-
-def _host_contention(tp, built, ds, lds, ids, lids, g, l, device, n: int = 5) -> dict:
-    """Host ms of one batch's assembly alone (make_global_batch +
-    make_local_batch, one thread), and ms per train step on one device
-    batch (n steps ending in a synchronize) alone and with a thread
-    assembling batches beside it, as the Prefetcher's does."""
-    import threading
-
-    from egonn_tpu_torch.data.local_dataset import make_local_batch
-    from egonn_tpu_torch.data.pipeline import make_global_batch
-    from egonn_tpu_torch.train.trainer import expansion_buckets, make_train_step
-
-    buckets = expansion_buckets(tp.batch_size, tp.batch_size_limit, tp.batch_expansion_rate)
-    step = make_train_step(built, tp)
-
-    def assemble():
-        t0 = time.perf_counter()
-        make_global_batch(ds, ids, N_POINTS, buckets)
-        t1 = time.perf_counter()
-        make_local_batch(lds, lids, N_POINTS)
-        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
-
-    def steps_ms():
-        step(g, l, _gen(device, SEED), 1e-3, True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(n):
-            step(g, l, _gen(device, SEED + i), 1e-3, True)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / n * 1e3
-
-    times = [assemble() for _ in range(3)]
-    alone = steps_ms()
-    stop = threading.Event()
-    built_batches = []
-
-    def loader():
-        while not stop.is_set():
-            assemble()
-            built_batches.append(1)
-
-    th = threading.Thread(target=loader, daemon=True)
-    th.start()
-    try:
-        busy = steps_ms()
-    finally:
-        stop.set()
-        th.join()
-    return dict(global_batch_ms=statistics.median(t[0] for t in times),
-                local_batch_ms=statistics.median(t[1] for t in times),
-                step_ms_alone=alone, step_ms_with_loader=busy,
-                batches_during=len(built_batches))
+    return {k: after[k] - before[k] for k in after}, len(g.clouds), (gd, ld)
 
 
 def _op_checksums(run) -> list:
@@ -2671,8 +2472,8 @@ def _divergence(a: list, b: list) -> dict:
 
 def _determinism_probe(tp, device, g, l) -> dict:
     """One train step twice from one state on one batch with one generator:
-    the gradients that differ, the nondeterministic aten ops (`_divergence`)
-    and host ms per step; where the two differ, the same again under
+    the gradients that differ and the nondeterministic aten ops
+    (`_divergence`); where the two differ, the same again under
     torch.use_deterministic_algorithms(True, warn_only=True), with the
     warnings it gave."""
     from egonn_tpu_torch.models.factory import create_egonn_model
@@ -2699,14 +2500,6 @@ def _determinism_probe(tp, device, g, l) -> dict:
         one_step()
         return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
-    def step_ms(n=3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            one_step()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / n * 1e3
-
     def first_divergence():
         return _divergence(traced_step(), traced_step())
 
@@ -2718,11 +2511,10 @@ def _determinism_probe(tp, device, g, l) -> dict:
             try:
                 a, b = grads(), grads()
                 diverges = first_divergence()
-                ms = step_ms()
             finally:
                 torch.use_deterministic_algorithms(False)
         out[mode] = dict(leaves=sorted(n for n in a if not torch.equal(a[n], b[n])),
-                         first_op=diverges, step_ms=ms,
+                         first_op=diverges,
                          warnings=sorted({str(w.message)[:160] for w in caught}))
         if not out[mode]["leaves"] and diverges["first_differing_input"] is None:
             break  # repeatable: the deterministic algorithms are not needed
@@ -2751,7 +2543,7 @@ def _loop_data() -> tuple:
     return names, ds, lds, next(iter(sampler))
 
 
-def phase_train_loop(kernels, cycles_per_ms, device, smi, bare_steps_per_s):
+def phase_train_loop(kernels, cycles_per_ms, device, smi):
     """Phase 10: do_train on the card (see the module docstring)."""
     from egonn_tpu_torch.models.factory import create_egonn_model
     from egonn_tpu_torch.sparse.pyramid import egonn_pyramid_spec
@@ -2764,27 +2556,20 @@ def phase_train_loop(kernels, cycles_per_ms, device, smi, bare_steps_per_s):
     out = dict(dataset_s=time.perf_counter() - t0, train_elements=len(ds), bucket={},
                names=list(names))
 
-    # one step each at buckets 32 and 128 (launches, peak memory); on the
-    # bucket-32 batch the host's batch assembly against a step, and whether
-    # two steps from one state are bit-equal
+    # one step each at buckets 32 and 128 (launches); on the bucket-32
+    # batch, whether two steps from one state are bit-equal
     built = create_egonn_model(tp.model_params, device=device, seed=SEED + 6)
     lids = lds.valid_ids[:tp.local_batch_size]
     for ids in (big[:2 * N_PLACES], big):
-        step_launches, peak, b_rows, inputs = _bucket_step(tp, built, kernels, ds, lds, ids,
-                                                           lids, device)
+        step_launches, b_rows, inputs = _bucket_step(tp, built, kernels, ds, lds, ids, lids,
+                                                     device)
         log(f"[loop] one train step at bucket {b_rows} ({len(ids)} global clouds + "
-            f"{len(lids)} pairs): launches {step_launches}, peak memory {peak:.2f} GiB on {smi}")
+            f"{len(lids)} pairs): launches {step_launches} on {smi}")
         if step_launches != TRAIN_STEP_LAUNCHES:
             raise AssertionError(f"bucket {b_rows}: launches {step_launches}")
-        out["bucket"][b_rows] = dict(launches=step_launches, peak_gb=peak)
+        out["bucket"][b_rows] = dict(launches=step_launches)
         if b_rows != 2 * N_PLACES:
             continue
-        host = out["host"] = _host_contention(tp, built, ds, lds, ids, lids, *inputs, device)
-        log(f"[loop] host: one batch's assembly alone {host['global_batch_ms']:.1f} ms "
-            f"global + {host['local_batch_ms']:.1f} ms local (one thread); a train step on "
-            f"one device batch {host['step_ms_alone']:.1f} ms alone, "
-            f"{host['step_ms_with_loader']:.1f} ms with a thread assembling batches beside "
-            f"it ({host['batches_during']} batches meanwhile; host clock) on {smi}")
         probe = out["determinism"] = _determinism_probe(tp, device, *inputs)
         for mode in ("default", "deterministic"):
             if mode in probe:
@@ -2792,8 +2577,7 @@ def phase_train_loop(kernels, cycles_per_ms, device, smi, bare_steps_per_s):
                 log(f"[loop] determinism ({mode} algorithms), one train step twice from one "
                     f"state: {len(pm['leaves'])} of {probe['grads']} gradients differ "
                     f"{pm['leaves'][:6]}; ops whose outputs differ from equal inputs before "
-                    f"the first differing input {pm['first_op']}; {pm['step_ms']:.1f} ms per "
-                    f"step; warnings {pm['warnings']}")
+                    f"the first differing input {pm['first_op']}; warnings {pm['warnings']}")
     del inputs
     if sorted(out["bucket"]) != [2 * N_PLACES, LOOP_BUCKET]:
         raise AssertionError(f"buckets {sorted(out['bucket'])}")
@@ -2801,14 +2585,12 @@ def phase_train_loop(kernels, cycles_per_ms, device, smi, bare_steps_per_s):
 
     # (a) LOOP_EPOCHS epochs, every launch counted
     kernels.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with _LoopWatch(trainer, kernels) as watch:
         state_a, stats_a, name = trainer.do_train(tp, weights_path=str(LOOP_DIR / "a"),
                                                   device=device)
     torch.cuda.synchronize()
     out["run_a_s"] = time.perf_counter() - t0
-    out["run_a_peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
     launches = out["launches"] = kernels.launch_counts()
     log(f"[loop] run (a): {LOOP_EPOCHS} epochs in {out['run_a_s']:.1f} s, launches {launches}")
     missing = [k for k in LOOP_KERNELS if launches[k] == 0]
@@ -2838,35 +2620,11 @@ def phase_train_loop(kernels, cycles_per_ms, device, smi, bare_steps_per_s):
             math.isfinite(v) for v in tests[0]["test"]["recall@1"].values()):
         raise AssertionError(f"in-training evaluation records {tests}")
     out["test"] = tests[0]["test"]
-    out["eval_s"] = tests[0]["seconds"]
-    ts = [records[0]["_ts"]] + [r["_ts"] for r in epochs]
-    out["epoch_s"] = [b - a for a, b in zip(ts, ts[1:])]
-    steady = [r for r in epochs if r["epoch"] > 1]
-    clouds = {(s["epoch"], s["train"]): 0 for s in watch.steps}
-    for s in watch.steps:
-        clouds[(s["epoch"], s["train"])] += s["clouds"]
-    for phase, train in (("train", True), ("val", False)):
-        sec = sum(r["seconds"][phase] for r in steady)
-        out[f"{phase}_steps_per_s"] = sum(r["steps"][phase] for r in steady) / sec
-        out[f"{phase}_clouds_per_s"] = sum(clouds[(r["epoch"], train)] for r in steady) / sec
-    n_train = sum(r["steps"]["train"] for r in steady)
-    out["train_wait_ms"] = sum(r["input_wait_s"]["train"] for r in steady) / n_train * 1e3
-    out["train_copy_ms"] = sum(r["copy_s"]["train"] for r in steady) / n_train * 1e3
     out["stats_last"] = dict(train=stats_a["train"][-1], val=stats_a["val"][-1])
     out["rows"] = sorted({(s["train"], s["rows"]) for s in watch.steps})
     log(f"[loop] epoch {LOOP_EPOCHS} train loss {stats_a['train'][-1]['loss']:.6g}, val loss "
         f"{stats_a['val'][-1]['loss']:.6g}; global rows per step (train, rows) {out['rows']}; "
-        f"in-training evaluation at epoch {LOOP_EPOCHS}: Recall@1 {out['test']['recall@1']} in "
-        f"{out['eval_s']:.2f} s")
-    log(f"[loop] {out['train_steps_per_s']:.3f} train steps/s, {out['train_clouds_per_s']:.1f} "
-        f"clouds/s over epochs 2-{LOOP_EPOCHS}'s train phases (host clock, loading included), "
-        f"against phase 5's bare step {bare_steps_per_s:.3f} steps/s; per train step "
-        f"{out['train_wait_ms']:.1f} ms waiting for the Prefetcher and "
-        f"{out['train_copy_ms']:.1f} ms copying to the card; validation "
-        f"{out['val_steps_per_s']:.3f} steps/s; seconds per epoch "
-        f"{[round(x, 2) for x in out['epoch_s']]} (epoch {LOOP_EPOCHS} with the evaluation); "
-        f"run (a) peak memory {out['run_a_peak_gb']:.2f} GiB (recorded calls and the "
-        f"evaluation included) on {smi}")
+        f"in-training evaluation at epoch {LOOP_EPOCHS}: Recall@1 {out['test']['recall@1']}")
 
     # the first train and validation steps' kernel calls against their plain versions
     rows = new_rows(kernels)
@@ -2909,11 +2667,10 @@ def _dp_rank(group, tp, g: dict, l: dict, lr: float, record: bool = False) -> di
     BatchNorms perturbed as in phase 9: at their initial statistics the
     eval-mode embeddings are almost equal, and the validation step's pair
     distances, ~2.5e-4, would be differences of nearly equal vectors) on
-    this rank's rows of the batch (numpy, whole), then one validation step,
-    one train step with augmentation from a generator seeded SEED (both
-    counted: launches, collectives) and DP_TIMED_STEPS more train steps
-    (host ms each, ending in a synchronize).  record: also the kernel calls
-    of the two counted steps (rank 0, in this process)."""
+    this rank's rows of the batch (numpy, whole), then one validation step
+    and one train step with augmentation from a generator seeded SEED (both
+    counted: launches, collectives).  record: also the kernel calls of the
+    two steps (rank 0, in this process)."""
     from egonn_tpu_torch.models.factory import create_egonn_model
     from egonn_tpu_torch.parallel import mesh
     from egonn_tpu_torch.parallel.dryrun import rows_of
@@ -2946,21 +2703,12 @@ def _dp_rank(group, tp, g: dict, l: dict, lr: float, record: bool = False) -> di
         out[f"{name}_stats"] = {k: float(v) for k, v in box[0].items()}
 
     counted("val", False, None)
-    torch.cuda.reset_peak_memory_stats(device)
     counted("train", True, torch.Generator(device=device).manual_seed(SEED))
     model, adam = built.model, step.state.optimizer.state
     out["grads"] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
     out["state"] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     out["adam"] = {n: [adam[p][k].detach().cpu() for k in ("exp_avg", "exp_avg_sq")]
                    for n, p in model.named_parameters()}
-    out["step_ms"] = []
-    for i in range(DP_TIMED_STEPS):
-        gen = torch.Generator(device=device).manual_seed(SEED + 100 + i)
-        t0 = time.perf_counter()
-        step(gd, ld, gen, lr, True)
-        torch.cuda.synchronize(device)
-        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
-    out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 2**30
     return out
 
 
@@ -2979,14 +2727,12 @@ def _dp_eval_rank(group, eval_file: str) -> dict:
     _perturb_bn(built.model, SEED + 5)
     ev = Evaluator(str(EVAL_DIR), "synthetic", eval_file, built, num_points=N_POINTS,
                    batch_size=B, group=group)
-    t0 = time.perf_counter()
     m = ev.evaluate()
-    seconds = time.perf_counter() - t0
     kernels.reset_launches()
     emb = ev.compute_embeddings(ev.eval_set.map_set[:B])
     torch.cuda.synchronize(device)
     return dict(recall={str(r): v.tolist() for r, v in m["recall"].items()},
-                top1=m["top1_ndx"].tolist(), global_=emb["global"], seconds=seconds,
+                top1=m["top1_ndx"].tolist(), global_=emb["global"],
                 launches=kernels.launch_counts())
 
 
@@ -3017,14 +2763,50 @@ def _same(a: dict, b: dict) -> bool:
     return a.keys() == b.keys() and all(eq(a[k], b[k]) for k in a)
 
 
-def phase_data_parallel(tp, g, l, lr, kernels, cycles_per_ms, smi, bare_steps_per_s,
-                        eval_file: str, loop_names: list):
+def epoch_stats_agree(mesh: list, one: list, pairs: int) -> dict:
+    """Phase 11(d)'s comparison of two do_train runs by their epoch records
+    (the metrics log's lines with "train": epoch, steps per phase and each
+    phase's stats): each DP_CONTINUOUS_STATS stat within rel
+    DP_REL_TOL_FIRST of one's in epoch 1 and DP_REL_TOL after, each
+    DP_COUNT_STATS stat within DP_MAX_FLIPS items (`pairs` pairs a step).
+    Epochs or steps that differ, or a stat in neither list, fail at once.
+    Returns ok, the continuous stats' differences as shares of their bound
+    and the count stats' differences in items, each a list of (value,
+    stat, mesh's, one's), the largest first."""
+    if [(r["epoch"], r["steps"]) for r in mesh] != [(r["epoch"], r["steps"]) for r in one]:
+        raise AssertionError(f"epochs and steps {[(r['epoch'], r['steps']) for r in mesh]} "
+                             f"against {[(r['epoch'], r['steps']) for r in one]}")
+    bounds, flips = [], []
+    for a, b in zip(mesh, one):
+        tol = DP_REL_TOL_FIRST if b["epoch"] == 1 else DP_REL_TOL
+        for phase, steps in b["steps"].items():
+            got, want = a[phase], b[phase]
+            odd = (set(got) ^ set(want)) | (set(want) - set(DP_CONTINUOUS_STATS)
+                                            - set(DP_COUNT_STATS))
+            if odd:
+                raise AssertionError(f"epoch {b['epoch']} {phase}: stats {sorted(odd)} not in "
+                                     "both runs or in neither list")
+            for k, w in want.items():
+                where, d = f"epoch {b['epoch']} {phase} {k}", abs(got[k] - w)
+                if k in DP_COUNT_STATS:
+                    worth, per_pair = DP_COUNT_STATS[k]
+                    flips.append((d * steps * (pairs if per_pair else 1) / worth, where, got[k],
+                                  w))
+                else:
+                    bounds.append((d / max(abs(w), 1e-12) / tol, where, got[k], w))
+    bounds.sort(reverse=True)
+    flips.sort(reverse=True)
+    ok = all(x <= 1.0 for x, *_ in bounds) and all(x <= DP_MAX_FLIPS for x, *_ in flips)
+    return dict(ok=ok, bounds=bounds, flips=flips)
+
+
+def phase_data_parallel(tp, g, l, lr, kernels, cycles_per_ms, smi, eval_file: str,
+                        loop_names: list):
     """Phase 11: data parallel on the card (see the module docstring)."""
     import numpy as np
 
     from egonn_tpu_torch.parallel import mesh
     from egonn_tpu_torch.sparse.pyramid import egonn_pyramid_spec
-    from egonn_tpu_torch.train import trainer
 
     g_np = {k: v.cpu().numpy() for k, v in g.items()}
     l_np = {k: v.cpu().numpy() for k, v in l.items()}
@@ -3035,11 +2817,10 @@ def phase_data_parallel(tp, g, l, lr, kernels, cycles_per_ms, smi, bare_steps_pe
     torch.cuda.empty_cache()
 
     # (a) the 1-process step, then DP_WORLD gloo ranks from the same weights
-    t0 = time.perf_counter()
     ref = _dp_rank(None, tp, g_np, l_np, lr)
     ranks = mesh.run_ranks(_dp_rank, DP_WORLD, (tp, g_np, l_np, lr), device="cuda:0",
                            backend="gloo", timeout_s=DP_TIMEOUT_S, rank0_kwargs={"record": True})
-    out = dict(ranks_s=time.perf_counter() - t0, ranks={})
+    out = dict(ranks={})
     for r, res in enumerate(ranks):
         for what, want in (("train", TRAIN_STEP_LAUNCHES), ("val", VAL_STEP_LAUNCHES)):
             if res[f"{what}_launches"] != want:
@@ -3053,14 +2834,12 @@ def phase_data_parallel(tp, g, l, lr, kernels, cycles_per_ms, smi, bare_steps_pe
         log(f"[dp] rank {r}: largest stat differences (rel, stat, rank, 1 process) "
             f"{[(f'{d:.3g}', k, a, b) for d, k, a, b in worst]}")
         out["ranks"][r] = dict(stats_rel=rel, grad_rel=g_max, grad_l2_rel=g_l2,
-                               bit_equal_to_rank0=equal, step_ms=res["step_ms"],
-                               peak_gb=res["peak_gb"], collectives=res["train_collectives"],
+                               bit_equal_to_rank0=equal, collectives=res["train_collectives"],
                                val_collectives=res["val_collectives"])
         log(f"[dp] rank {r}: launches train {res['train_launches']} val "
             f"{res['val_launches']}; against the 1-process step: stats rel {rel:.3g}, grads "
             f"max abs err / leaf max {g_max:.3g}, l2 {g_l2:.3g}; parameters, BatchNorm "
-            f"statistics, Adam state and gradients bit-equal to rank 0's {equal}; step ms "
-            f"{[round(x, 1) for x in res['step_ms']]}, peak memory {res['peak_gb']:.2f} GiB")
+            f"statistics, Adam state and gradients bit-equal to rank 0's {equal}")
         # stats at JAX's sharded-vs-unsharded bound (tests/test_multichip.py),
         # gradients at known difference 9's card bounds
         if not (rel <= 1e-4 and g_max <= 1e-2 and g_l2 <= 2e-3 and equal):
@@ -3068,14 +2847,6 @@ def phase_data_parallel(tp, g, l, lr, kernels, cycles_per_ms, smi, bare_steps_pe
     coll = ranks[0]["train_collectives"]
     log(f"[dp] collectives per train step (rank 0): {json.dumps(coll)}; per validation step "
         f"{json.dumps(ranks[0]['val_collectives'])}")
-    ms0 = statistics.median(ranks[0]["step_ms"])
-    ms1 = statistics.median(ref["step_ms"])
-    out.update(ref_step_ms=ref["step_ms"], ref_peak_gb=ref["peak_gb"],
-               dp_steps_per_s=1e3 / ms0, one_steps_per_s=1e3 / ms1)
-    log(f"[dp] {DP_WORLD}-rank train step {ms0:.1f} ms (median of {DP_TIMED_STEPS}, host "
-        f"clock): {1e3 / ms0:.3f} global steps/s against {1e3 / ms1:.3f} for the 1-process "
-        f"step in this phase ({ref['peak_gb']:.2f} GiB) and phase 5's {bare_steps_per_s:.3f} "
-        f"on {smi}")
     rows = new_rows(kernels)
     measure_calls(rows, ranks[0]["train_calls"] + ranks[0]["val_calls"], kernels,
                   cycles_per_ms, reps=10, tag="dp-kernels",
@@ -3090,8 +2861,7 @@ def phase_data_parallel(tp, g, l, lr, kernels, cycles_per_ms, smi, bare_steps_pe
                              backend="nccl", timeout_s=DP_TIMEOUT_S)
     equal = (nccl["train_stats"] == ref["train_stats"] and nccl["val_stats"] == ref["val_stats"]
              and all(_same(nccl[k], ref[k]) for k in ("state", "adam", "grads")))
-    out["nccl_1_rank"] = dict(bit_equal=equal, collectives=nccl["train_collectives"],
-                              step_ms=nccl["step_ms"])
+    out["nccl_1_rank"] = dict(bit_equal=equal, collectives=nccl["train_collectives"])
     log(f"[dp] a 1-rank NCCL group: stats, gradients, parameters, BatchNorm statistics and "
         f"Adam state bit-equal to the 1-process step {equal}; collectives "
         f"{json.dumps(nccl['train_collectives'])}")
@@ -3108,69 +2878,67 @@ def phase_data_parallel(tp, g, l, lr, kernels, cycles_per_ms, smi, bare_steps_pe
     scale = float(np.abs(one["global_"]).max())
     same = all(r["recall"] == one["recall"] and r["top1"] == one["top1"] for r in shard)
     out["eval"] = dict(global_max_abs_err=err, global_max=scale, recall_equal=same,
-                       seconds=[one["seconds"]] + [r["seconds"] for r in shard],
                        launches=[r["launches"] for r in shard])
     log(f"[dp] sharded evaluation over {DP_WORLD} ranks: Recall@N and top-1 equal to the "
         f"unsharded {same}; phase 9's embedding batch `global` max abs err {err:.3g} (max "
-        f"{scale:.3g}); launches per rank {shard[0]['launches']}; evaluation s unsharded "
-        f"{one['seconds']:.2f}, per rank {[round(r['seconds'], 2) for r in shard]}")
+        f"{scale:.3g}); launches per rank {shard[0]['launches']}")
     # embeddings at JAX's own sharded-vs-unsharded bound (rtol 2e-4, atol
     # 2e-5, tests/test_multichip.py): each rank's batch is half as large
     if not (same and err <= 2e-5 + 2e-4 * scale
             and all(r["launches"] == GLOBAL_EVAL_BATCH_LAUNCHES for r in shard)):
         raise AssertionError("the sharded evaluation differs from the unsharded one")
 
-    # (d) do_train on a mesh of DP_WORLD against one process, DP_EPOCHS epochs
+    # (d) do_train on a mesh of DP_WORLD against one process
+    out["do_train"] = dp_do_train(loop_names)
+    return rows, out
+
+
+def dp_do_train(loop_names: list) -> dict:
+    """Phase 11(d): do_train on a mesh of DP_WORLD (gloo, one card) and in one
+    process with the mesh's buckets (multiples of DP_WORLD: the same padding
+    rows, so the same batches) and draws, DP_EPOCHS epochs at lr DP_LR on
+    phase 10's set (`loop_names`), held together by `epoch_stats_agree`;
+    only rank 0 writes the checkpoint and the metrics log."""
+    from egonn_tpu_torch.train import trainer
+
     shutil.rmtree(DP_DIR, ignore_errors=True)
     runs = {}
-    for mesh_opt in ("off", DP_WORLD):
+    for mesh_opt, sub in (("off", "one"), (DP_WORLD, "mesh")):
         p = _loop_params(loop_names, DP_EPOCHS)
         p.lr, p.mesh, p.test_file = DP_LR, mesh_opt, None
-        t0 = time.perf_counter()
         if mesh_opt == "off":
-            # the same buckets as the mesh's (multiples of DP_WORLD): the
-            # same padding rows, so that the batches are the same
             bucket_fn = trainer.expansion_buckets
             trainer.expansion_buckets = lambda *a, multiple_of=1: bucket_fn(
                 *a, multiple_of=DP_WORLD)
             try:
-                state, stats, name = trainer.do_train(p, weights_path=str(DP_DIR / "one"),
+                state, stats, name = trainer.do_train(p, weights_path=str(DP_DIR / sub),
                                                       device="cuda")
             finally:
                 trainer.expansion_buckets = bucket_fn
         else:
-            state, stats, name = trainer.do_train(p, weights_path=str(DP_DIR / "mesh"),
+            state, stats, name = trainer.do_train(p, weights_path=str(DP_DIR / sub),
                                                   device="cuda", backend="gloo")
-        runs[mesh_opt] = dict(stats=stats, name=name, seconds=time.perf_counter() - t0)
+        records = [r for r in _read_metrics(DP_DIR / sub / f"{name}.metrics.jsonl")
+                   if "train" in r]
+        runs[mesh_opt] = dict(stats=stats, name=name, records=records)
         del state
     one, two = runs["off"], runs[DP_WORLD]
-    diffs = sorted(((d, f"epoch {e} {phase} {k}", x, y) for phase in ("train", "val")
-                    for e, (a, b) in enumerate(zip(one["stats"][phase], two["stats"][phase]), 1)
-                    for d, k, x, y in _stat_diffs(b, a)), reverse=True)
-    rel = diffs[0][0]
-    log(f"[dp] do_train, largest epoch stat differences (rel, stat, mesh, 1 process) "
-        f"{[(f'{d:.3g}', k, x, y) for d, k, x, y in diffs[:6]]}")
+    agree = epoch_stats_agree(two["records"], one["records"], p.local_batch_size)
     n_epochs = [len(two["stats"][ph]) for ph in ("train", "val")]
     files = sorted(f.name for f in (DP_DIR / "mesh" / two["name"]).iterdir())
     want_files = sorted(f"step_{DP_EPOCHS}{ext}" for ext in (".pt", ".meta.json"))
-    records = [r for r in _read_metrics(DP_DIR / "mesh" / f"{two['name']}.metrics.jsonl")
-               if "train" in r]
-    # the first epoch starts from the same weights: every stat within rel
-    # 1e-4; later epochs follow Adam's updates, whose first step moves a
-    # weight with a near-zero gradient by ~lr either way (known difference
-    # 10), so a keypoint may cross the 0.5 m matching threshold: rel 1e-2
-    rel_first = max(d for d, k, _, _ in diffs if k.startswith("epoch 1 "))
-    out["do_train"] = dict(stats_rel=rel, stats_rel_epoch1=rel_first, one_s=one["seconds"],
-                           mesh_s=two["seconds"], files=files, epoch_records=len(records))
-    log(f"[dp] do_train on a mesh of {DP_WORLD} (gloo, one card), {DP_EPOCHS} epochs at lr "
-        f"{DP_LR} on phase 10's set: epoch stats within rel {rel:.3g} of one process's with "
-        f"the same buckets and draws ({rel_first:.3g} in epoch 1); {two['seconds']:.1f} s "
-        f"against {one['seconds']:.1f} s; "
-        f"rank 0's checkpoint files {files}, {len(records)} epoch records in its metrics log")
-    if not (rel_first <= 1e-4 and rel <= 1e-2 and n_epochs == [DP_EPOCHS] * 2
-            and files == want_files and len(records) == DP_EPOCHS):
+    log(f"[dp] do_train on a mesh of {DP_WORLD} (gloo, one card) against one process with the "
+        f"same buckets and draws, {DP_EPOCHS} epochs at lr {DP_LR} on phase 10's set: largest "
+        f"continuous stat differences (share of the bound, stat, mesh, 1 process) "
+        f"{[(f'{x:.3g}', k, a, b) for x, k, a, b in agree['bounds'][:4]]}; largest count "
+        f"differences (items) {[(f'{x:.3g}', k, a, b) for x, k, a, b in agree['flips'][:4]]}; "
+        f"rank 0's checkpoint files {files}, {len(two['records'])} epoch records in its "
+        f"metrics log")
+    if not (agree["ok"] and n_epochs == [DP_EPOCHS] * 2 and files == want_files
+            and len(two["records"]) == DP_EPOCHS):
         raise AssertionError("do_train on the mesh disagrees with one process")
-    return rows, out
+    return dict(bounds=agree["bounds"][:6], flips=agree["flips"][:6], files=files,
+                epoch_records=len(two["records"]))
 
 
 def main() -> int:
@@ -3205,8 +2973,6 @@ def main() -> int:
     t0 = time.perf_counter()
     sl = phase_slice(built, kernels, inference, pyramid_mod)
     log(f"[slice] phase done in {time.perf_counter() - t0:.1f} s")
-    log(f"[slice] {sl['clouds_per_s']:.1f} clouds/s over 10 forwards of {B} x {N_POINTS} "
-        f"points ({sl['forward_ms']:.2f} ms per forward, host clock) on {smi}")
     for name, row in rows.items():
         row["launches"] = sl["launches"][name]
     t0 = time.perf_counter()
@@ -3250,9 +3016,6 @@ def main() -> int:
     tr = phase_train_slice(step, g, l, lr, kernels)
     tr["card_vs_cpu"] = phase_train_card_vs_cpu(tp, g, l, lr)
     log(f"[train] phase done in {time.perf_counter() - t0:.1f} s")
-    log(f"[train] {tr['steps_per_s']:.3f} train steps/s, {tr['clouds_per_s']:.1f} clouds/s "
-        f"over {TRAIN_STEPS} steps of {tr['clouds_per_step']} clouds x {N_POINTS} points "
-        f"(host clock), peak memory {tr['peak_memory_gb']:.2f} GiB on {smi}")
     for name, row in train_rows.items():
         row["launches"] = tr["train_launches"][name]
     t0 = time.perf_counter()
@@ -3268,32 +3031,21 @@ def main() -> int:
     maps_rows, maps = phase_lookup_maps(built, kernels, pyramid_mod, cycles_per_ms)
     mink_rows, mink = phase_minkloc(kernels, inference, pyramid_mod, cycles_per_ms, device)
     log(f"[minkloc] phase done in {time.perf_counter() - t0:.1f} s")
-    turns = mink["clouds_per_s_turns"]
-    quartiles = {k: [round(q, 1) for q in statistics.quantiles(v, n=4)] for k, v in turns.items()}
-    wins = sum(a > b for a, b in zip(turns["minkloc"], turns["minkloc_lookup"]))
-    log(f"[minkloc] {mink['clouds_per_s']['minkloc']:.1f} clouds/s (factory pyramid), "
-        f"{mink['clouds_per_s']['minkloc_lookup']:.1f} (lookup-built down maps): medians of "
-        f"{MINKLOC_ROUNDS} turns of 10 forwards of {B} x {N_POINTS} points in alternation, "
-        f"quartiles {quartiles}, the factory pyramid faster in {wins} of {MINKLOC_ROUNDS} "
-        f"pairs (host clock) on {smi}")
     t0 = time.perf_counter()
     wide = phase_wide(kernels, cycles_per_ms, device)
     log(f"[wide] phase done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     resnet_rows, resnet = phase_resnet(kernels, pyramid_mod, cycles_per_ms, device)
     log(f"[resnet] phase done in {time.perf_counter() - t0:.1f} s")
-    log(f"[resnet] {resnet['clouds_per_s']:.1f} clouds/s: median of {RESNET_ROUNDS} turns of 10 "
-        f"ResNet14 forwards of {B} x {N_POINTS} points, quantization included (host clock), "
-        f"turns {[round(t, 1) for t in resnet['clouds_per_s_turns']]} on {smi}")
     t0 = time.perf_counter()
     eval_rows, ev = phase_eval(kernels, cycles_per_ms, device, smi)
     log(f"[eval] phase done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    loop_rows, loop = phase_train_loop(kernels, cycles_per_ms, device, smi, tr["steps_per_s"])
+    loop_rows, loop = phase_train_loop(kernels, cycles_per_ms, device, smi)
     log(f"[loop] phase done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     dp_rows, dp = phase_data_parallel(tp, g, l, lr, kernels, cycles_per_ms, smi,
-                                      tr["steps_per_s"], ev["names"][2], loop["names"])
+                                      ev["names"][2], loop["names"])
     log(f"[dp] phase done in {time.perf_counter() - t0:.1f} s")
     paths = {"forward": rows, "bf16_forward": bf16_rows, "train_step": train_rows,
              "val_step": val_rows, **bt_rows, "lookup_maps": maps_rows, **mink_rows,

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps this worker's torch threads)
 from egonn_tpu.data import augmentation as jaug
 from egonn_tpu_torch.data import augmentation as taug
 from egonn_tpu_torch.data.lidar_sim import lidar_scan_clouds

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads
 import chip_smoke
 from egonn_tpu.data.pipeline import device_preprocess_global as j_preprocess
 from egonn_tpu.losses.keypoint import make_losses as j_make_losses
@@ -56,18 +57,6 @@ STEPS = [1.0, 0.3, 0.2]
 BF16_RULE = 3e-2
 DW_TOL = 1e-5
 STAT_REL_TOL, BN_REL_TOL = 3e-2, 3e-2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two intra-op threads for the port's CPU steps: the tier-1 run has six
-    workers on eight cores, where more threads spin idle (a bf16 step and
-    its checkpointed twin took 670 s there with the default count, 4 s
-    alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(min(threads, 2))
-    yield
-    torch.set_num_threads(threads)
 
 
 def _bf16_patch(mp):
@@ -488,8 +477,9 @@ def test_two_rank_bf16_step(tmp_path):
 
     _, tp = _params()
     g, l = _batch()
-    ranks = run_ranks(_bf16_rank_step, 2, (tp, CAP0, 1, g, l, None, LR, "cpu"),
-                      init_method=f"file://{tmp_path / 'init'}", timeout_s=120.0)
+    with torch_threads.shared_by(2):
+        ranks = run_ranks(_bf16_rank_step, 2, (tp, CAP0, 1, g, l, None, LR, "cpu"),
+                          init_method=f"file://{tmp_path / 'init'}", timeout_s=120.0)
     for r in ranks:
         assert r["dw_types"] == {"torch.bfloat16"}
         assert all(np.isfinite(v) for v in r["stats"].values())

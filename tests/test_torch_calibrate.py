@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps this worker's torch threads)
 from egonn_tpu.ops.quantization import PolarQuantizer as JPolar
 from egonn_tpu.sparse.calibrate import calibrate_capacities as j_calibrate
 from egonn_tpu.sparse.pyramid import egonn_pyramid_spec as j_spec

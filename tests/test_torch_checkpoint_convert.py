@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps this worker's torch threads)
 from egonn_tpu.models.factory import create_egonn_model as j_create_egonn_model
 from egonn_tpu.models.factory import model_factory as j_factory
 from egonn_tpu.ops.quantization import CartesianQuantizer as JCartesian

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps this worker's torch threads)
 from egonn_tpu_torch.ops.geometry import rotz
 from egonn_tpu_torch.ops.ransac import draw_samples, mutual_matches, ransac_6dof
 

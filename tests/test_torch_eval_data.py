@@ -8,6 +8,7 @@ import types
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (caps this worker's torch threads)
 from egonn_tpu.data import base as jb
 from egonn_tpu.data import pcd as jpcd
 from egonn_tpu.data.pipeline import default_num_points as j_default_num_points

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps this worker's torch threads)
 from egonn_tpu.ops import geometry as jg
 from egonn_tpu.ops import icp as ji
 from egonn_tpu.ops.knn import topk_l2 as j_topk_l2

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads
 from egonn_tpu.config import TrainingParams
 from egonn_tpu.data.synthetic import generate_synthetic_dataset
 from egonn_tpu.eval.evaluator import GLEvaluator as JGLEvaluator
@@ -394,14 +395,10 @@ def test_evaluate_cli(setup, tmp_path, capsys, monkeypatch):
     recall = [ln for ln in out.splitlines() if "Recall@1:" in ln]
     from egonn_tpu_torch.parallel import mesh
 
-    threads = torch.get_num_threads()
-    torch.set_num_threads(min(threads, 2))  # the spawned rank takes this count
     monkeypatch.setattr(mesh, "DEFAULT_TIMEOUT_S", 120.0)  # a hung rank fails
-    try:
+    with torch_threads.shared_by(2):
         t_evaluate_cli.main(args + ["--device", "cpu", "--weights", ckpt, "--global_only",
                                     "--dp", "2"])
-    finally:
-        torch.set_num_threads(threads)
     out = capsys.readouterr().out
     assert "evaluation sharded over 2 ranks" in out
     assert [ln for ln in out.splitlines() if "Recall@1:" in ln] == recall

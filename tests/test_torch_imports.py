@@ -9,6 +9,8 @@ import sys
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps this worker's torch threads)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "egonn_tpu")
 

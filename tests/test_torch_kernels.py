@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps this worker's torch threads)
 from egonn_tpu_torch.sparse import cuda_lib, kernels
 from egonn_tpu_torch.sparse.packing import MAXKEY
 

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps this worker's torch threads)
 from egonn_tpu.losses import keypoint as jkp
 from egonn_tpu.losses import triplet as jtr
 from egonn_tpu_torch.losses import keypoint as tkp

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps this worker's torch threads)
 from egonn_tpu.config import ModelParams as JModelParams
 from egonn_tpu.models.factory import model_factory as j_factory
 from egonn_tpu.models.resnet import ResNetBase as JResNetBase

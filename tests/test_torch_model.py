@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps this worker's torch threads)
 from egonn_tpu.models.factory import create_egonn_model as j_create
 from egonn_tpu.ops.quantization import PolarQuantizer as JPolar
 from egonn_tpu.sparse.pyramid import build_pyramid as j_build_pyramid

@@ -23,6 +23,7 @@ import pytest
 
 from test_generators import kitti_root, mulran_root, southbay_root  # noqa: F401  (fixtures)
 
+import torch_threads  # noqa: F401  (caps this worker's torch threads)
 from egonn_tpu_torch.data import base as tbase
 from egonn_tpu_torch.data import pcd as tpcd
 from egonn_tpu_torch.utils import native

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps this worker's torch threads)
 from egonn_tpu.data.lidar_sim import lidar_scan_clouds
 from egonn_tpu.ops import geometry as jgeo
 from egonn_tpu.ops.quantization import CartesianQuantizer as JCartesian

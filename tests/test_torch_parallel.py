@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads
 from egonn_tpu_torch.parallel import dryrun, mesh
 
 TIMEOUT_S = 120.0
@@ -29,13 +30,10 @@ CAP0, N_POINTS = 256, 512
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two intra-op threads per rank (the spawned ranks take this process's
-    count): the tier-1 run has six workers on eight cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(min(threads, 2))
-    yield
-    torch.set_num_threads(threads)
+def _two_ranks():
+    """The worker's threads split between the two ranks of each test."""
+    with torch_threads.shared_by(2):
+        yield
 
 
 def _init(tmp_path, name="init"):

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps this worker's torch threads)
 from egonn_tpu.sparse import banded as jbanded
 from egonn_tpu.sparse import conv as jconv
 from egonn_tpu_torch.data.lidar_sim import lidar_scan_clouds

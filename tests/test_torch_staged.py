@@ -15,6 +15,7 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+import torch_threads
 from benchmark.core import compare, scans, submaps, weights
 from benchmark.reference import models as ref_models
 from benchmark.reference import smoothap as ref_smoothap
@@ -31,17 +32,6 @@ from egonn_tpu_torch.train.trainer import StagedTrainStep, TrainStep, make_train
 
 CONFIG, MODEL_CONFIG = "config/config_minkloc3dv2.txt", "model_configs/minkloc3dv2.txt"
 N_POINTS, CAPACITY, PLACES, SPLIT, LR = 256, 256, 2, 4, 1e-3
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Each test on one intra-op thread: these tests run many small ops,
-    which under a loaded machine's oversubscription wait on their thread
-    pool far longer than they compute."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _params(split: int = SPLIT, similarity: str = "euclidean"):
@@ -394,7 +384,7 @@ def test_egonn_train_step_unchanged():
     want = {True: (52527, 0.9051886200904846, 0.25013411045074463, 0.65505450963974),
             False: (19948, 5.450882434844971, 0.18914125859737396, 5.2617411613464355)}
     for train, (n_ops, loss, global_loss, local_loss) in want.items():
-        with _Ops() as ops:
+        with _Ops() as ops, torch_threads.threads(1):
             stats = step(g, l, torch.Generator().manual_seed(0) if train else None, LR, train)
         assert ops.n == n_ops, train
         got = [float(stats[k]) for k in ("loss", "global_loss", "local_loss")]

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps this worker's torch threads)
 from egonn_tpu_torch.sparse import conv as sconv
 from egonn_tpu_torch.sparse import kernels
 

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps this worker's torch threads)
 from egonn_tpu_torch.data.lidar_sim import lidar_scan_clouds
 from egonn_tpu_torch.ops.quantization import PolarQuantizer
 from egonn_tpu_torch.sparse import conv as sconv

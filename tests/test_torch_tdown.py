@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps this worker's torch threads)
 from egonn_tpu_torch.config import ModelParams
 from egonn_tpu_torch.data.lidar_sim import lidar_scan_clouds
 from egonn_tpu_torch.models.factory import model_factory

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps this worker's torch threads)
 from egonn_tpu_torch import inference
 from egonn_tpu_torch.config import ModelParams, TrainingParams
 from egonn_tpu_torch.data.lidar_sim import lidar_scan_clouds

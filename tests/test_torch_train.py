@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads
 import chip_smoke
 from egonn_tpu import config as jconfig
 from egonn_tpu.data.pipeline import device_preprocess_global as j_preprocess
@@ -321,13 +322,9 @@ def test_two_rank_step_matches_jax(step_pair, tmp_path):
     from egonn_tpu_torch.parallel.mesh import run_ranks
 
     g, l = _batch()
-    threads = torch.get_num_threads()
-    torch.set_num_threads(min(threads, 2))  # the spawned rank takes this count
-    try:
+    with torch_threads.shared_by(2):
         ranks = run_ranks(dryrun.rank_step, 2, (step_pair["tp"], CAP0, 1, g, l, None, LR, "cpu"),
                           init_method=f"file://{tmp_path / 'init'}", timeout_s=120.0)
-    finally:
-        torch.set_num_threads(threads)
     r0 = ranks[0]
     _check_stats(r0["stats"], step_pair["stats_j"])
     _check_gradients(r0["grads"], step_pair["grads_j"])

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads
 import chip_smoke
 from egonn_tpu.config import TrainingParams as JTrainingParams
 from egonn_tpu.data import base as jbase
@@ -57,16 +58,6 @@ N_POINTS, CAP0, BATCH, LOCAL_BATCH = 512, 256, 8, 4
 BUCKETS = (8, 11, 15, 16)  # expansion_buckets(8, 16, 1.4)
 STAT_REL_TOL = 1e-3
 LOOP_LR = 1e-5  # test_do_train_matches_jax: see its docstring
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two intra-op threads for the port's tiny CPU steps: the tier-1 run
-    has six workers on eight cores, where more threads spin idle."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(min(threads, 2))
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -455,8 +446,9 @@ def test_do_train_on_mesh_of_two(jdata, tmp_path, capfd, monkeypatch):
                                   dataset_type="synthetic", device="cpu")
     capfd.readouterr()
     weights = tmp_path / "two"
-    state, two, name = ttrainer.do_train(params(2), debug=True, weights_path=str(weights),
-                                         dataset_type="synthetic", device="cpu")
+    with torch_threads.shared_by(2):
+        state, two, name = ttrainer.do_train(params(2), debug=True, weights_path=str(weights),
+                                             dataset_type="synthetic", device="cpu")
     out = capfd.readouterr().out
     for phase in ("train", "val"):
         assert len(two[phase]) == 2 and len(one[phase]) == 1
@@ -475,8 +467,10 @@ def test_do_train_on_mesh_of_two(jdata, tmp_path, capfd, monkeypatch):
     ckpt.mkdir(parents=True)
     for f in ("step_1.pt", "step_1.meta.json"):
         shutil.copy(weights / name / f, ckpt / f)
-    res, _, _ = ttrainer.do_train(params(2), debug=True, resume_from=str(ckpt),
-                                  log_fn=lambda m: None, dataset_type="synthetic", device="cpu")
+    with torch_threads.shared_by(2):
+        res, _, _ = ttrainer.do_train(params(2), debug=True, resume_from=str(ckpt),
+                                      log_fn=lambda m: None, dataset_type="synthetic",
+                                      device="cpu")
     a, b = _state_tensors(state), _state_tensors(res)
     assert a.keys() == b.keys()
     for k in a:

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps this worker's torch threads)
 from egonn_tpu.ops.quantization import PolarQuantizer as JPolar
 from egonn_tpu.sparse import conv as jconv
 from egonn_tpu.sparse import norm as jnorm
