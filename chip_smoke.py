@@ -64,10 +64,10 @@ Phases, each printing its lines:
    decay 1e-4, aug_mode 2), a full-width batch (16 places x 2 scans of
    65,536 points, 8 cloud pairs under seeded rigid transforms, each local
    cloud one point per voxel) and one training step with every kernel call
-   recorded; each call held against its plain version (gather_dw within
-   1e-4 x max |plain|: it sums up to 32 x 16,384 rows per weight in another
-   order) and each distinct shape timed as in phase 2 (median of 10); the
-   largest gather_dw call re-run twice, bit-equal.
+   recorded; each call held against its plain version (gather_dw and
+   tconv_dw within 1e-4 x max |plain|: they sum up to 32 x 16,384 rows per
+   weight in another order) and each distinct shape timed as in phase 2 (median of 10); the
+   largest gather_dw and tconv_dw calls re-run twice, bit-equal.
 5. train slice: 1 warm-up step, then 5 train steps, each with the launch
    counters zeroed before and read after (TRAIN_STEP_LAUNCHES), and 1
    validation step (VAL_STEP_LAUNCHES) that must leave the model and the
@@ -266,13 +266,13 @@ F32_OPS_PER_S = 67e12       # f32 FMA pipes, outside the tensor cores (data shee
 TF32_OPS_PER_S = 495e12     # dense TF32 tensor cores (data sheet)
 BF16_OPS_PER_S = 989e12     # dense bf16 tensor cores (data sheet)
 # split TF32: 3 TF32 MMAs per product
-TC_KERNELS = ("gather_conv", "tdown", "gather_dw", "tconv")
+TC_KERNELS = ("gather_conv", "tdown", "gather_dw", "tconv", "tconv_dw")
 # the bf16 kernels of gather_conv, tdown and gather_dw (bf16 features), one
 # MMA per product, with their own rows and launch counts
 BF16_ROWS = {"gather_conv": "gather_conv_bf16", "tdown": "tdown_bf16",
              "gather_dw": "gather_dw_bf16"}
 # ptxas must report no spills
-SPILL_FREE = ("gather_conv.cu", "tdown.cu", "gather_dw.cu", "tconv.cu")
+SPILL_FREE = ("gather_conv.cu", "tdown.cu", "gather_dw.cu", "tconv.cu", "tconv_dw.cu")
 # the Hopper bf16 bodies (wgmma, mbarrier rings) and their sources
 HOPPER_BODIES = (("gather_conv.cu", "gather_mm_sm90_kernel"),
                  ("gather_dw.cu", "gather_dw_sm90_kernel"))
@@ -282,7 +282,7 @@ EXPECTED_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 14, "tdo
                      "gather_dw": 0, "lookup": 0,
                      "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
                      "stem_ones": 1, "tconv": 3,
-                     "slot_order": 3}
+                     "slot_order": 3, "tconv_dw": 0}
 # Kernel launches of one training step: three train-mode forwards (global,
 # anchor, positive), each 1 zrun_presence + 7 zrun_rank (the pyramid), 7 down
 # convs + 14 self convs through gather_conv; then one backward, which reaches
@@ -297,26 +297,28 @@ EXPECTED_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 14, "tdo
 # is a torch.mm).  tconv: each forward's three transposed convs (the global
 # head's two, the local head's one) and the down convs' dX, 7 + 2 x 4:
 # 9 + 15 = 24, over slot orders built once per level a forward (slot_order:
-# the down convs' 7 levels, which the heads' levels are among: 3 x 7).
+# the down convs' 7 levels, which the heads' levels are among: 3 x 7);
+# tconv_dw: the weight gradients of the transposed convs the backward
+# reaches, the global head's two and each local head's one: 2 + 2 x 1 = 4.
 TRAIN_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 97, "tdown": 0,
                        "gather_dw": 45, "lookup": 0,
                        "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
                        "stem_ones": 3, "tconv": 24,
-                       "slot_order": 21}
+                       "slot_order": 21, "tconv_dw": 4}
 # The validation step: three eval forwards (7 tdown, 14 gather_conv, the stem,
 # 3 tconv and their 3 slot orders each).
 VAL_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 42, "tdown": 21,
                      "gather_dw": 0, "lookup": 0,
                      "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
                      "stem_ones": 3, "tconv": 9,
-                     "slot_order": 9}
+                     "slot_order": 9, "tconv_dw": 0}
 # Phase 6a: the EgoNN pyramid without up maps, kmap_down looked up at L1-L7
 # in one launch of the lookup kernel.
 LOOKUP_MAPS_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 0, "tdown": 0,
                         "gather_dw": 0, "lookup": 1,
                         "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
                         "stem_ones": 0, "tconv": 0,
-                        "slot_order": 0}
+                        "slot_order": 0, "tconv_dw": 0}
 # Phase 6b: one MinkLoc forward: the stem map, 3 self maps, 2 convs in each
 # of 3 blocks; the factory pyramid runs the 3 down convs from the up maps,
 # the one with level 2's up map alone looks up L1 and L2's down maps (one
@@ -325,12 +327,12 @@ MINKLOC_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 3, "gather_conv": 6, "tdown
                     "gather_dw": 0, "lookup": 0,
                     "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
                     "stem_ones": 1, "tconv": 1,
-                    "slot_order": 1}
+                    "slot_order": 1, "tconv_dw": 0}
 MINKLOC_LOOKUP_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 3, "gather_conv": 8, "tdown": 1,
                            "gather_dw": 0, "lookup": 1,
                            "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
                            "stem_ones": 1, "tconv": 1,
-                           "slot_order": 1}
+                           "slot_order": 1, "tconv_dw": 0}
 MINKLOC_CAP0 = 40960
 # Phase 8: ResNet14 at torchvision widths over MinkLoc's quantizer and
 # capacities max(256, cap0 >> min(l, 4)).  One forward: the L0 (k = 5) and
@@ -343,13 +345,13 @@ RESNET_LAUNCHES = {"zrun_presence": 0, "zrun_rank": 5, "gather_conv": 13, "tdown
                    "gather_dw": 0, "lookup": 1,
                    "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
                    "stem_ones": 0, "tconv": 0,
-                   "slot_order": 0}
+                   "slot_order": 0, "tconv_dw": 0}
 # Phase 3b: the forward of phases 2-3 with EGONN_BF16_ACTS=1: the same maps,
 # the 21 convs on the bf16 kernels (the stem sums and returns f32, then casts)
 BF16_LAUNCHES = {"zrun_presence": 1, "zrun_rank": 7, "gather_conv": 0, "tdown": 0,
                  "gather_dw": 0, "lookup": 0, "gather_conv_bf16": 14, "tdown_bf16": 7,
                  "gather_dw_bf16": 0, "stem_ones": 1, "tconv": 0,
-                 "slot_order": 0}
+                 "slot_order": 0, "tconv_dw": 0}
 # Phase 5b: the train and validation steps of phases 4-5 with
 # EGONN_BF16_ACTS=1: TRAIN_STEP_LAUNCHES and VAL_STEP_LAUNCHES with every
 # conv, dX and dW on the bf16 kernels (the activations and their cotangents
@@ -358,12 +360,12 @@ BF16_TRAIN_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 
                             "gather_dw": 0, "lookup": 0, "gather_conv_bf16": 97,
                             "tdown_bf16": 0, "gather_dw_bf16": 45,
                             "stem_ones": 3, "tconv": 0,
-                            "slot_order": 0}
+                            "slot_order": 0, "tconv_dw": 0}
 BF16_VAL_STEP_LAUNCHES = {"zrun_presence": 3, "zrun_rank": 21, "gather_conv": 0, "tdown": 0,
                           "gather_dw": 0, "lookup": 0, "gather_conv_bf16": 42,
                           "tdown_bf16": 21, "gather_dw_bf16": 0,
                           "stem_ones": 3, "tconv": 0,
-                          "slot_order": 0}
+                          "slot_order": 0, "tconv_dw": 0}
 # card vs CPU bf16 forward, of each output's max |CPU| (tests/test_banded.py's
 # bf16 rule): roundings to bf16 at other places flip single activations by an ulp
 BF16_REL_TOL = 3e-2
@@ -403,6 +405,8 @@ REPLACES = {
     # nor for the transposed conv: XLA's product there
     "tconv": ("egonn_tpu_torch/csrc/tconv.cu", "none (egonn_tpu/sparse/conv.py, XLA)"),
     "slot_order": ("egonn_tpu_torch/csrc/tconv.cu", "none (tconv's row order)"),
+    # nor for its weight gradient: XLA's 8 slot-masked einsums there
+    "tconv_dw": ("egonn_tpu_torch/csrc/tconv_dw.cu", "none (egonn_tpu/sparse/conv.py, XLA)"),
 }
 # Phase 7: synthetic ResNet-width calls (name, K, F_in, F_out); the last
 # six at widths the kernels take only through the wrappers' width plan
@@ -441,7 +445,7 @@ LOOP_SCANS, LOOP_EPOCHS, LOOP_SAVE_FREQ = 192, 10, 5
 LOOP_BUCKET = 128  # config_egonn.txt's batch_size_limit: the largest bucket
 # the kernels a loop step launches (lookup builds no EgoNN map)
 LOOP_KERNELS = ("zrun_presence", "zrun_rank", "gather_conv", "tdown", "gather_dw", "stem_ones",
-                "tconv", "slot_order")
+                "tconv", "slot_order", "tconv_dw")
 # Phase 11: data parallel over DP_WORLD ranks sharing the card (gloo);
 # do_train on the mesh for DP_EPOCHS epochs against one process at DP_LR
 # (see phase_data_parallel)
@@ -601,6 +605,11 @@ def work(name: str, args: tuple, kwargs: dict, out) -> tuple:
         n_child = int(((up_parent >= 0) & (up_parent < feats.shape[1])).sum())
         ops = 2 * n_child * kernel.shape[1] * kernel.shape[2]
         return _nbytes(feats, up_parent, up_koffset, kernel, out), ops, F32_OPS_PER_S
+    if name == "tconv_dw":  # one product a fine row with a parent
+        feats, up_parent, up_koffset, g = args[:4]
+        n_child = int(((up_parent >= 0) & (up_parent < feats.shape[1])).sum())
+        ops = 2 * n_child * feats.shape[2] * g.shape[2]
+        return _nbytes(feats, up_parent, up_koffset, g, out), ops, F32_OPS_PER_S
     # bf16 features: 2 bytes a feature (and g) element, bf16 tensor-core rate
     rate = BF16_OPS_PER_S if args[0].dtype == torch.bfloat16 else F32_OPS_PER_S
     if name == "gather_dw":
@@ -633,6 +642,7 @@ def plain_call(name: str, kernels):
         "tconv": lambda feats, up, ko, kernel, slots=None: kernels.tconv_plain(feats, up, ko,
                                                                                kernel),
         "slot_order": kernels.slot_order_plain,
+        "tconv_dw": lambda feats, up, ko, g, slots=None: kernels.tconv_dw_plain(feats, up, ko, g),
     }[name]
 
 
@@ -673,14 +683,14 @@ def _bf16_within_one_ulp(name: str, g: torch.Tensor, w: torch.Tensor, kernels) -
 
 def compare(name: str, got, want) -> float:
     """Max abs error of a kernel's outputs against its plain version's:
-    integers bit-equal, f32 within rel FLOAT_REL_TOL (gather_dw DW_REL_TOL)
+    integers bit-equal, f32 within rel FLOAT_REL_TOL (gather_dw, tconv_dw DW_REL_TOL)
     of max |plain|, bf16 within one ulp (`_bf16_within_one_ulp`)."""
     from egonn_tpu_torch.sparse import kernels
 
     got, want = _outputs(got), _outputs(want)
     if len(got) != len(want):
         raise AssertionError(f"{name}: {len(got)} outputs against {len(want)}")
-    tol = DW_REL_TOL if name == "gather_dw" else FLOAT_REL_TOL
+    tol = DW_REL_TOL if name in ("gather_dw", "tconv_dw") else FLOAT_REL_TOL
     err = 0.0
     for g, w in zip(got, want):
         g, w = g.detach(), w.detach()
@@ -836,7 +846,7 @@ def call_level(name: str, args: tuple, levels: dict) -> str:
     """'L<in>->L<out>' of a conv or dW call from its row counts."""
     if name == "tdown":
         c_in, c_out = args[0].shape[1], args[4]
-    elif name == "tconv":
+    elif name in ("tconv", "tconv_dw"):
         c_in, c_out = args[0].shape[1], args[1].shape[1]
     elif name in ("gather_conv", "gather_dw"):
         c_in, c_out = args[0].shape[1], args[1].shape[2]
@@ -868,6 +878,11 @@ def call_desc(name: str, args: tuple) -> str:
         rows = int(((up_parent >= 0) & (up_parent < feats.shape[1])).sum())
         return (f"B {feats.shape[0]} C {feats.shape[1]}->{up_parent.shape[1]} K 8 "
                 f"F {kernel.shape[1]}->{kernel.shape[2]} rows {rows}")
+    if name == "tconv_dw":  # (feats, up_parent, up_koffset, g, slots)
+        feats, up_parent, _, g = args[:4]
+        rows = int(((up_parent >= 0) & (up_parent < feats.shape[1])).sum())
+        return (f"B {feats.shape[0]} C {feats.shape[1]}->{up_parent.shape[1]} K 8 "
+                f"F {feats.shape[2]}->{g.shape[2]} rows {rows}")
     if name == "stem_ones":  # (kmap, kernel, n_in_rows)
         kmap, kernel, n_in = args
         return (f"B {kmap.shape[0]} C {kmap.shape[2]} K {kmap.shape[1]} F 1->{kernel.shape[2]} "
@@ -1348,7 +1363,7 @@ def phase_train_kernels(step, g, l, lr, kernels, cycles_per_ms, levels):
     measure_calls(rows, calls, kernels, cycles_per_ms, reps=10, tag="train-kernels",
                   levels=levels)
     return rows, [check_repeat(kernels, calls, name, "train-kernels")
-                  for name in ("gather_dw", "zrun_presence", "zrun_rank")]
+                  for name in ("gather_dw", "tconv_dw", "zrun_presence", "zrun_rank")]
 
 
 def phase_val_kernels(step, g, l, lr, kernels, cycles_per_ms, levels):

@@ -34,7 +34,10 @@ activations, and its backward is a gather program again:
 * `sparse_conv_down` (k=2 s=2 over kmap_down): dX = sparse_tconv2x2(g, up map,
   W^T) (`kernels.tconv` over the fine level's slot order), dW = gather_dw.
 * `sparse_tconv2x2_vjp`: dX = gather_conv(g, the coarse level's kmap_down,
-  W^T), dW = the slot-masked products of the gathered coarse features.
+  W^T), dW = `kernels.tconv_dw` (each slot's fine rows alone, over the
+  forward's slot order; the span `egonn.tconv_dw`), or for bf16 activations
+  its plain version, the slot-masked products of the gathered coarse
+  features.
 """
 from __future__ import annotations
 
@@ -160,6 +163,7 @@ class _Tconv2x2(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats_coarse, up_parent, up_koffset, kmap_down, kernel, slots):
         ctx.save_for_backward(feats_coarse, up_parent, up_koffset, kmap_down, kernel)
+        ctx.slots = slots
         return sparse_tconv2x2(feats_coarse, up_parent, up_koffset, kernel, slots)
 
     @staticmethod
@@ -172,14 +176,12 @@ class _Tconv2x2(torch.autograd.Function):
         if ctx.needs_input_grad[4]:
             # dW[k] = sum over fine voxels in slot k of feats[parent]^T g, in
             # f32 (on the bf16 values of bf16 activations: exact products)
-            b, _, f_in = feats_coarse.shape
-            feats_p = torch.cat([feats_coarse, feats_coarse.new_zeros(b, 1, f_in)], dim=1)
-            gathered = torch.gather(feats_p, 1,
-                                    up_parent.long()[..., None].expand(-1, -1, f_in)).float()
-            g32 = g.float()
-            d_kernel = torch.stack([
-                torch.einsum("bcf,bco->fo", gathered * (up_koffset == k)[..., None], g32)
-                for k in range(kernel.shape[0])])
+            with span("egonn.tconv_dw"):
+                if feats_coarse.dtype == torch.bfloat16:
+                    d_kernel = kernels.tconv_dw_plain(feats_coarse, up_parent, up_koffset, g)
+                else:
+                    d_kernel = kernels.tconv_dw(feats_coarse, up_parent, up_koffset, g,
+                                                ctx.slots)
         return d_feats, None, None, None, d_kernel, None
 
 

@@ -27,7 +27,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "egonn_tpu_torch"
 SOURCES = ("zrun.cu", "gather_conv.cu", "tdown.cu", "gather_dw.cu", "lookup.cu", "stem.cu",
-           "tconv.cu")
+           "tconv.cu", "tconv_dw.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -61,6 +61,9 @@ SIGNATURES = {
     "tconv.cu": {
         "egonn_tconv": [_P] * 6 + [_I] * 6 + [_P],
         "egonn_slot_order": [_P] * 4 + [_I] * 3 + [_P],
+    },
+    "tconv_dw.cu": {
+        "egonn_tconv_dw": [_P] * 7 + [_I] * 8 + [_P],
     },
 }
 

@@ -12,6 +12,7 @@ and a launch counter.
 | `stem_ones`     | `csrc/stem.cu`          | none: jnp in `egonn_tpu/sparse/conv.py`        |
 | `tconv`         | `csrc/tconv.cu`         | none: XLA's product in `egonn_tpu/sparse/conv.py` |
 | `slot_order`    | `csrc/tconv.cu`         | none: `tconv`'s row order                      |
+| `tconv_dw`      | `csrc/tconv_dw.cu`      | none: XLA's product in `egonn_tpu/sparse/conv.py` |
 
 `gather_conv` runs every sparse conv: the eval forward, and in training the
 self and down convs' forwards and the dX backwards (`sparse/conv.py`);
@@ -25,13 +26,15 @@ transposed k=2 s=2 conv (the heads' and MinkFPN's top-down step, and the
 down conv's dX in training): each fine row times its own slot's kernel,
 over the rows in slot order (`slot_order`, a counting sort per cloud),
 where its plain version (the JAX package's form) multiplies every row by
-all 8 slots' kernels and keeps one.
+all 8 slots' kernels and keeps one.  `tconv_dw` is its weight gradient in
+training: each slot's rows of the slot order alone, where its plain
+version multiplies a slot-masked copy of every row's parent by g, 8 times.
 
 The TPU kernels work on band windows of the key-sorted tables and drop what
 falls outside a window; these kernels index directly, so they are exact on
 all data and equal the JAX package's exact gather engine.
 
-`gather_conv`, `tdown`, `gather_dw` and `tconv` multiply on the tensor
+`gather_conv`, `tdown`, `gather_dw`, `tconv` and `tconv_dw` multiply on the tensor
 cores in split TF32 (`csrc/tf32x3.cuh`: each f32 operand split into two TF32 halves,
 three `mma.sync` products, f32 accuracy), with their rows copied by
 `cp.async` through a ring of shared-memory buffers, so later stages' rows
@@ -56,6 +59,9 @@ needs into shared memory and search there (`zrun_chunk` picks the chunk).
 A `tconv` block owns
 (32- or 64-column slice, 128-row tile of one slot's rows, cloud): a dense
 product whose gathered parent rows all take w[slot], in 32-column stages.
+A `tconv_dw` block owns a (<= 64) x (<= 64) slice of one dW[k] over a
+strided chunk of the slot's 64-row tiles, the segments of all clouds
+walked as one list, and a second launch sums the chunks in order.
 `lookup` does the same per tile of a level's output rows, and in down mode
 (`lookup_down`) forms the child queries itself, for every lookup-built level
 of a pyramid in one launch.
@@ -79,7 +85,8 @@ type raises.
 
 Widths: the kernels take F_out a multiple of 32 up to 512 and F_in a
 multiple of 4 (bf16: 8) up to 128 or of 32 up to 512 (gather_conv, tdown:
-`conv_widths_ok`), or multiples of 32 up to 512 (gather_dw: `dw_widths_ok`).
+`conv_widths_ok`), or multiples of 32 up to 512 (gather_dw, tconv_dw:
+`dw_widths_ok`).
 The wrappers take any width: `width_plan` zero-pads each width up to the
 next one the kernel takes and splits widths above 512 into launches of at
 most 512 (exact: a split F_in's partial sums are added before the
@@ -140,7 +147,7 @@ _BF16_SPLIT_BLOCKS, _SM90_SPLIT_BLOCKS = 512, 2 * 132
 # kernel launches per wrapper (CUDA tensors only; the plain versions do not count)
 LAUNCHES = {"zrun_presence": 0, "zrun_rank": 0, "gather_conv": 0, "tdown": 0, "gather_dw": 0,
             "lookup": 0, "gather_conv_bf16": 0, "tdown_bf16": 0, "gather_dw_bf16": 0,
-            "stem_ones": 0, "tconv": 0, "slot_order": 0}
+            "stem_ones": 0, "tconv": 0, "slot_order": 0, "tconv_dw": 0}
 # per CUDA device: zrun and lookup blocks whose table slice did not fit
 # (`zrun_overflow_blocks`, `lookup_overflow_blocks`)
 _ZRUN_OVERFLOW: dict = {}
@@ -1149,8 +1156,89 @@ def tconv(feats: torch.Tensor, up_parent: torch.Tensor, up_koffset: torch.Tensor
     return planned_conv(launch, feats, kernel, None, width_plan(kernel.shape[1], kernel.shape[2]))
 
 
+def tconv_dw_plain(feats: torch.Tensor, up_parent: torch.Tensor, up_koffset: torch.Tensor,
+                   g: torch.Tensor) -> torch.Tensor:
+    """Plain version of `tconv_dw` (the JAX package's form): every fine
+    row's parent gathered (a zero row for the sentinel), then per slot k one
+    product over every row of the parents masked to slot k and g, in f32
+    (bf16 features and g: the exact products of the bf16 values)."""
+    b, _, f_in = feats.shape
+    feats_p = torch.cat([feats, feats.new_zeros(b, 1, f_in)], dim=1)
+    gathered = torch.gather(feats_p, 1, up_parent.long()[..., None].expand(-1, -1, f_in)).float()
+    g32 = g.float()
+    return torch.stack([torch.einsum("bcf,bco->fo", gathered * (up_koffset == k)[..., None], g32)
+                        for k in range(8)])
+
+
+def tconv_dw_tiling(b: int, c_fine: int, f_in: int, f_out: int):
+    """(mb, nb, n_chunks) of tconv_dw's partial pass: a block owns an mb x nb
+    slice of one dW[k] (64 where the width allows, else 32) over one of
+    n_chunks strided chunks of the slot's 64-row tiles, ~_DW_BLOCKS blocks
+    in all, and no more chunks than a slot's tiles if every fine row had a
+    parent and the slots were even (the host reads no segment size)."""
+    mb, nb = (64 if f % 64 == 0 else 32 for f in (f_in, f_out))
+    blocks = 8 * (f_in // mb) * (f_out // nb)
+    return mb, nb, max(1, min(-(-b * c_fine // (8 * 64)), -(-_DW_BLOCKS // blocks)))
+
+
+def _tconv_dw_cuda(feats, up_parent, slots: SlotOrder, g, tiling: Optional[tuple] = None):
+    """One tconv_dw launch at widths the kernel takes (multiples of 32 up to
+    512); `tiling` (mb, nb, n_chunks) (None: `tconv_dw_tiling`'s)."""
+    b, c_coarse, f_in = feats.shape
+    c_fine, f_out = g.shape[1], g.shape[2]
+    if not dw_widths_ok(f_in, f_out):
+        raise ValueError(f"tconv_dw: F_in={f_in}, F_out={f_out}; the kernel takes widths that "
+                         "are multiples of 32 up to 512")
+    if feats.dtype != torch.float32 or g.dtype != torch.float32:
+        raise TypeError(f"tconv_dw: feats {feats.dtype}, g {g.dtype}; the kernel takes f32 "
+                        "(bf16 activations keep the plain form, sparse/conv.py)")
+    if b * max(c_coarse, c_fine) >= 1 << 31:
+        raise ValueError(f"tconv_dw: {b} x {max(c_coarse, c_fine)} rows; the kernel indexes "
+                         "them with 32-bit ints")
+    _check(feats, "feats", torch.float32, (b, c_coarse, f_in), align16=True)
+    _check(g, "g", torch.float32, (b, c_fine, f_out), align16=True)
+    _check(up_parent, "up_parent", torch.int32, (b, c_fine))
+    _check(slots.order, "order", torch.int32, (b, c_fine))
+    _check(slots.seg, "seg", torch.int32, (b, _TCONV_SEGMENTS + 1))
+    mb, nb, n_chunks = tiling or tconv_dw_tiling(b, c_fine, f_in, f_out)
+    partial = torch.empty((n_chunks, 8, f_in, f_out), dtype=torch.float32, device=feats.device)
+    out = torch.empty((8, f_in, f_out), dtype=torch.float32, device=feats.device)
+    fn = cuda_lib.function("tconv_dw.cu", "egonn_tconv_dw")
+    _raise_on(fn(feats.data_ptr(), up_parent.data_ptr(), slots.order.data_ptr(),
+                 slots.seg.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(), b,
+                 c_coarse, c_fine, f_in, f_out, mb, nb, n_chunks, _stream(feats)), "tconv_dw")
+    return out
+
+
+def tconv_dw(feats: torch.Tensor, up_parent: torch.Tensor, up_koffset: torch.Tensor,
+             g: torch.Tensor, slots: Optional[SlotOrder] = None) -> torch.Tensor:
+    """Weight gradient of `tconv(feats, up_parent, up_koffset, W)` for the
+    cotangent g: dW[k] = sum over the fine rows i of slot k with a parent
+    of feats[b, up_parent[b, i]]^T g[b, i].
+
+    feats (B, C_coarse, F_in) f32; up_parent, up_koffset (B, C_fine) int32;
+    g (B, C_fine, F_out) f32; `slots` the up map's `slot_order` (None:
+    built here).  Returns (8, F_in, F_out) f32.  On the card each slot's
+    rows alone, over the slot order (`csrc/tconv_dw.cu`); any widths,
+    through `width_plan(dw=True)`'s launches."""
+    if not _on_cuda(feats, up_parent, up_koffset, g):
+        return tconv_dw_plain(feats, up_parent, up_koffset, g)
+    if feats.dim() != 3 or g.dim() != 3 or g.shape[:2] != up_parent.shape:
+        raise ValueError(f"feats {tuple(feats.shape)}, up_parent {tuple(up_parent.shape)}, g "
+                         f"{tuple(g.shape)}: expected (B, C_coarse, F_in), (B, C_fine) and "
+                         "(B, C_fine, F_out)")
+    if slots is None:
+        slots = slot_order(up_parent, up_koffset, feats.shape[1])
+
+    def launch(f, gg):
+        out = _tconv_dw_cuda(f, up_parent, slots, gg)
+        LAUNCHES["tconv_dw"] += 1
+        return out
+    return planned_dw(launch, feats, g, 8, width_plan(feats.shape[2], g.shape[2], dw=True))
+
+
 KERNELS = (zrun_presence, zrun_rank, gather_conv, tdown, gather_dw, lookup, stem_ones, tconv,
-           slot_order)
+           slot_order, tconv_dw)
 
 
 def reset_launches() -> None:

@@ -18,6 +18,9 @@ kernels they launch:
                            sparse_tconv2x2): the FPN top-down steps and
                            heads, and every down conv's dX in a backward,
                            inside whichever phase runs it
+    egonn.tconv_dw         each transposed conv's weight gradient in a
+                           backward (sparse/conv.py::_Tconv2x2), apart
+                           from egonn.tconv
     egonn.train_step       TrainStep / StagedTrainStep.__call__ (train and
                            validation)
     egonn.step.embed       the staged step's stage 1: the augmentation and

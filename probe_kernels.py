@@ -36,6 +36,15 @@ the rules in `egonn_tpu_torch/sparse/kernels.py` that choose them:
   TF32 MMAs a product), the all-slot product it replaced (`tconv_plain`)
   and the route of a slot map handed to gather_conv (`slot_kmap`: the map
   built beforehand, the gather conv alone);
+- tconv_dw (the transposed conv's weight gradient, `csrc/tconv_dw.cu`) at
+  a MinkLoc3Dv2 staged chunk's two top-down steps (128 submaps, 256 wide)
+  and at EgoNN's heads on the train step's 32-cloud global batch (64-128
+  wide), on the maps of real forwards with a seeded g: both routes, the
+  slot order (`tconv_dw_tiling`'s slice at 1/2, 1 and 2 times its chunk
+  count, and 32 x 32 slices) and the coarse level's kmap_down (inverted
+  beforehand, then gather_dw with its operands swapped: g gathered by the
+  map, the coarse features by row), beside the plain form's 8 slot-masked
+  products (`tconv_dw_plain`) and the bytes / operations bound;
 - lookup (the grouped down-map launch, `lookup_down`): the coarse rows of a
   block's tile (32, 64, 128, 256, `lookup_rows`) by the table rows its
   shared-memory slice holds (1,024 to 8,192, `_LOOKUP_SLICE`), with the
@@ -47,6 +56,7 @@ the rules in `egonn_tpu_torch/sparse/kernels.py` that choose them:
     python3 probe_kernels.py        # from the repository root; one CUDA card, nvcc
     python3 probe_kernels.py bf16   # the bf16 calls alone (conv and dW)
     python3 probe_kernels.py tconv  # the transposed conv's rows alone
+    python3 probe_kernels.py tconv_dw  # its weight gradient's rows alone
 
 The calls are those of one EgoNN forward (f32, and bf16 under
 EGONN_BF16_ACTS=1: chip_smoke's phase 3b), the gather_dw calls of one bf16
@@ -383,12 +393,27 @@ def tconv_row(tag, args, kernels, cycles_per_ms) -> dict:
                 rule=rule, bytes=nbytes, ops=ops)
 
 
-def tconv_rows(kernels, device, cycles_per_ms) -> list:
-    """The transposed convs of a MinkLoc3D forward at the b64 cell's batch
-    and of a MinkLoc3Dv2 forward on a staged chunk of 128 submaps."""
+def _staged_chunk_tconv_calls(kernels, device) -> list:
+    """The tconv calls of a MinkLoc3Dv2 forward on a staged chunk of 128
+    submaps."""
     from benchmark.core import submaps
     from egonn_tpu_torch import inference
     from egonn_tpu_torch.config import ModelParams
+    from egonn_tpu_torch.models.factory import model_factory
+
+    v2 = model_factory(ModelParams(str(chip_smoke.ROOT / "model_configs" / "minkloc3dv2.txt")),
+                       device=device, seed=chip_smoke.SEED)
+    gen = torch.Generator(device=device).manual_seed(chip_smoke.SEED)
+    chunk = submaps.make_places(gen, 32, 4, 4096).reshape(128, 4096, 3)
+    ones = torch.ones(chunk.shape[:2], dtype=torch.bool, device=device)
+    return [c for c in chip_smoke.record_calls(
+        kernels, lambda: inference.forward(v2, chunk, ones)) if c[0] == "tconv"]
+
+
+def tconv_rows(kernels, device, cycles_per_ms) -> list:
+    """The transposed convs of a MinkLoc3D forward at the b64 cell's batch
+    and of a MinkLoc3Dv2 forward on a staged chunk of 128 submaps."""
+    from egonn_tpu_torch import inference
     from egonn_tpu_torch.models.factory import model_factory
 
     mink = model_factory(chip_smoke._minkloc_params(), cap0=chip_smoke.MINKLOC_CAP0,
@@ -397,24 +422,82 @@ def tconv_rows(kernels, device, cycles_per_ms) -> list:
     calls = [("minkloc_b64", c) for c in chip_smoke.record_calls(
         kernels, lambda: inference.forward(mink, clouds, mask)) if c[0] == "tconv"]
     del clouds, mask
-    v2 = model_factory(ModelParams(str(chip_smoke.ROOT / "model_configs" / "minkloc3dv2.txt")),
-                       device=device, seed=chip_smoke.SEED)
-    gen = torch.Generator(device=device).manual_seed(chip_smoke.SEED)
-    chunk = submaps.make_places(gen, 32, 4, 4096).reshape(128, 4096, 3)
-    ones = torch.ones(chunk.shape[:2], dtype=torch.bool, device=device)
-    calls += [("staged_chunk", c) for c in chip_smoke.record_calls(
-        kernels, lambda: inference.forward(v2, chunk, ones)) if c[0] == "tconv"]
+    calls += [("staged_chunk", c) for c in _staged_chunk_tconv_calls(kernels, device)]
     with torch.no_grad():
         return [tconv_row(tag, args, kernels, cycles_per_ms) for tag, (_, args, _, _) in calls]
+
+
+def tconv_dw_row(tag, args, kernels, cycles_per_ms) -> dict:
+    """The weight gradient of one transposed-conv call (feats, up_parent,
+    up_koffset, kernel) for a seeded g on the rows with a parent: the kernel
+    over the slot order at the rule's slice and 1/2, 1 and 2 times its chunk
+    count and at 32 x 32 slices (as many blocks); the kmap_down route (the
+    map inverted beforehand, then gather_dw of g over it against the coarse
+    features, transposed: dW[k]^T); the plain form; each output held
+    against the plain form."""
+    feats, up_parent, up_koffset, kernel = args[:4]
+    b, c_coarse, f_in = feats.shape
+    c_fine, f_out = up_parent.shape[1], kernel.shape[2]
+    gen = torch.Generator(device=feats.device).manual_seed(chip_smoke.SEED)
+    g = torch.randn((b, c_fine, f_out), generator=gen, device=feats.device)
+    g = g * (up_parent < c_coarse)[..., None]
+    slots = kernels.slot_order(up_parent, up_koffset, c_coarse)
+    kmap_down = kernels.invert_up(up_parent, up_koffset, c_coarse)
+    want = kernels.tconv_dw_plain(feats, up_parent, up_koffset, g)
+    mb, nb, n = kernels.tconv_dw_tiling(b, c_fine, f_in, f_out)
+    settings = [(mb, nb, c) for c in sorted({max(1, n // 2), n, 2 * n})]
+    if (mb, nb) != (32, 32):  # as many blocks as the rule's
+        settings.append((32, 32, max(1, n * 32 * 32 // (mb * nb))))
+    runs = {f"slots {m}x{k} chunks {c}": (
+        lambda m=m, k=k, c=c: kernels._tconv_dw_cuda(feats, up_parent, slots, g, (m, k, c)))
+        for m, k, c in settings}
+    runs["kmap_down (gather_dw)"] = lambda: kernels.gather_dw(g, kmap_down, feats).transpose(1, 2)
+    for name, run in runs.items():
+        chip_smoke.compare("tconv_dw", run(), want)
+    runs["plain"] = lambda: kernels.tconv_dw_plain(feats, up_parent, up_koffset, g)
+    times = {name: chip_smoke.device_ms(run, cycles_per_ms, reps=10) for name, run in runs.items()}
+    dw_args = (feats, up_parent, up_koffset, g)
+    nbytes, ops, _ = chip_smoke.work("tconv_dw", dw_args, {}, want)
+    times["bound"] = chip_smoke.tc_bound_ms("tconv_dw", nbytes, ops)
+    rule = f"slots {mb}x{nb} chunks {n}"
+    best = min((k for k in runs if k != "plain"), key=times.get)
+    chip_smoke.log(f"[{tag}] tconv_dw {chip_smoke.call_desc('tconv_dw', dw_args)}: "
+                   + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+                   + f" ms; rule {rule}, fastest {best}; bound by "
+                   + ("bytes" if nbytes / chip_smoke.HBM_BYTES_PER_S >=
+                      3 * ops / chip_smoke.TF32_OPS_PER_S else "operations")
+                   + f", the rule at {100 * times['bound'] / times[rule]:.1f}% of it")
+    return dict(tag=tag, name="tconv_dw", call=chip_smoke.call_desc("tconv_dw", dw_args),
+                times=times, rule=rule, fastest=best, bytes=nbytes, ops=ops)
+
+
+def tconv_dw_rows(kernels, device, cycles_per_ms) -> list:
+    """The weight gradients of a MinkLoc3Dv2 staged chunk's transposed convs
+    and of EgoNN's heads' on the train step's global batch (32 clouds), at
+    the maps and features of their forwards."""
+    from egonn_tpu_torch import inference
+    from egonn_tpu_torch.models.factory import create_egonn_model
+    from egonn_tpu_torch.ops.quantization import PolarQuantizer
+
+    calls = [("staged_chunk", c) for c in _staged_chunk_tconv_calls(kernels, device)]
+    mp = types.SimpleNamespace(model="egonn", quantizer=PolarQuantizer([1.0, 0.3, 0.2]),
+                               cap0=chip_smoke.CAP0)
+    built = create_egonn_model(mp, cap0=chip_smoke.CAP0, device=device, seed=chip_smoke.SEED)
+    clouds, mask = chip_smoke.make_inputs(device, b=32)
+    calls += [("egonn_b32", c) for c in chip_smoke.record_calls(
+        kernels, lambda: inference.forward(built, clouds, mask)) if c[0] == "tconv"]
+    with torch.no_grad():
+        return [tconv_dw_row(tag, args, kernels, cycles_per_ms)
+                for tag, (_, args, _, _) in calls]
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("probe_kernels: CUDA is not available", file=sys.stderr)
         return 1
-    if sys.argv[1:] not in ([], ["bf16"], ["tconv"]):
-        print(f"probe_kernels: unknown arguments {sys.argv[1:]} (none, `bf16` or `tconv`)",
-              file=sys.stderr)
+    if sys.argv[1:] not in ([], ["bf16"], ["tconv"], ["tconv_dw"]):
+        print(f"probe_kernels: unknown arguments {sys.argv[1:]} (none, `bf16`, `tconv` or "
+              "`tconv_dw`)", file=sys.stderr)
         return 2
     from egonn_tpu_torch import inference
     from egonn_tpu_torch.models.factory import create_egonn_model, model_factory
@@ -426,11 +509,14 @@ def main() -> int:
     smi = chip_smoke.phase_environment(cuda_lib)
     device = torch.device("cuda")
     cycles_per_ms = chip_smoke._sleep_cycles_per_ms()
-    tconv = [] if sys.argv[1:] == ["bf16"] else tconv_rows(kernels, device, cycles_per_ms)
-    if sys.argv[1:] == ["tconv"]:
+    tconv = (tconv_rows(kernels, device, cycles_per_ms)
+             if sys.argv[1:] in ([], ["tconv"]) else [])
+    tconv_dw = (tconv_dw_rows(kernels, device, cycles_per_ms)
+                if sys.argv[1:] in ([], ["tconv_dw"]) else [])
+    if sys.argv[1:] in (["tconv"], ["tconv_dw"]):
         chip_smoke.OUT_DIR.mkdir(exist_ok=True)
         (chip_smoke.OUT_DIR / "probe_kernels.json").write_text(
-            json.dumps(dict(card=smi, tconv=tconv), indent=1))
+            json.dumps(dict(card=smi, tconv=tconv, tconv_dw=tconv_dw), indent=1))
         chip_smoke.log(f"card: {smi}")
         return 0
     mp = types.SimpleNamespace(model="egonn", quantizer=PolarQuantizer([1.0, 0.3, 0.2]),
@@ -475,8 +561,9 @@ def main() -> int:
             for name, args, kwargs, _ in calls:
                 # the validation step's tdown calls, the bf16 train step's conv and
                 # dW calls (the stem is f32 on every path: swept on the f32 ones;
-                # the transposed conv has rows of its own, `tconv_rows`)
-                if (name in ("lookup", "tconv", "slot_order")
+                # the transposed conv and its dW have rows of their own,
+                # `tconv_rows`, `tconv_dw_rows`)
+                if (name in ("lookup", "tconv", "slot_order", "tconv_dw")
                         or (tag == "val" and name != "tdown")
                         or (tag in ("bf16_train", "bf16_minkloc", "bf16_wide")
                             and name not in ("gather_conv", "gather_dw"))
@@ -490,7 +577,8 @@ def main() -> int:
                                       cycles_per_ms))
     chip_smoke.OUT_DIR.mkdir(exist_ok=True)
     (chip_smoke.OUT_DIR / "probe_kernels.json").write_text(
-        json.dumps(dict(card=smi, rows=rows, map_builds=builds, tconv=tconv), indent=1))
+        json.dumps(dict(card=smi, rows=rows, map_builds=builds, tconv=tconv,
+                        tconv_dw=tconv_dw), indent=1))
     chip_smoke.log(f"card: {smi}")
     return 0
 

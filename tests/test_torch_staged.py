@@ -401,7 +401,9 @@ def test_staged_step_spans(tmp_path):
     egonn.step.loss, a forward (trunk and head) and a backward a chunk,
     and the optimizer; validation the embed and the loss alone.  Each
     transposed conv is an egonn.tconv inside the phase that runs it: a
-    forward's two top-down steps, a backward's four down convs' dX."""
+    forward's two top-down steps, a backward's four down convs' dX; each
+    backward also holds the two top-down steps' weight gradients, an
+    egonn.tconv_dw each."""
     from test_torch_tracing import _inside, _phases, _spans, _tconvs_inside
 
     tp = _params()
@@ -431,6 +433,8 @@ def test_staged_step_spans(tmp_path):
                 model if p[0] == "egonn.step.forward" else [])
             assert _tconvs_inside(spans, p) == {"egonn.step.forward": 2,
                                                 "egonn.step.backward": 4}.get(p[0], 0)
+            assert _tconvs_inside(spans, p, "egonn.tconv_dw") == (
+                2 if p[0] == "egonn.step.backward" else 0)
 
 
 def _normalized_synthetic(root: str, n_scans: int) -> None:

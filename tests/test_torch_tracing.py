@@ -108,13 +108,14 @@ def _clouds(n):
 
 
 def _phases(spans):
-    """The spans other than the transposed convs' (`egonn.tconv`), which
-    nest inside the phase that runs them."""
-    return [s for s in spans if s[0] != "egonn.tconv"]
+    """The spans other than the transposed convs' (`egonn.tconv`) and their
+    weight gradients' (`egonn.tconv_dw`), which nest inside the phase that
+    runs them."""
+    return [s for s in spans if s[0] not in ("egonn.tconv", "egonn.tconv_dw")]
 
 
-def _tconvs_inside(spans, outer):
-    return sum(s[0] == "egonn.tconv" for s in _inside(spans, outer))
+def _tconvs_inside(spans, outer, name="egonn.tconv"):
+    return sum(s[0] == name for s in _inside(spans, outer))
 
 
 @pytest.mark.parametrize("model", ["egonn", "minkloc3d_mulran"])
@@ -197,3 +198,7 @@ def test_train_step_spans(tmp_path):
                 # the backward runs the down convs' dX as transposed convs: 7
                 # levels for the global loss, 4 for each local side
                 assert _tconvs_inside(spans, p) == (15 if p[0] == "egonn.step.backward" else 0)
+                # and the weight gradients of the transposed convs the losses
+                # reach: the global head's two, each local side's one
+                assert _tconvs_inside(spans, p, "egonn.tconv_dw") == (
+                    4 if p[0] == "egonn.step.backward" else 0)
