@@ -6,9 +6,14 @@ Quirks kept from the reference (misc/utils.py): `trans_max` falls back to
 the `rot_max` key; the scheduler defaults to MultiStepLR; `l_gammas` becomes
 `loss_gammas`; a `mink_quantization_size` key means cartesian coordinates.
 The optional [TPU] section carries the point budget and the level-0
-capacity, and for MinkLoc optionally a per-level capacity table
-(`capacities`, one entry per level 0..len(planes)), which replaces the
-cap0 >> l rule.
+capacity, and for MinkLoc and MinkUNet optionally a per-level capacity
+table (`capacities`, one entry per level 0..len(planes), MinkUNet's 0..4),
+which replaces the cap0 >> l rule.
+
+MinkUNet (`MinkUNet34C`, `models/minkunet.py`) reads `in_channels` (the
+per-point features: 4 for x, y, z, intensity), `num_classes`, and the key
+pack `pack_bits` with `pack_offsets` (x, y, z; `sparse/packing.py::PackSpec`,
+default `DEFAULT_PACK`), which the quantizer and the pyramid both use.
 
 MinkLoc3Dv2's training keys (Komorowski, ICPR 2022): `batch_split_size`
 (multistaged backpropagation in chunks of that many clouds,
@@ -32,6 +37,7 @@ from typing import List, Optional
 import numpy as np
 
 from egonn_tpu_torch.ops.quantization import CartesianQuantizer, PolarQuantizer
+from egonn_tpu_torch.sparse.packing import DEFAULT_PACK, PackSpec
 
 
 def get_datetime() -> str:
@@ -82,18 +88,29 @@ class ModelParams:
             self.pooling = params.get("pooling", "GeM")
             if params.getboolean("normalize_embeddings", False):
                 raise NotImplementedError("normalize_embeddings = True is not ported")
+        if "MinkUNet" in (self.model or ""):
+            self.in_channels = params.getint("in_channels", 4)
+            self.num_classes = params.getint("num_classes", 19)
+            self.pack = DEFAULT_PACK
+            if "pack_bits" in params:
+                self.pack = PackSpec(tuple(int(e) for e in params["pack_bits"].split(",")),
+                                     tuple(int(e) for e in params["pack_offsets"].split(",")))
 
         tpu = config["TPU"] if config.has_section("TPU") else {}
         self.num_points = int(tpu.get("num_points", 65536))  # padded raw points per cloud
         self.num_points_explicit = "num_points" in tpu
         self.cap0 = int(tpu.get("cap0", 16384))              # level-0 voxel capacity
         if "capacities" in tpu:
-            if not hasattr(self, "planes"):
-                raise ValueError("a capacity table is read for MinkLoc models only")
+            if hasattr(self, "planes"):
+                n_levels = len(self.planes)
+            elif hasattr(self, "num_classes"):
+                n_levels = 4  # MinkUNet's
+            else:
+                raise ValueError("a capacity table is read for MinkLoc and MinkUNet models only")
             self.capacities = [int(e) for e in tpu["capacities"].split(",")]
-            if len(self.capacities) != len(self.planes) + 1 or min(self.capacities) <= 0:
-                raise ValueError(f"capacities needs {len(self.planes) + 1} positive entries "
-                                 f"(levels 0..{len(self.planes)})")
+            if len(self.capacities) != n_levels + 1 or min(self.capacities) <= 0:
+                raise ValueError(f"capacities needs {n_levels + 1} positive entries "
+                                 f"(levels 0..{n_levels})")
 
     def print(self):
         print("Model parameters:")

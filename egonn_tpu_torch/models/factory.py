@@ -11,8 +11,14 @@
   from the config's per-level table (`capacities`, e.g. MinkLoc3Dv2's
   normalized submaps, where the finest levels barely merge), else
   max(256, cap0 >> min(l, 4)); every level records its up map.
+* `create_minkunet_model`: a MinkUNet segmentation network
+  (`models/minkunet.py`, `MinkUNet34C`) from the model parameters: its
+  input and class counts, the key pack, and the per-level capacity table
+  (required);
+  five levels, each with its up map and (level 0 besides the stem's 5^3
+  map) a 3^3 self map.
 * `model_factory`: dispatch on the model name (`MinkLoc3D`, `MinkLoc*` /
-  `MinkFPN*`, `egonn`).
+  `MinkFPN*`, `MinkUNet*`, `egonn`).
 
 Each builds its model in eval mode on `device`, with weights drawn from a
 `torch.Generator` seeded with `seed`.
@@ -27,6 +33,7 @@ from torch import nn
 
 from egonn_tpu_torch.models.minkgl import MinkGL
 from egonn_tpu_torch.models.minkloc import MinkLoc
+from egonn_tpu_torch.models.minkunet import MinkUNet34C
 from egonn_tpu_torch.ops.quantization import AnyQuantizer
 from egonn_tpu_torch.sparse.pyramid import PyramidSpec, egonn_pyramid_spec
 
@@ -35,10 +42,10 @@ Device = Union[str, torch.device]
 
 @dataclass
 class BuiltModel:
-    model: nn.Module          # MinkGL or MinkLoc
+    model: nn.Module          # MinkGL, MinkLoc or MinkUNet
     quantizer: AnyQuantizer
     pyramid_spec: PyramidSpec
-    model_type: str           # 'egonn' | 'minkloc'
+    model_type: str           # 'egonn' | 'minkloc' | 'minkunet'
     device: torch.device
 
 
@@ -111,12 +118,39 @@ def create_minkloc_model(model_params, cap0: Optional[int] = None,
     return _built(model, model_params.quantizer, spec, "minkloc", device)
 
 
+def create_minkunet_model(model_params, device: Device = torch.device("cuda"),
+                          seed: int = 0) -> BuiltModel:
+    """model_params needs `.model` ("MinkUNet34C"), `.quantizer`,
+    `.in_channels`, `.num_classes`, `.pack` (a `PackSpec`) and `.capacities`
+    (levels 0-4)."""
+    if model_params.model != "MinkUNet34C":
+        raise NotImplementedError(f"Unknown model: {model_params.model}")
+    gen = torch.Generator().manual_seed(seed)
+    model = MinkUNet34C(model_params.in_channels, model_params.num_classes, gen)
+    capacities = tuple(int(c) for c in model_params.capacities)
+    if len(capacities) != 5:
+        raise ValueError(f"capacities needs 5 entries, got {len(capacities)}")
+    spec = PyramidSpec(
+        capacities=capacities,
+        conv0_kernel_size=5,
+        block_kernel_size=3,
+        self_levels=(1, 2, 3, 4),
+        up_levels=(0, 1, 2, 3),
+        pack=model_params.pack,
+        need_source_index=False,
+        l0_block_map=True,
+    )
+    return _built(model, model_params.quantizer, spec, "minkunet", device)
+
+
 def model_factory(model_params, cap0: Optional[int] = None,
                   device: Device = torch.device("cuda"), seed: int = 0) -> BuiltModel:
     name = model_params.model or ""
     if name == "MinkLoc3D":
         return create_minkloc_model(model_params, cap0, frozen_minkloc3d=True, device=device,
                                     seed=seed)
+    if "MinkUNet" in name:
+        return create_minkunet_model(model_params, device=device, seed=seed)
     if "MinkLoc" in name or "MinkFPN" in name:
         return create_minkloc_model(model_params, cap0, device=device, seed=seed)
     if "egonn" in name:

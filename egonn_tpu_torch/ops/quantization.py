@@ -10,7 +10,10 @@
 * `CartesianQuantizer(step)`: the same without the polar transform.
 
 `quantize(pc, mask, capacity)` takes clouds `(..., N, 3)` with masks
-`(..., N)` and returns a fixed-capacity, key-sorted `SortedUnique`.
+`(..., N)` and returns a fixed-capacity, key-sorted `SortedUnique`, its
+keys packed by `pack` (the pyramid spec's; `DEFAULT_PACK` unless a model
+asks for another); with `need_inverse` a `Voxelized`, which adds each
+point's voxel row.
 Float32 throughout; floor semantics for negative coordinates.
 `quantize_np` is the host numpy dedup of the local training dataset.
 """
@@ -23,7 +26,13 @@ import numpy as np
 import torch
 
 from egonn_tpu_torch.ops.geometry import polar_to_cartesian
-from egonn_tpu_torch.sparse.packing import SortedUnique, sorted_unique
+from egonn_tpu_torch.sparse.packing import (
+    DEFAULT_PACK,
+    PackSpec,
+    SortedUnique,
+    Voxelized,
+    sorted_unique,
+)
 from egonn_tpu_torch.utils.tracing import span
 
 
@@ -59,10 +68,11 @@ class PolarQuantizer:
         ], dim=-2)
 
     def quantize(self, pc: torch.Tensor, mask: torch.Tensor, capacity: int,
-                 need_index: bool = True) -> SortedUnique:
+                 need_index: bool = True, pack: PackSpec = DEFAULT_PACK,
+                 need_inverse: bool = False) -> Union[SortedUnique, Voxelized]:
         with span("egonn.quantize"):
-            return sorted_unique(self.to_polar_voxels(pc), mask, capacity,
-                                 need_index=need_index)
+            return sorted_unique(self.to_polar_voxels(pc), mask, capacity, pack,
+                                 need_index=need_index, need_inverse=need_inverse)
 
     __call__ = quantize
 
@@ -93,10 +103,11 @@ class CartesianQuantizer:
         return torch.floor(pc.transpose(-1, -2) / self.quant_step).to(torch.int32)
 
     def quantize(self, pc: torch.Tensor, mask: torch.Tensor, capacity: int,
-                 need_index: bool = True) -> SortedUnique:
+                 need_index: bool = True, pack: PackSpec = DEFAULT_PACK,
+                 need_inverse: bool = False) -> Union[SortedUnique, Voxelized]:
         with span("egonn.quantize"):
-            return sorted_unique(self.to_voxels(pc), mask, capacity,
-                                 need_index=need_index)
+            return sorted_unique(self.to_voxels(pc), mask, capacity, pack,
+                                 need_index=need_index, need_inverse=need_inverse)
 
     __call__ = quantize
 

@@ -24,7 +24,7 @@ def _level_occupancy(clouds: torch.Tensor, masks: torch.Tensor, quantizer,
                      spec: PyramidSpec) -> list:
     """Max over the batch of each level's true unique-voxel count (voxels
     beyond a level's capacity included)."""
-    res = quantizer.quantize(clouds, masks, spec.capacities[0], need_index=False)
+    res = quantizer.quantize(clouds, masks, spec.capacities[0], need_index=False, pack=spec.pack)
     pyr = build_pyramid(res.coords_t, res.mask, spec, keys0=res.keys, n_unique0=res.n_unique)
     counts = torch.stack([pyr[l].n_unique.max() for l in range(spec.num_levels + 1)])
     return [int(v) for v in counts.cpu()]

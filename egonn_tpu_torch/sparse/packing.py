@@ -13,7 +13,7 @@ the JAX package's.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -166,24 +166,40 @@ class SortedUnique(NamedTuple):
     coords_t: torch.Tensor  # (..., 3, capacity) int32 coords of unique voxels
     mask: torch.Tensor      # (..., capacity) bool
     index: torch.Tensor     # (..., capacity) int32 FIRST source row per voxel
-                            # (0 on pads); all-zero when need_index=False
+                            # (0 on pads); all-zero unless need_index or need_inverse
     n_unique: torch.Tensor  # (...) int32 unique count incl. beyond-capacity overflow
 
 
+class Voxelized(NamedTuple):
+    """`SortedUnique`'s fields, then each input point's voxel."""
+    keys: torch.Tensor
+    coords_t: torch.Tensor
+    mask: torch.Tensor
+    index: torch.Tensor
+    n_unique: torch.Tensor
+    inverse: torch.Tensor   # (..., N) int32 each input point's voxel row,
+                            # `capacity` where the point is masked, outside
+                            # the pack's range or in a voxel beyond capacity
+
+
 def sorted_unique(coords_t: torch.Tensor, mask: torch.Tensor, capacity: int,
-                  spec: PackSpec = DEFAULT_PACK, need_index: bool = True) -> SortedUnique:
+                  spec: PackSpec = DEFAULT_PACK, need_index: bool = True,
+                  need_inverse: bool = False) -> Union[SortedUnique, Voxelized]:
     """Fixed-capacity voxel dedup keeping the first (lowest source row) point
     per voxel; output sorted by packed key.
 
     need_index=False skips the source-row payload (the model never needs it);
-    coords are then reconstructed from the keys."""
+    coords are then reconstructed from the keys.  need_inverse=True returns
+    a `Voxelized`: the point -> voxel inverse besides (the rank of each
+    point's run, scattered back to source order) and the source rows, the
+    coords still from the keys unless need_index."""
     keys = pack_keys(coords_t, mask, spec)
     # stable: equal keys keep source order, so the run start is the first row
     sorted_keys, sorted_rows = torch.sort(keys, dim=-1, stable=True)
     is_first = run_starts(sorted_keys)
-    out_keys, _, out_rows = compact_first(
+    out_keys, rank, out_rows = compact_first(
         sorted_keys, is_first, capacity,
-        payload=sorted_rows if need_index else None)
+        payload=sorted_rows if need_index or need_inverse else None)
     out_mask = out_keys != MAXKEY
     if need_index:
         out_rows = out_rows.to(torch.int32)
@@ -192,8 +208,13 @@ def sorted_unique(coords_t: torch.Tensor, mask: torch.Tensor, capacity: int,
             coords_t, -1,
             out_rows.long().unsqueeze(-2).expand(*out_rows.shape[:-1], 3, capacity))
     else:
-        out_rows = torch.zeros_like(out_keys)
+        out_rows = out_rows.to(torch.int32) if need_inverse else torch.zeros_like(out_keys)
         out_coords = torch.where(out_mask.unsqueeze(-2),
                                  unpack_keys(out_keys, spec), 0).to(torch.int32)
     n_unique = is_first.sum(-1).to(torch.int32)
-    return SortedUnique(out_keys, out_coords, out_mask, out_rows, n_unique)
+    if not need_inverse:
+        return SortedUnique(out_keys, out_coords, out_mask, out_rows, n_unique)
+    kept = (sorted_keys != MAXKEY) & (rank < capacity)
+    inverse = torch.empty_like(sorted_keys)
+    inverse.scatter_(-1, sorted_rows, torch.where(kept, rank, capacity).to(torch.int32))
+    return Voxelized(out_keys, out_coords, out_mask, out_rows, n_unique, inverse)

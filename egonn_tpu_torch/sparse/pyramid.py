@@ -14,6 +14,13 @@ For each level l (tensor stride 2^l) `build_pyramid` computes:
   only and stores 0 where the neighbour exists, the sentinel where not;
   levels >= 1 store positions rank + popcount(bits below the slot).
 
+* `kmap_block` (level 0, `PyramidSpec.l0_block_map`): the blocks'
+  block_kernel_size^3 self map beside the stem's larger one, for a model
+  whose blocks run at level 0 (MinkUNet's last stage).  Both kernels are
+  centred and odd, so the smaller kernel's offsets are the centre cube of
+  the larger's, in the same C order: the map is a slice of the stem's map,
+  equal to a direct search.
+
 * `kmap_down`: the k=2 s=2 down conv's (B, 8, C_l) gather map into level
   l-1, for l >= 1.  Where level l-1 records no up map it is always built, by
   the lookup kernel in down mode (`sparse/kernels.py::lookup_down`: the 8
@@ -85,6 +92,8 @@ class PyramidSpec:
       re-canonicalizes its input.
     conv0_ones: the stem consumes constant-ones features, so its map records
       presence only (0 / sentinel).
+    l0_block_map: level 0 also gets the blocks' self map (`Level.kmap_block`),
+      sliced from the stem's (which must record positions: not conv0_ones).
     """
 
     capacities: Tuple[int, ...]
@@ -95,6 +104,16 @@ class PyramidSpec:
     pack: PackSpec = DEFAULT_PACK
     need_source_index: bool = True
     conv0_ones: bool = False
+    l0_block_map: bool = False
+
+    def __post_init__(self):
+        if self.l0_block_map and (
+                self.conv0_ones or self.block_kernel_size % 2 == 0
+                or self.conv0_kernel_size % 2 == 0
+                or self.block_kernel_size > self.conv0_kernel_size):
+            raise ValueError("l0_block_map slices the stem's map: it needs odd kernels, the "
+                             "blocks' no larger than the stem's, and positions (conv0_ones "
+                             "False)")
 
     @property
     def num_levels(self) -> int:
@@ -156,6 +175,17 @@ def _self_kmap(keys: torch.Tensor, coords_t: torch.Tensor, mask: torch.Tensor, k
         rows.append(torch.where(pres > 0, pos, c))
         below = below + pres
     return torch.stack(rows, dim=2).reshape(b, k ** 3, c).to(torch.int32)
+
+
+def _block_map(kmap_self: torch.Tensor, k_stem: int, k_block: int) -> torch.Tensor:
+    """(B, k_block^3, C) the centre cube of a (B, k_stem^3, C) self map: the
+    offsets with every |d| <= k_block // 2, in C order (one copy, no index
+    tensor)."""
+    b, _, c = kmap_self.shape
+    lo = (k_stem - k_block) // 2
+    cube = kmap_self.reshape(b, k_stem, k_stem, k_stem, c)[
+        :, lo:lo + k_block, lo:lo + k_block, lo:lo + k_block]
+    return cube.reshape(b, k_block ** 3, c)
 
 
 def _dedup_chain(keys0: torch.Tensor, spec: PyramidSpec):
@@ -237,11 +267,15 @@ def build_pyramid(coords0_t: torch.Tensor, mask0: torch.Tensor, spec: PyramidSpe
             if kmap_down is None and l >= 1 and with_kmap_down:
                 kmap_down = kernels.invert_up(levels[l - 1].up_parent, levels[l - 1].up_koffset,
                                               spec.capacities[l])
+            kmap_block = None
+            if l == 0 and spec.l0_block_map:
+                kmap_block = _block_map(kmap_self, spec.conv0_kernel_size,
+                                        spec.block_kernel_size)
             levels.append(Level(
                 coords=coords[l], mask=masks[l], n_unique=n_uniques[l],
                 kmap_self=kmap_self, kmap_down=kmap_down, up_parent=up_parent,
                 up_koffset=up_koffset,
-                source_index=source_index if l == 0 else None,
+                source_index=source_index if l == 0 else None, kmap_block=kmap_block,
             ))
         return Pyramid(levels=tuple(levels))
 

@@ -29,6 +29,9 @@ class Level:
     up_parent: Optional[torch.Tensor] = None    # (B, C) gather into level l+1
     up_koffset: Optional[torch.Tensor] = None   # (B, C) int32 in [0, 8) kernel slot
     source_index: Optional[torch.Tensor] = None  # (B, C) level 0 only: input row
+    # level 0 only, where the spec asks for it: the blocks' self map beside
+    # the stem's (B, k_block^3, C)
+    kmap_block: Optional[torch.Tensor] = None
     # the up map's slot order, built at first use (sparse/conv.py::level_slots)
     up_slots: Optional[SlotOrder] = None
 

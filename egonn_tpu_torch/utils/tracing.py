@@ -9,11 +9,17 @@ kernels they launch:
 
     egonn.forward          inference.forward, the whole call
     egonn.augment          the training augmentation (device_preprocess_global)
-    egonn.quantize         PolarQuantizer / CartesianQuantizer.quantize
+    egonn.quantize         PolarQuantizer / CartesianQuantizer.quantize (the
+                           point -> voxel inverse where asked for)
     egonn.pyramid          sparse/pyramid.py::build_pyramid
-    egonn.trunk            MinkGL's trunk, MinkLoc's backbone
+    egonn.trunk            MinkGL's trunk, MinkLoc's backbone; MinkUNet's
+                           voxel features, stem and encoder
     egonn.global_head      head, decoder, normalisation, masking, pooling
     egonn.local_head       MinkGL's local head through sigma and kp_mask
+    egonn.decoder          MinkUNet's decoder: the transposed convs, their
+                           BatchNorm, the concatenations, blocks 5-8
+    egonn.devoxelize       MinkUNet's `final` 1x1 conv and each point's
+                           gather of its voxel's logits
     egonn.tconv            each transposed conv (sparse/conv.py::
                            sparse_tconv2x2): the FPN top-down steps and
                            heads, and every down conv's dX in a backward,
